@@ -2,23 +2,33 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
-    python3 chip_smoke.py --profile DIR   # also profile one served round
+    python3 chip_smoke.py --profile DIR   # also profile one served round and
+                                          # one train step
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. device: requires a CUDA card and prints nvidia-smi's name and power limit;
- 2. build: compiles every kernel of the serving path from csrc/ (sm_90a);
+ 2. build: compiles every kernel of the serving and training paths from
+    csrc/ (sm_90a);
  3. kernels: holds each hand-written kernel against its plain PyTorch version
-    at the serving path's shapes, and times kernel, plain version, one
-    library call, and the card's bound for the same work;
+    at the serving and training paths' shapes, and times kernel, plain
+    version, one library call, and the card's bound for the same work;
  4. serve: RolloutEngine.generate at qwen3-0.6b's full size in bf16 (28
     layers, d=1024, V=151936) for 4 tenants x 4 gsm8k requests with
     random-b adapters; the kernels' launch counts must match the steps run;
  5. check: teacher-forces 4 served rows through forward_seq in fp32 on the
-    card (kernels) and on the CPU (plain versions) and compares the logprobs.
+    card (kernels) and on the CPU (plain versions) and compares the logprobs;
+ 6. train: three GRPO iterations at the same full size — generate 4 groups x
+    4 gsm8k samples under one tenant's adapter, pack them
+    (to_trajectory_batch), one make_train_step update (LoRA-only, KL and
+    entropy terms on, token_logprob kernels: 2 forwards + 1 backward a step);
+ 7. train check: one group of phase 6's batch in fp32, the step's loss,
+    metrics, adapter gradient and updated adapters on the card (kernels)
+    against the CPU (plain versions).
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
 import json
+import random
 import subprocess
 import sys
 import time
@@ -33,6 +43,11 @@ TENANTS, PER_TENANT, MAX_NEW, MAX_LEN = 4, 4, 32, 256
 B_SCALE = 0.02          # adapter b ~ N(0, B_SCALE^2): a delta of ~10% of a projection
 TF_ROWS = 4             # rows teacher-forced in phase 5
 TF_TOL = 1e-3           # fp32 logprobs, card (kernels) vs CPU (plain versions)
+GROUPS, GROUP_SIZE, TRAIN_ITERS = 4, 4, 3      # phase 6: GRPO groups per batch
+LR = 3e-3               # the JAX package's TaskSpec default
+METRIC_TOL = 1e-4       # phase 7: fp32 loss and metrics, card vs CPU (absolute)
+GRAD_TOL = 1e-3         # phase 7: gradient max abs diff / gradient norm
+PROD_ROWS = 4096        # a production micro-batch of token rows (phase 3)
 
 
 def log(msg):
@@ -229,6 +244,115 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     return cases
 
 
+def check_token_logprob(torch, tlp, ref, g, R_main):
+    """Forward and backward kernels against their plain versions. Timed at
+    the smoke's training batch (R_main token rows) and a production
+    micro-batch (PROD_ROWS), qwen3-0.6b widths in bf16 with the tied
+    embedding's transpose as W; checked also at small V in fp32, with a
+    softcap and with an untied head. Tolerances: logprob/entropy 1e-3 bf16
+    and 1e-4 fp32 absolute (fp32 accumulation both sides, sum order only);
+    dh 1e-2 (bf16: dz rounds to bf16 before dz @ W^T) and 1e-4 (fp32) of
+    dh's largest element."""
+    import torch.nn.functional as F
+    d, V = 1024, 151936
+    fwd_cases, bwd_cases = [], []
+    for R, Vc, dt, cap, layout, timed in (
+            (R_main, V, torch.bfloat16, 0.0, "tied", True),
+            (PROD_ROWS, V, torch.bfloat16, 0.0, "tied", True),
+            (300, 5003, torch.float32, 0.0, "tied", False),
+            (300, 5003, torch.bfloat16, 30.0, "tied", False),
+            (300, 5003, torch.float32, 30.0, "untied", False),
+            (300, 5003, torch.bfloat16, 0.0, "untied", False)):
+        h = torch.randn(R, d, generator=g, device="cuda").to(dt)
+        if layout == "tied":     # the embedding table [V, d] read as W = table.T
+            w = (torch.randn(Vc, d, generator=g, device="cuda") * 0.02).to(dt).T
+        else:
+            w = (torch.randn(d, Vc, generator=g, device="cuda") * 0.02).to(dt)
+        t = torch.randint(0, Vc, (R,), generator=g, device="cuda", dtype=torch.int32)
+        g_lp = torch.randn(R, generator=g, device="cuda") / R
+        g_ent = torch.randn(R, generator=g, device="cuda") / R
+        lp, ent, _ = tlp.token_logprob_fwd(h, w, t, cap)
+        want_lp, want_ent, want_lse = ref.token_logprob_stats_ref(h, w, t, cap)
+        dh = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent, cap)
+        want_dh = ref.token_logprob_bwd_ref(h, w, t, want_lse, want_ent, g_lp,
+                                            g_ent, cap)
+        torch.cuda.synchronize()
+        tol = 1e-3 if dt == torch.bfloat16 else 1e-4
+        dh_tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+        f_err = max(float((lp - want_lp).abs().max()),
+                    float((ent - want_ent).abs().max()))
+        dh_scale = float(want_dh.float().abs().max())
+        b_err = float((dh.float() - want_dh.float()).abs().max())
+        name = f"R={R} V={Vc} {str(dt).split('.')[1]} cap={cap:.0f} {layout}"
+        if f_err > tol or b_err > dh_tol * dh_scale:
+            raise AssertionError(f"token_logprob {name}: forward err {f_err:.3e} "
+                                 f"(tol {tol}), dh err {b_err:.3e} (tol "
+                                 f"{dh_tol} x {dh_scale:.3e})")
+        shape = dict(R=R, d=d, V=Vc, dtype=str(dt).split(".")[1], softcap=cap,
+                     layout=layout, main=R == R_main and timed)
+        fc = dict(shape, max_abs_err=f_err, tol=tol)
+        bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale)
+        line = f"  token_logprob {name}: fwd err {f_err:.2e} (tol {tol}) dh err " \
+               f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e})"
+        if timed:
+            elt = h.element_size()
+            peak = str(dt).split(".")[1]
+            sets = [(h, w, t)]
+            bsets = [(h, w, t, want_lse, want_ent, g_lp, g_ent)]
+
+            def kfwd(h, w, t):
+                return tlp.token_logprob_fwd(h, w, t, cap)
+
+            def pfwd(h, w, t):
+                return ref.token_logprob_stats_ref(h, w, t, cap)
+
+            def lfwd(h, w, t):
+                logits = (h @ w).float()
+                lp = -F.cross_entropy(logits, t.long(), reduction="none")
+                ls = torch.log_softmax(logits, dim=-1)
+                return lp, -(ls.exp() * ls).sum(-1)
+
+            def kbwd(h, w, t, lse, ent, a, b):
+                return tlp.token_logprob_bwd(h, w, t, lse, ent, a, b, cap)
+
+            def pbwd(h, w, t, lse, ent, a, b):
+                return ref.token_logprob_bwd_ref(h, w, t, lse, ent, a, b, cap)
+
+            def lfwdbwd(h, w, t, lse, ent, a, b):
+                hh = h.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    lp, en = lfwd(hh, w, t)
+                    return torch.autograd.grad((lp * a + en * b).sum(), hh)[0]
+
+            it = 10 if R > 1000 else 20
+            fc.update(ms=device_ms(kfwd, sets, it), call_ms=bench_ms(kfwd, sets, it),
+                      plain_ms=device_ms(pfwd, sets, 3),
+                      library_ms=device_ms(lfwd, sets, 5))
+            lib_fb = device_ms(lfwdbwd, bsets, 5)
+            bc.update(ms=device_ms(kbwd, bsets, it), call_ms=bench_ms(kbwd, bsets, it),
+                      plain_ms=device_ms(pbwd, bsets, 3),
+                      library_ms=max(lib_fb - fc["library_ms"], 0.0),
+                      library_fwd_bwd_ms=lib_fb)
+            w_bytes, h_bytes = d * Vc * elt, R * d * elt
+            fb_ms, fb_by = bound_ms(w_bytes + h_bytes + 4 * R + 8 * R,
+                                    2 * R * d * Vc, peak)
+            bb_ms, bb_by = bound_ms(w_bytes + 2 * h_bytes + 4 * R + 16 * R,
+                                    4 * R * d * Vc, peak)
+            fc.update(bound_ms=fb_ms, bound_by=fb_by)
+            bc.update(bound_ms=bb_ms, bound_by=bb_by)
+            line += (f"\n    forward: kernel {fc['ms']:.4f} ms (eager call "
+                     f"{fc['call_ms']:.4f}) plain {fc['plain_ms']:.4f} library "
+                     f"{fc['library_ms']:.4f} bound {fb_ms:.4f} ({fb_by})"
+                     f"\n    backward: kernel {bc['ms']:.4f} ms (eager call "
+                     f"{bc['call_ms']:.4f}) plain {bc['plain_ms']:.4f} library "
+                     f"{bc['library_ms']:.4f} (fwd+bwd {lib_fb:.4f}) bound "
+                     f"{bb_ms:.4f} ({bb_by})")
+        fwd_cases.append(fc)
+        bwd_cases.append(bc)
+        log(line)
+    return fwd_cases, bwd_cases
+
+
 def kernel_entry(name, source, replaces, cases, launches, extra):
     main = next(c for c in cases if c["main"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -240,7 +364,7 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
                 shape={k: v for k, v in main.items()
                        if k not in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "tol", "main",
-                                    "call_ms")},
+                                    "call_ms", "library_fwd_bwd_ms")},
                 **extra, cases=cases)
 
 
@@ -277,18 +401,9 @@ def teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, device):
     return out
 
 
-def profile_serve(torch, cfg, params, adapters, out_dir):
-    """One short served round under torch.profiler: device time by kernel,
-    and the device's busy share of the round's wall time. The full table
-    goes to out_dir/serve_profile.txt."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.rollout.engine import RolloutEngine
-
-    eng = RolloutEngine(cfg, params, max_len=MAX_LEN, seed=2, device="cuda")
-    reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=8, seed=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, st = eng.generate(reqs, adapters)
+def _profile_report(prof, wall_s):
+    """(device busy seconds, device ms by group, report lines) of a
+    torch.profiler run: device time by kernel and group, host time by op."""
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -308,19 +423,66 @@ def profile_serve(torch, cfg, params, adapters, out_dir):
                    if "CUDA" not in str(getattr(e, "device_type", ""))), reverse=True)
     lines = [f"{us / 1e3:10.3f} ms {n:7d} calls  {key}" for us, n, key in rows]
     host_lines = [f"{us / 1e3:10.3f} ms {n:7d} calls  {key}" for us, n, key in host[:40]]
+    text = (f"wall {wall_s:.4f} s, device busy {busy_s:.4f} s\n\n-- device time by "
+            f"group (ms)\n"
+            + "\n".join(f"{v:10.3f}  {k}" for k, v in sorted(groups.items(),
+                                                             key=lambda kv: -kv[1]))
+            + "\n\n-- device time by kernel\n" + "\n".join(lines)
+            + "\n\n-- host self time by op (top 40)\n" + "\n".join(host_lines) + "\n")
+    return busy_s, groups, lines, text
+
+
+def _groups_line(groups):
+    return ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                                       key=lambda kv: -kv[1]))
+
+
+def profile_serve(torch, cfg, params, adapters, out_dir):
+    """One short served round under torch.profiler: device time by kernel,
+    and the device's busy share of the round's wall time. The full table
+    goes to out_dir/serve_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.rollout.engine import RolloutEngine
+
+    eng = RolloutEngine(cfg, params, max_len=MAX_LEN, seed=2, device="cuda")
+    reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=8, seed=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, st = eng.generate(reqs, adapters)
+    busy_s, groups, lines, text = _profile_report(prof, st.wall_seconds)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "serve_profile.txt").write_text(
-        f"decode steps {st.decode_steps}, wall {st.wall_seconds:.4f} s, device busy "
-        f"{busy_s:.4f} s\n\n-- device time by group (ms)\n"
-        + "\n".join(f"{v:10.3f}  {k}" for k, v in sorted(groups.items(),
-                                                         key=lambda kv: -kv[1]))
-        + "\n\n-- device time by kernel\n" + "\n".join(lines)
-        + "\n\n-- host self time by op (top 40)\n" + "\n".join(host_lines) + "\n")
+        f"decode steps {st.decode_steps}, " + text)
     log(f"[4b profile] {st.decode_steps} decode steps, wall {st.wall_seconds:.4f} s "
         f"(under the profiler), device busy {busy_s:.4f} s = "
         f"{100 * busy_s / st.wall_seconds:.1f}%; device ms by group: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(),
-                                                      key=lambda kv: -kv[1])))
+        + _groups_line(groups))
+    for line in lines[:12]:
+        log("  " + line[:150])
+
+
+def profile_train(torch, cfg, params, start, tb, tc, out_dir):
+    """One train step of phase 6's last batch under torch.profiler (device
+    time by kernel group, busy share); the table goes to
+    out_dir/train_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.train_step import batch_from_trajectory, make_train_step
+
+    step = make_train_step(cfg, tc)
+    batch = batch_from_trajectory(tb, tc, "cuda")
+    lora, opt = start
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, lora, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_s, groups, lines, text = _profile_report(prof, wall)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "train_profile.txt").write_text("one train step, " + text)
+    log(f"[6b profile] one train step, wall {wall:.4f} s (under the profiler), "
+        f"device busy {busy_s:.4f} s = {100 * busy_s / wall:.1f}%; device ms by "
+        f"group: " + _groups_line(groups))
     for line in lines[:12]:
         log("  " + line[:150])
 
@@ -329,6 +491,8 @@ def _kernel_group(name):
     """Coarse owner of a device kernel, for the profile's breakdown."""
     if "sgmv" in name:
         return "sgmv"
+    if "tlp_" in name:
+        return "token_logprob"
     if "gqa_decode" in name:
         return "gqa_decode"
     if "Memcpy" in name or "Memset" in name:
@@ -338,6 +502,168 @@ def _kernel_group(name):
     if "<long" in name or "Bitwise" in name or "shift" in name:
         return "int64 elementwise (sampler)"
     return "other elementwise / reductions"
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: GRPO training
+# ---------------------------------------------------------------------------
+
+def grpo_requests(env, rng, task_id):
+    """GROUPS x GROUP_SIZE requests on adapter 0; each group's samples share
+    one prompt (as the JAX runtime's _build_requests builds them)."""
+    from repro_torch.rollout.engine import RolloutRequest
+    reqs = []
+    for _ in range(GROUPS):
+        prompt, truth = env.sample_prompt(rng)
+        reqs += [RolloutRequest(task_id, 0, prompt, truth, env,
+                                max_new_tokens=MAX_NEW, temperature=0.8)
+                 for _ in range(GROUP_SIZE)]
+    return reqs
+
+
+def count_all(kernel_modules, reset=False):
+    """Every kernel wrapper's launch count (set to 0 first with reset)."""
+    counts = {}
+    for name, counter in kernel_modules.items():
+        if reset:
+            counter.n = 0
+        counts[name] = counter.n
+    return counts
+
+
+def train_phase(torch, cfg, params, counters, card):
+    """Phase 6: TRAIN_ITERS iterations of generate -> to_trajectory_batch ->
+    make_train_step at full size, one tenant. Returns the record, the last
+    batch, and the adapter and optimizer state that step started from."""
+    from repro_torch.envs.tasks import make_env
+    from repro_torch.launch.serve import make_adapters
+    from repro_torch.rollout.engine import RolloutEngine, to_trajectory_batch
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, batch_from_trajectory,
+                                              init_opt_state, make_train_step)
+    import math
+
+    tc = TrainConfig(group_size=GROUP_SIZE, use_logprob_kernel=True, kl_coef=0.01,
+                     ent_coef=0.01, adamw=AdamWConfig(lr=LR))
+    lora = make_adapters(cfg, 1, seed=3, device="cuda", b_scale=B_SCALE)[0]
+    opt = init_opt_state(cfg, tc, params, lora)
+    step = make_train_step(cfg, tc)
+    engine = RolloutEngine(cfg, params, max_len=MAX_LEN, seed=3, device="cuda")
+    env, rng = make_env("gsm8k"), random.Random(7)
+    steps = []
+    count_all(counters, reset=True)
+    for it in range(TRAIN_ITERS):
+        results, st = engine.generate(grpo_requests(env, rng, "tenant-0"), [lora])
+        for r in results:
+            if not all(math.isfinite(lp) and lp <= 0 for lp in r["gen_logprobs"]):
+                raise AssertionError("served logprob non-finite or positive")
+        tb = to_trajectory_batch(results, "tenant-0", it, GROUP_SIZE)
+        batch = batch_from_trajectory(tb, tc, "cuda")
+        S = tb.tokens.shape[1]
+        loss_tokens = float((tb.completion_mask()[:, :S - 1]
+                             * tb.meta["loss_mask"][:, :S - 1]).sum())
+        before = count_all(counters)
+        prev = (lora, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        lora, opt, m = step(params, lora, opt, batch)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        after = count_all(counters)
+        fwd = after["token_logprob_fwd"] - before["token_logprob_fwd"]
+        bwd = after["token_logprob_bwd"] - before["token_logprob_bwd"]
+        if (fwd, bwd) != (2, 1):
+            raise AssertionError(f"train step {it}: token_logprob forward {fwd} "
+                                 f"and backward {bwd} launches (want 2 and 1)")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {it}: non-finite metrics {m}")
+        if not m["grad_norm"] > 0:
+            raise AssertionError(f"train step {it}: zero gradient")
+        same = [bool(torch.equal(a, b)) for a, b in zip(tree_leaves(prev[0]),
+                                                         tree_leaves(lora))]
+        if any(same):
+            raise AssertionError(f"train step {it}: {sum(same)} adapter leaves "
+                                 f"unchanged")
+        rec = dict(step=it, rows=tb.num_rows, seq=S, token_rows=tb.num_rows * (S - 1),
+                   loss_tokens=loss_tokens, train_ms=1e3 * secs,
+                   trained_tokens_per_s=loss_tokens / secs,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   generate_s=st.wall_seconds, reward_mean=m["reward_mean"],
+                   **{k: m[k] for k in ("loss", "pg_loss", "kl", "entropy",
+                                        "grad_norm")})
+        steps.append(rec)
+        log(f"[6 train] step {it}: {tb.num_rows} rows x {S - 1} positions "
+            f"({loss_tokens:.0f} loss tokens), train {rec['train_ms']:.1f} ms = "
+            f"{rec['trained_tokens_per_s']:.1f} trained tok/s, peak "
+            f"{rec['peak_mem_gib']:.2f} GiB; loss {m['loss']:.6f} kl {m['kl']:.6f} "
+            f"entropy {m['entropy']:.4f} grad_norm {m['grad_norm']:.6f} reward "
+            f"{m['reward_mean']:.3f}; generate {st.wall_seconds:.2f} s")
+    launches = count_all(counters)
+    return dict(steps=steps, launches=launches, card=card), tb, prev, tc
+
+
+def train_check(torch, M, cfg, params, tb, start, tc):
+    """Phase 7: one group of the last batch in fp32 through the step's own
+    functions (make_grad_fn, then adamw_update as make_train_step does), on
+    the card (kernels) and on the CPU (plain versions), from the same adapter
+    and optimizer state. Raises on any miss."""
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import adamw_update, global_norm
+    from repro_torch.train.train_step import batch_from_trajectory, make_grad_fn
+    from repro_torch.kernels import token_logprob as tlp
+
+    lora, opt = start
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def mv(tree, dev=dev):
+            return M.tree_map(lambda t: t.to(device=dev, dtype=torch.float32)
+                              if t.is_floating_point() else t.to(dev), tree)
+        p32 = mv(params)
+        batch = {k: v[:GROUP_SIZE] for k, v in
+                 batch_from_trajectory(tb, tc, dev).items()}
+        n0 = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
+        metrics, grads = make_grad_fn(cfg, tc)(p32, mv(lora), batch)
+        new, _, gnorm = adamw_update(mv(lora), grads, mv(opt), tc.adamw)
+        n1 = (tlp.FWD_LAUNCHES.n - n0[0], tlp.BWD_LAUNCHES.n - n0[1])
+        if n1 != ((2, 1) if dev == "cuda" else (0, 0)):
+            raise AssertionError(f"phase 7 on {dev}: token_logprob launches {n1}")
+        out[dev] = ([M.tree_map(lambda t: t.cpu(), x) for x in (metrics, grads, new)],
+                    float(gnorm))
+        del p32
+    (m_g, g_g, new_g), _ = out["cuda"]
+    (m_c, g_c, new_c), gnorm_c = out["cpu"]
+    m_err = max(abs(float(m_g[k]) - float(m_c[k])) for k in m_c)
+    g_norm = float(global_norm(g_c))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(g_g),
+                                                          tree_leaves(g_c)))
+    # AdamW's first moments make each step ~ lr * g / (|g| + eps): compare
+    # the updated adapters only where the clipped CPU gradient is > 100 eps
+    clip = min(1.0, tc.adamw.grad_clip / (gnorm_c + 1e-9)) if tc.adamw.grad_clip else 1.0
+    p_err, n_cmp, n_all = 0.0, 0, 0
+    for a, b, g in zip(tree_leaves(new_g), tree_leaves(new_c), tree_leaves(g_c)):
+        sure = (g * clip).abs() > 100 * tc.adamw.eps
+        n_cmp += int(sure.sum())
+        n_all += g.numel()
+        if sure.any():
+            p_err = max(p_err, float((a - b).abs()[sure].max()))
+    rec = dict(rows=GROUP_SIZE, metric_max_abs_diff=m_err, metric_tol=METRIC_TOL,
+               grad_norm=g_norm, grad_max_abs_diff=g_err,
+               grad_tol=GRAD_TOL * g_norm, update_max_abs_diff=p_err,
+               update_tol=1e-2 * tc.adamw.lr, update_elements_compared=n_cmp,
+               update_elements=n_all, loss_card=float(m_g["loss"]),
+               loss_cpu=float(m_c["loss"]))
+    log(f"[7 train check] fp32, {GROUP_SIZE} rows, card (kernels) vs CPU (plain): "
+        f"metrics max abs diff {m_err:.3e} (tol {METRIC_TOL}); gradient max abs "
+        f"diff {g_err:.3e} of norm {g_norm:.4e} (tol {GRAD_TOL} x norm); updated "
+        f"adapters max abs diff {p_err:.3e} (tol {rec['update_tol']:.1e}) over "
+        f"{n_cmp} of {n_all} elements whose gradient is above 100 eps")
+    if m_err > METRIC_TOL or g_err > GRAD_TOL * g_norm or p_err > rec["update_tol"] \
+            or n_cmp < n_all // 10:
+        raise AssertionError(f"phase 7: card and CPU steps differ: {rec}")
+    return rec
 
 
 def main(argv):
@@ -353,6 +679,7 @@ def main(argv):
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import gqa_decode as gqa
     from repro_torch.kernels import sgmv
+    from repro_torch.kernels import token_logprob as tlp
     from repro_torch import models as M
     from repro_torch.launch.serve import (make_adapters, make_requests,
                                           serve_config)
@@ -384,6 +711,8 @@ def main(argv):
     log("[3 kernels] each kernel against its plain version")
     gqa_cases = check_gqa_decode(torch, gqa, ref, g, serve_pos_hi)
     sgmv_cases = check_sgmv(torch, sgmv, ref, g, S_p)
+    train_rows = GROUPS * GROUP_SIZE * (-(-(S_p + MAX_NEW) // 8) * 8 - 1)
+    tlp_fwd_cases, tlp_bwd_cases = check_token_logprob(torch, tlp, ref, g, train_rows)
 
     # -- phase 4: serve ---------------------------------------------------
     cfg = serve_config(ARCH, reduce=False)
@@ -447,11 +776,26 @@ def main(argv):
     if not tf_err <= TF_TOL:
         raise AssertionError(f"fp32 card vs CPU logprobs differ by {tf_err}")
 
+    # -- phases 6 and 7: GRPO training, then fp32 card vs CPU ---------------
+    counters = {"gqa_decode": gqa.LAUNCHES, "sgmv": sgmv.LAUNCHES,
+                "token_logprob_fwd": tlp.FWD_LAUNCHES,
+                "token_logprob_bwd": tlp.BWD_LAUNCHES}
+    train, last_tb, start, tc = train_phase(torch, cfg, params, counters, card)
+    n_fwd = train["launches"]["token_logprob_fwd"]
+    n_bwd = train["launches"]["token_logprob_bwd"]
+    if (n_fwd, n_bwd) != (2 * TRAIN_ITERS, TRAIN_ITERS) \
+            or not train["launches"]["gqa_decode"] or not train["launches"]["sgmv"]:
+        raise AssertionError(f"train phase launches {train['launches']}")
+    if profile_dir is not None:
+        profile_train(torch, cfg, params, start, last_tb, tc, profile_dir)
+    train["check"] = train_check(torch, M, cfg, params, last_tb, start, tc)
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
         peak_mem_gib=peak_gib, tf_max_abs_diff=tf_err,
-        seconds=time.monotonic() - t_all, card=card)}), flush=True)
+        seconds=time.monotonic() - t_all, build_s=secs, card=card)}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
@@ -460,6 +804,14 @@ def main(argv):
                      "src/repro/kernels/sgmv.py:64", sgmv_cases, n_sgmv,
                      dict(launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=2)),
+        kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
+                     "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases, n_fwd,
+                     dict(launches_per_train_step=2, cuda_launches_per_call=2,
+                          launches_phase="train (phase 6)")),
+        kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
+                     "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases, n_bwd,
+                     dict(launches_per_train_step=1, cuda_launches_per_call=2,
+                          launches_phase="train (phase 6)")),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,17 @@
-"""Carries the JAX package's parameters and adapters over to the port.
+"""Carries parameters, adapters and optimizer state between the JAX
+package and the port, through numpy.
 
-Both take trees whose leaves are numpy arrays (``jax.device_get`` of the JAX
-trees, or ``np.asarray`` leaf by leaf) — the port never imports jax. The
+``params_from_jax`` and ``lora_from_jax`` take trees whose leaves are numpy
+arrays (``jax.device_get`` of the JAX trees, or ``np.asarray`` leaf by
+leaf) — the port never imports jax. The
 port keeps JAX's ``[d_in, d_out]`` weight orientation and its tree, so the
 bridge is a copy and not a transpose: dicts stay dicts, the JAX package's
 ``AttnParams`` / ``MLPParams`` NamedTuples become the port's of the same
 name and fields, and each array becomes a tensor of the same dtype (bf16
-included, through its 16-bit pattern).
+included, through its 16-bit pattern). ``to_numpy`` goes the other way:
+any of the port's trees (parameters, adapters, optimizer state) with numpy
+leaves of the same dtypes, bf16 as ``ml_dtypes.bfloat16`` (the type jax
+uses), for a comparison or a checkpoint store.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import resolve_device
 from repro_torch.models.mlp import MLPParams
+from repro_torch.models.model import tree_map
 
 _TUPLES = {"AttnParams": AttnParams, "MLPParams": MLPParams}
 
@@ -56,3 +62,17 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
 def lora_from_jax(tree, device="cuda"):
     """A JAX adapter tree (``init_lora``, numpy leaves) on ``device``."""
     return _convert(tree, resolve_device(device))
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                     # jax's bf16 numpy type
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def to_numpy(tree):
+    """A port tree (tensor leaves on any device) with numpy leaves: dicts
+    stay dicts, NamedTuples stay NamedTuples, None stays None."""
+    return tree_map(_array, tree)

@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures of the exported launchers: name -> argtypes. Every launcher
 # returns the cudaError_t of its launch as an int.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gqa_decode": {
         # q, k, v, pos, out, B, S, KVH, H, hd, dtype, softcap, window, stream
@@ -36,6 +36,16 @@ SIGNATURES = {
     "sgmv": {
         # x, a, b, ids, h_part, y, R, d, r, dout, ksplit, x_dtype, stream
         "sgmv_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "token_logprob": {
+        # h, w, tgt, part, lp, ent, lse, R, d, V, ws_k, ws_v, vsplit,
+        # slice_tiles, softcap, dtype, stream
+        "token_logprob_fwd_launch": [_P] * 7 + [_I, _I, _I, _L, _L, _I, _I,
+                                                _F, _I, _P],
+        # h, w, tgt, lse, ent, g_lp, g_ent, dpart, dh, R, d, V, ws_k, ws_v,
+        # vsplit, slice_tiles, dch, softcap, dtype, stream
+        "token_logprob_bwd_launch": [_P] * 9 + [_I, _I, _I, _L, _L, _I, _I,
+                                                _I, _F, _I, _P],
     },
 }
 

@@ -3,8 +3,11 @@
 the card and runs its plain version for tensors on the CPU."""
 from __future__ import annotations
 
+import torch
+
 from .gqa_decode import gqa_decode as _gqa_decode
 from .sgmv import sgmv as _sgmv
+from .token_logprob import token_logprob_flat
 
 
 def sgmv(rows, a, b, ids):
@@ -17,3 +20,15 @@ def gqa_decode(q, cache_k, cache_v, pos, *, softcap=0.0, window=0):
     """Flash-decode GQA attention over a KV cache (one query token/row)."""
     return _gqa_decode(q, cache_k, cache_v, pos, softcap=softcap,
                        window=window)
+
+
+def token_logprob(hidden, vocab_w, targets, softcap: float = 0.0):
+    """Fused logprob+entropy. hidden: [B, S, d]; vocab_w: [d, V];
+    targets: [B, S]. Returns (logprob [B, S], entropy [B, S]) fp32,
+    differentiable in hidden."""
+    B, S, d = hidden.shape
+    lp, ent = token_logprob_flat(hidden.reshape(B * S, d).contiguous(),
+                                 vocab_w,
+                                 targets.reshape(B * S).to(torch.int32)
+                                 .contiguous(), softcap=softcap)
+    return lp.reshape(B, S), ent.reshape(B, S)

@@ -22,6 +22,51 @@ def sgmv_ref(rows, a, b, ids):
     return out
 
 
+def _logits_ref(h, w, softcap):
+    """Softcapped fp32 logits of h [..., d] against w [d, V]."""
+    z = h.float() @ w.float()
+    return torch.tanh(z / softcap) * softcap if softcap else z
+
+
+def token_logprob_stats_ref(h, w, targets, softcap: float = 0.0):
+    """(logprob, entropy, lse) per row, fp32 (see ``token_logprob_ref``)."""
+    z = _logits_ref(h, w, softcap)
+    lse = torch.logsumexp(z, dim=-1)
+    tgt = torch.gather(z, -1, targets.long()[..., None])[..., 0]
+    p = torch.softmax(z, dim=-1)
+    return tgt - lse, lse - (p * z).sum(-1), lse
+
+
+def token_logprob_ref(h, w, targets, softcap: float = 0.0):
+    """Per-row target logprob and entropy over the whole vocabulary, fp32.
+
+    h: [R, d] (or [B, S, d]); w: [d, V]; targets: [R] (or [B, S]) ids in
+    [0, V). Returns (logprob, entropy) of targets' shape. Differentiable
+    by torch autograd in h and w."""
+    lp, ent, _ = token_logprob_stats_ref(h, w, targets, softcap)
+    return lp, ent
+
+
+def token_logprob_bwd_ref(h, w, targets, lse, ent, g_lp, g_ent,
+                          softcap: float = 0.0):
+    """dh of ``token_logprob_ref`` for upstream grads g_lp, g_ent ([R] fp32),
+    from the forward's saved lse and entropy ([R] fp32). With z the
+    softcapped logits and p = exp(z - lse):
+
+        dz_j = g_lp (1[j = t] - p_j) - g_ent p_j (z_j - lse + ent)
+
+    times 1 - tanh^2(raw / cap) under a softcap; dh = dz @ w^T, returned in
+    h's dtype. h: [R, d]; w: [d, V]; targets: [R]."""
+    z = _logits_ref(h, w, softcap)
+    lse, ent = lse[:, None], ent[:, None]
+    p = torch.exp(z - lse)
+    hit = torch.zeros_like(z).scatter_(1, targets.long()[:, None], 1.0)
+    dz = g_lp[:, None] * (hit - p) - g_ent[:, None] * p * (z - lse + ent)
+    if softcap:
+        dz = dz * (1.0 - torch.square(z / softcap))
+    return (dz @ w.float().T).to(h.dtype)
+
+
 def gqa_decode_ref(q, cache_k, cache_v, pos, *, softcap=0.0, window=0):
     """Single-token GQA attention over a contiguous cache, in fp32.
 

@@ -94,6 +94,11 @@ def init_lora(cfg: ModelConfig, generator: torch.Generator,
     return tree
 
 
+def single_ctx(tree, cfg: ModelConfig) -> LoraCtx:
+    """One task's adapters for the whole forward (training mode)."""
+    return LoraCtx("single", tree, scaling=cfg.lora.scaling)
+
+
 def batched_ctx(stacked_tree, row_task_ids, cfg: ModelConfig) -> LoraCtx:
     """stacked_tree: task-stacked adapters (``stack_adapters``); the batched
     delta runs the SGMV kernel when the tensors lie on the card."""

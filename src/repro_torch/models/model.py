@@ -1,5 +1,5 @@
-"""Model assembly for the dense family: init / prefill / decode (port of the
-dense half of ``repro.models.model``).
+"""Model assembly for the dense family: init / prefill / decode / train
+forward (port of the dense half of ``repro.models.model``).
 
 The parameter tree is the JAX package's: per-layer weights stacked on a
 leading layer axis. Where the JAX package ``lax.scan``s over that axis, the
@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from .attention import attention_chunked, attention_decode, attn_init, qkv
@@ -61,6 +62,20 @@ def tree_map(fn, tree):
     if isinstance(tree, tuple):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """The tensor leaves of a tree (dicts, NamedTuples; None skipped), in
+    the tree's own order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` whose leaves are `leaves`, in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def tree_index(tree, i):
@@ -190,17 +205,25 @@ def forward_seq(params: Params, tokens, cfg: ModelConfig,
     row, pads included; the caller sets cache["pos"] afterwards (per-row
     prompt lengths). Reads beyond ``pos`` never happen and decode overwrites
     in place, so the attention families need no ``seq_lens`` (the JAX
-    package takes it for its recurrent families)."""
+    package takes it for its recurrent families). With ``cfg.remat`` and
+    grad enabled, every layer runs under ``torch.utils.checkpoint``."""
     _check_family(cfg)
     B, S = tokens.shape[:2]
     x = params["embed"][tokens.long()]                       # [B,S,d]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    # remat, as the JAX package's checkpointed scan body: with grad on, each
+    # layer keeps only its input and recomputes its activations backward
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
-        x, (k, v) = _dense_block_seq(x, lp, cfg, _lora_layer(lora, i),
-                                     _window_for(cfg, i), positions, rope,
-                                     q_chunk)
+        args = (x, lp, cfg, _lora_layer(lora, i), _window_for(cfg, i),
+                positions, rope, q_chunk)
+        if remat:
+            x, (k, v) = checkpoint(_dense_block_seq, *args,
+                                   use_reentrant=False)
+        else:
+            x, (k, v) = _dense_block_seq(*args)
         if cache is not None:
             cache["k"][i, :, :S] = k.to(cache["k"].dtype)
             cache["v"][i, :, :S] = v.to(cache["v"].dtype)
@@ -242,7 +265,19 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
 # logits
 # ===========================================================================
 
+def vocab_matrix(params: Params, cfg: ModelConfig):
+    """The [d, V] output matrix: the untied head, or the tied embedding's
+    transpose as a view (no copy of the table)."""
+    return params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+
+
 def lm_logits(h, params: Params, cfg: ModelConfig):
-    w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    logits = (h @ w.to(h.dtype)).float()
+    logits = (h @ vocab_matrix(params, cfg).to(h.dtype)).float()
     return softcap(logits, cfg.logit_softcap)
+
+
+def forward_train(params: Params, tokens, cfg: ModelConfig,
+                  lora: Optional[LoraCtx] = None, *, q_chunk: int = 512):
+    """Teacher-forced full-sequence logits [B, S, V] (+ aux loss)."""
+    h, _, aux = forward_seq(params, tokens, cfg, lora, None, q_chunk=q_chunk)
+    return lm_logits(h, params, cfg), aux

@@ -13,7 +13,8 @@ pool, then force-fed the response; forced tokens do not count against
 The step functions are plain Python closures over the model; the engine
 keeps them as ``_prefill_fn``, ``_first_fn`` and ``_step_fn`` so that a test
 can wrap them, as the JAX engine's tests do. Serving runs under
-``torch.inference_mode()``. The continuous slot engine, the paged cache, the
+``torch.inference_mode()``. ``to_trajectory_batch`` packs one task's
+results for the trainer. The continuous slot engine, the paged cache, the
 disaggregated prefill workers and the env stage are not ported yet.
 """
 from __future__ import annotations
@@ -32,6 +33,7 @@ from repro_torch.envs.base import CancelToken, Env, call_session
 from repro_torch.lora.adapters import batched_ctx, stack_adapters
 from repro_torch.models import decode_step, forward_seq, init_cache, lm_logits
 from repro_torch.models.common import resolve_device, synchronize
+from repro_torch.rl.types import RolloutCompletion, TrajectoryBatch
 from repro_torch.rollout import prng
 from repro_torch.rollout.prefill import _bucket_len, _sample_rows
 
@@ -439,3 +441,44 @@ class RolloutEngine:
         pending[i], pending_tok[i] = _submit_tool_call(
             row, token_row[:row.prompt_len], pool, rng, sim_latency)
         pending_t0[i] = time.monotonic()
+
+
+def to_trajectory_batch(results: List, task_id: str, version: int,
+                        group_size: int, pad_to: int = None) -> TrajectoryBatch:
+    """Pack engine results for ONE task into a padded TrajectoryBatch and
+    verify rewards. Accepts `generate()` result dicts or
+    `RolloutCompletion`s (continuous engine)."""
+    results = [r.to_result() if isinstance(r, RolloutCompletion) else r
+               for r in results]
+    rows = [r for r in results if r["task_id"] == task_id]
+    S = max(len(r["tokens"]) for r in rows)
+    if pad_to:
+        S = max(S, pad_to)
+    S = -(-S // 8) * 8
+    R = len(rows)
+    tokens = np.zeros((R, S), np.int32)
+    loss_mask = np.ones((R, S), np.float32)
+    behavior = np.zeros((R, S), np.float32)
+    p_lens = np.zeros((R,), np.int32)
+    t_lens = np.zeros((R,), np.int32)
+    rewards = np.zeros((R,), np.float32)
+    for j, r in enumerate(rows):
+        n = len(r["tokens"])
+        tokens[j, :n] = r["tokens"]
+        p_lens[j] = r["prompt_len"]
+        t_lens[j] = n
+        gen_len = n - r["prompt_len"]
+        # behavior logprobs/losses sit at positions predicting each gen token
+        pos = r["prompt_len"] - 1 + np.arange(gen_len)
+        behavior[j, pos] = r["gen_logprobs"][:gen_len]
+        loss_mask[j, pos] = r["gen_loss_mask"][:gen_len]
+        comp = r["tokens"][r["prompt_len"]:]
+        rewards[j] = r["env"].verify(r["truth"], comp)
+    meta = {"loss_mask": loss_mask}
+    if any("finish_reason" in r for r in rows):
+        meta["finish_reasons"] = [r.get("finish_reason", "") for r in rows]
+    return TrajectoryBatch(task_id=task_id, version=version, tokens=tokens,
+                           prompt_lens=p_lens, total_lens=t_lens,
+                           rewards=rewards, group_size=group_size,
+                           behavior_logprobs=behavior[:, :S - 1],
+                           meta=meta)

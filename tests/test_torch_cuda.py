@@ -1,8 +1,8 @@
 """The port on the card: each hand-written CUDA kernel against its plain
-version, the wrappers' refusals, and RolloutEngine.generate on the card
-(kernels) against the CPU (plain versions) on the same weights. Every test
-needs a CUDA device and skips without one (decided in the `card` fixture);
-on a machine with a card run
+version, the wrappers' refusals, and RolloutEngine.generate and a GRPO
+train step on the card (kernels) against the CPU (plain versions) on the
+same weights. Every test is marked `cuda`, needs a CUDA device and skips
+without one (decided in the `card` fixture); on a machine with a card run
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
@@ -20,9 +20,15 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.kernels import gqa_decode as gqa
 from repro_torch.kernels import ref
 from repro_torch.kernels import sgmv
+from repro_torch.kernels import token_logprob as tlp
 from repro_torch.launch.serve import make_adapters, make_requests
-from repro_torch.models import init_params, tree_map
-from repro_torch.rollout.engine import RolloutEngine
+from repro_torch.models import init_params, tree_leaves, tree_map
+from repro_torch.rollout.engine import RolloutEngine, to_trajectory_batch
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_step import (TrainConfig, batch_from_trajectory,
+                                          init_opt_state, make_train_step)
+
+pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def card():
@@ -98,3 +104,81 @@ def test_generate_on_card_matches_cpu(card):
         torch.testing.assert_close(torch.tensor(b["gen_logprobs"]),
                                    torch.tensor(a["gen_logprobs"]),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype,tol,dh_tol", [(torch.float32, 1e-4, 1e-4),
+                                              (torch.bfloat16, 1e-3, 1e-2)])
+def test_token_logprob_matches_plain(card, layout, softcap, dtype, tol, dh_tol):
+    """Forward and backward kernels against the plain versions, ragged V.
+    fp32 and bf16 logits both accumulate in fp32 (sum order only); the bf16
+    backward rounds dz to bf16 before dz @ W^T, hence 1e-2 of dh's scale."""
+    R, d, V = 100, 96, 1000
+    h = torch.randn(R, d, generator=card, device="cuda").to(dtype)
+    if layout == "tied":
+        w = (torch.randn(V, d, generator=card, device="cuda") * 0.2).to(dtype).T
+    else:
+        w = (torch.randn(d, V, generator=card, device="cuda") * 0.2).to(dtype)
+    t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    lp, ent, lse = tlp.token_logprob_fwd(h, w, t, softcap)
+    want_lp, want_ent, want_lse = ref.token_logprob_stats_ref(h, w, t, softcap)
+    for got, want in ((lp, want_lp), (ent, want_ent), (lse, want_lse)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    g_lp = torch.randn(R, generator=card, device="cuda")
+    g_ent = torch.randn(R, generator=card, device="cuda")
+    dh = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent, softcap)
+    want = ref.token_logprob_bwd_ref(h, w, t, want_lse, want_ent, g_lp, g_ent,
+                                     softcap)
+    assert dh.dtype == dtype
+    err = (dh.float() - want.float()).abs().max()
+    assert err <= dh_tol * want.float().abs().max(), err
+
+
+def test_token_logprob_refuses_what_the_kernels_do_not_take(card):
+    h = torch.zeros(4, 32, device="cuda", requires_grad=True)
+    w = torch.zeros(32, 70, device="cuda")
+    t = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="dW"):
+        tlp.token_logprob_flat(h, w.requires_grad_(True), t)
+    with pytest.raises(ValueError, match="int32"):
+        tlp.token_logprob_fwd(h.detach(), w.detach(), t.long())
+    with pytest.raises(ValueError, match="outside"):
+        tlp.token_logprob_fwd(h.detach(), w.detach(), t + 70)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tlp.token_logprob_fwd(h.detach().half(), w.detach().half(), t)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """qwen3-0.6b reduced (hd=16) in fp32: generate, pack, and one GRPO step
+    with the KL and entropy terms, on the card (token_logprob kernels: two
+    forwards and one backward) and on the CPU (plain versions), from the
+    same weights and batch. Loss and metrics at 1e-4; updated adapters at
+    1e-6 where the gradient is above 100 eps."""
+    cfg = dataclasses.replace(reduced(REGISTRY["qwen3-0.6b"], dtype="float32"),
+                              vocab_size=tok.VOCAB_SIZE)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lora = make_adapters(cfg, 1, seed=0, device="cpu", b_scale=0.2)[0]
+    reqs = make_requests(1, 4, max_new_tokens=8)
+    res, _ = RolloutEngine(cfg, params, max_len=48, device="cpu").generate(
+        reqs, [lora])
+    tb = to_trajectory_batch(res, "tenant-0", 0, group_size=2)
+    tc = TrainConfig(group_size=2, kl_coef=0.01, ent_coef=0.01,
+                     use_logprob_kernel=True, adamw=AdamWConfig(lr=3e-3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        a = tree_map(lambda x: x.to(dev), lora)
+        tlp.FWD_LAUNCHES.n = tlp.BWD_LAUNCHES.n = 0
+        out[dev] = make_train_step(cfg, tc)(p, a, init_opt_state(cfg, tc, p, a),
+                                            batch_from_trajectory(tb, tc, dev))
+        counts = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
+        assert counts == ((0, 0) if dev == "cpu" else (2, 1)), counts
+    (new_c, opt_c, m_c), (new_g, _, m_g) = out["cpu"], out["cuda"]
+    for k in m_c:
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], rtol=1e-4, atol=1e-4)
+    for pc, pg, mc in zip(tree_leaves(new_c), tree_leaves(new_g),
+                          tree_leaves(opt_c["m"])):
+        sure = (10 * mc).abs() > 1e-6
+        assert sure.float().mean() > 0.5
+        assert (pg.cpu() - pc).abs()[sure].max() <= 1e-6

@@ -1,0 +1,168 @@
+"""The port's token_logprob (plain forward, plain backward, the autograd
+node and the [B,S,d] wrapper) against the JAX package: repro.kernels.ref,
+the Pallas kernel in interpret mode and jax.grad of the chunked plain path
+of rl/grpo.py, on the same numpy inputs.
+
+Tolerances: 1e-5 against the JAX plain versions — both sides compute the
+same fp32 logits and reductions, in another summation order; 1e-4 against
+the Pallas kernel, whose logits sum in 16-wide d-chunks and whose
+statistics fold in 32-wide vocab tiles (the JAX package's own test uses
+1e-4). Gradients at 1e-5 of their largest element."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # small shapes; leave the cores to the other workers
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.token_logprob import token_logprob_flat as pallas_flat
+from repro.rl.grpo import token_logprobs_chunked as jax_chunked
+from repro_torch.kernels import ops as pops
+from repro_torch.kernels import ref as pref
+from repro_torch.kernels import token_logprob as ptl
+
+TIGHT = dict(rtol=1e-5, atol=1e-5)
+PALLAS = dict(rtol=1e-4, atol=1e-4)
+SHAPES = [(16, 32, 64), (50, 48, 100), (8, 24, 52), (37, 40, 257)]  # ragged V
+
+
+def _inputs(R, d, V, seed, layout):
+    """h [R,d], w as [d,V] (numpy, the JAX side) and as the port sees it:
+    'tied' is the transpose of a row-major [V,d] table (a strided view),
+    'untied' a row-major [d,V] head."""
+    rs = np.random.RandomState(seed)
+    h = rs.randn(R, d).astype(np.float32)
+    t = rs.randint(0, V, size=(R,)).astype(np.int32)
+    if layout == "tied":
+        table = (rs.randn(V, d) * 0.3).astype(np.float32)
+        w_np = np.ascontiguousarray(table.T)
+        w_pt = torch.from_numpy(table).T
+    else:
+        w_np = (rs.randn(d, V) * 0.3).astype(np.float32)
+        w_pt = torch.from_numpy(w_np)
+    return h, w_np, t, torch.from_numpy(h), w_pt, torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("R,d,V", SHAPES)
+def test_plain_forward_matches_jax_ref_and_pallas(R, d, V, softcap, layout):
+    h, w, t, ph, pw, pt = _inputs(R, d, V, R + V, layout)
+    lp, ent = ptl.token_logprob_flat(ph, pw, pt, softcap)
+    want_lp, want_ent = jref.token_logprob_ref(jnp.asarray(h), jnp.asarray(w),
+                                               jnp.asarray(t), softcap)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(want_lp), **TIGHT)
+    np.testing.assert_allclose(ent.numpy(), np.asarray(want_ent), **TIGHT)
+    k_lp, k_ent = pallas_flat(jnp.asarray(h), jnp.asarray(w), jnp.asarray(t),
+                              bm=8, bv=32, bk=16, softcap=softcap)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(k_lp), **PALLAS)
+    np.testing.assert_allclose(ent.numpy(), np.asarray(k_ent), **PALLAS)
+
+
+def test_ops_wrapper_matches_jax_ops():
+    rs = np.random.RandomState(0)
+    B, S, d, V = 2, 8, 16, 40
+    h = rs.randn(B, S, d).astype(np.float32)
+    w = rs.randn(d, V).astype(np.float32)
+    t = rs.randint(0, V, size=(B, S)).astype(np.int32)
+    lp, ent = pops.token_logprob(torch.from_numpy(h), torch.from_numpy(w),
+                                 torch.from_numpy(t))
+    want_lp, want_ent = jops.token_logprob(jnp.asarray(h), jnp.asarray(w),
+                                           jnp.asarray(t))
+    assert lp.shape == (B, S) and ent.shape == (B, S)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(want_lp), **PALLAS)
+    np.testing.assert_allclose(ent.numpy(), np.asarray(want_ent), **PALLAS)
+
+
+def _jax_grad_h(h, w, t, g_lp, g_ent, softcap):
+    """jax.grad of sum(g_lp*lp + g_ent*ent) in h, through the chunked plain
+    path the JAX trainer differentiates (token_logprobs_chunked)."""
+    def f(hh):
+        lp, ent = jax_chunked(hh[None], jnp.asarray(w), jnp.asarray(t)[None],
+                              softcap, use_kernel=False)
+        return jnp.sum(jnp.asarray(g_lp) * lp[0] + jnp.asarray(g_ent) * ent[0])
+    return np.asarray(jax.grad(f)(jnp.asarray(h)))
+
+
+def _close_to_scale(got, want, rel=1e-5):
+    err = np.abs(got - want).max()
+    assert err <= rel * max(1.0, np.abs(want).max()), err
+
+
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("R,d,V", SHAPES[1:3])
+def test_plain_backward_matches_autograd_and_jax_grad(R, d, V, softcap, layout):
+    h, w, t, ph, pw, pt = _inputs(R, d, V, 7 * R + V, layout)
+    rs = np.random.RandomState(R)
+    g_lp = rs.randn(R).astype(np.float32)
+    g_ent = rs.randn(R).astype(np.float32)
+    lp, ent, lse = pref.token_logprob_stats_ref(ph, pw, pt, softcap)
+    dh = pref.token_logprob_bwd_ref(ph, pw, pt, lse, ent, torch.from_numpy(g_lp),
+                                    torch.from_numpy(g_ent), softcap).numpy()
+    hh = ph.clone().requires_grad_(True)
+    a_lp, a_ent = pref.token_logprob_ref(hh, pw, pt, softcap)
+    (a_lp @ torch.from_numpy(g_lp) + a_ent @ torch.from_numpy(g_ent)).backward()
+    _close_to_scale(dh, hh.grad.numpy())
+    _close_to_scale(dh, _jax_grad_h(h, w, t, g_lp, g_ent, softcap))
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_autograd_node_wires_the_two_wrappers(softcap):
+    """The card's autograd node (forward wrapper, backward wrapper; their
+    plain versions on the CPU) gives the grads jax.grad gives, and no grad
+    for w."""
+    R, d, V = 24, 32, 97
+    h, w, t, ph, pw, pt = _inputs(R, d, V, 3, "tied")
+    rs = np.random.RandomState(4)
+    g_lp = rs.randn(R).astype(np.float32)
+    g_ent = rs.randn(R).astype(np.float32)
+    hh = ph.clone().requires_grad_(True)
+    lp, ent = ptl._TokenLogprob.apply(hh, pw, pt, softcap)
+    want_lp, want_ent = jref.token_logprob_ref(jnp.asarray(h), jnp.asarray(w),
+                                               jnp.asarray(t), softcap)
+    np.testing.assert_allclose(lp.detach().numpy(), np.asarray(want_lp), **TIGHT)
+    np.testing.assert_allclose(ent.detach().numpy(), np.asarray(want_ent),
+                               **TIGHT)
+    (lp @ torch.from_numpy(g_lp) + ent @ torch.from_numpy(g_ent)).backward()
+    _close_to_scale(hh.grad.numpy(), _jax_grad_h(h, w, t, g_lp, g_ent, softcap))
+    assert ptl.FWD_LAUNCHES.n == 0 and ptl.BWD_LAUNCHES.n == 0   # no kernel ran
+
+
+def test_reference_kernel_has_no_backward_the_port_has():
+    """Recorded reference fault (ROADMAP §3): jax.grad through the Pallas
+    token_logprob raises NotImplementedError, so the JAX trainer cannot run
+    with use_logprob_kernel=True. The port's token_logprob differentiates
+    (here its CPU path), in h and in w."""
+    R, d, V = 8, 16, 40
+    h, w, t, ph, pw, pt = _inputs(R, d, V, 11, "untied")
+
+    def f(hh):
+        lp, ent = jops.token_logprob(hh[None], jnp.asarray(w), jnp.asarray(t)[None])
+        return jnp.sum(lp) + jnp.sum(ent)
+    with pytest.raises(NotImplementedError):
+        jax.grad(f)(jnp.asarray(h))
+
+    hh = ph.clone().requires_grad_(True)
+    ww = pw.clone().requires_grad_(True)
+    lp, ent = pops.token_logprob(hh[None], ww, pt[None])
+    (lp.sum() + ent.sum()).backward()
+    want = _jax_grad_h(h, w, t, np.ones(R, np.float32), np.ones(R, np.float32),
+                       0.0)
+    _close_to_scale(hh.grad.numpy(), want)
+    assert ww.grad is not None and bool(torch.isfinite(ww.grad).all())
+
+
+def test_vocab_split_covers_the_vocabulary():
+    """The card's split of the vocabulary into slices: every 64-column tile
+    in exactly one slice, no empty slice, and enough blocks for the SMs."""
+    for R, V in ((624, 151936), (4096, 151936), (5, 129), (37, 64), (1, 1)):
+        for bm, target in ((64, 528), (32, 264)):
+            n, per = ptl.vocab_split(R, V, bm, target)
+            tiles = -(-V // 64)
+            assert (n - 1) * per < tiles <= n * per
+            assert n * -(-R // bm) >= min(target, tiles * -(-R // bm)) // 2
