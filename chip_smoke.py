@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
-    python3 chip_smoke.py --profile DIR   # also profile one served round and
-                                          # one train step
+    python3 chip_smoke.py --profile DIR   # also profile one served round, one
+                                          # train step and a continuous run
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. device: requires a CUDA card and prints nvidia-smi's name and power limit;
@@ -23,7 +23,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     entropy terms on, token_logprob kernels: 2 forwards + 1 backward a step);
  7. train check: one group of phase 6's batch in fp32, the step's loss,
     metrics, adapter gradient and updated adapters on the card (kernels)
-    against the CPU (plain versions).
+    against the CPU (plain versions);
+ 8. continuous serve: ContinuousRolloutEngine over the paged KV pool
+    (16 slots, max_len 512, a pool of 128 pages of 16 tokens, a quarter of
+    the dense-equivalent 512) at the same full size for 4 tenants x 8 gsm8k
+    requests of 64 new tokens (SRPT); after decode step 10 the last tenant's
+    8 requests arrive with a higher priority and tenant-1 is preempted for
+    them: its rows snapshot to host and restore when slots free, and the
+    fresh rows prefill while others decode.
+    Page invariants after every step; 32 completions, restores > 0, no
+    replay; paged_gqa_decode launches 28 per decode step, gqa_decode none,
+    sgmv 168 per forward;
+ 9. paged check: 4 of phase 8's rows in fp32, 16 teacher-forced decode
+    steps over shuffled pages on the card (paged_gqa_decode) against a dense
+    cache on the CPU (plain versions), logprobs within TF_TOL.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -48,6 +61,10 @@ LR = 3e-3               # the JAX package's TaskSpec default
 METRIC_TOL = 1e-4       # phase 7: fp32 loss and metrics, card vs CPU (absolute)
 GRAD_TOL = 1e-3         # phase 7: gradient max abs diff / gradient norm
 PROD_ROWS = 4096        # a production micro-batch of token rows (phase 3)
+CONT_PER_TENANT, CONT_MAX_NEW, CONT_SLOTS = 8, 64, 16    # phase 8
+CONT_MAX_LEN, PAGE, POOL_PAGES = 512, 16, 128            # paged pool
+PREEMPT_AT = 10         # phase 8: preempt tenant-1 after this decode step
+PAGED_TF_ROWS, PAGED_TF_STEPS = 4, 16                    # phase 9
 
 
 def log(msg):
@@ -353,6 +370,133 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
     return fwd_cases, bwd_cases
 
 
+def _paged_case(torch, g, B, H, KVH, hd, page, max_pg, n_pool, pos_lo, pos_hi, dt,
+                alias=0):
+    """q, a pool of n_pool pages (+ scratch) handed out as a random
+    permutation (no row's pages are contiguous), a block table with the
+    sentinel past each row's live pages, and pos in [pos_lo, pos_hi]. With
+    alias > 0 every row's first `alias` entries name the same pages."""
+    pos = torch.randint(pos_lo, pos_hi + 1, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[-1] = pos_lo, pos_hi
+    live = (pos.long() + page - 1) // page
+    perm = torch.randperm(n_pool, generator=g, device="cuda").to(torch.int32)
+    tbl = torch.full((B, max_pg), n_pool, dtype=torch.int32, device="cuda")
+    at = alias
+    for b in range(B):
+        n = int(live[b])
+        tbl[b, :alias] = perm[:alias]
+        tbl[b, alias:n] = perm[at:at + n - alias]
+        at += n - alias
+    if at > n_pool:
+        raise AssertionError(f"paged case needs {at} pages of {n_pool}")
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+    return q, pos, tbl
+
+
+def check_paged_decode(torch, paged, gqa, ref, g):
+    """paged_gqa_decode against its plain version: (a) the slice's shape,
+    B=16 H=16 KVH=8 hd=128, page 16, 32 pages a row, a pool of 128 pages,
+    pos 20-110; (b) long caches, 256 pages a row (4096 tokens), pos up to
+    4096; (c) tables that alias shared prompt pages across rows; (d) an
+    identity table, against the gqa_decode kernel on the same values; (e)
+    softcap 50 and window 64. bf16 and fp32 each; (a) and (b) timed."""
+    B, H, KVH, hd, page = 16, 16, 8, 128, 16
+    cases = []
+    specs = []
+    for dt in (torch.bfloat16, torch.float32):
+        specs += [("a", dt, 32, 128, 20, 110, 0.0, 0, 0),
+                  ("b", dt, 256, B * 256, 1, 4096, 0.0, 0, 0),
+                  ("c", dt, 32, 128, 40, 110, 0.0, 0, 2),
+                  ("e", dt, 32, 128, 20, 110, 50.0, 64, 0)]
+    for name, dt, max_pg, n_pool, lo, hi, cap, win, alias in specs:
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+        q, pos, tbl = _paged_case(torch, g, B, H, KVH, hd, page, max_pg, n_pool,
+                                  lo, hi, dt, alias)
+        elt = q.element_size()
+        pool_bytes = 2 * (n_pool + 1) * page * KVH * hd * elt
+        timed = name in ("a", "b")
+        n_copy = copies_for(pool_bytes) if timed else 1
+        pools = [(torch.randn(n_pool + 1, page, KVH, hd, generator=g,
+                              device="cuda").to(dt),
+                  torch.randn(n_pool + 1, page, KVH, hd, generator=g,
+                              device="cuda").to(dt)) for _ in range(n_copy)]
+        kp, vp = pools[0]
+        got = paged.paged_gqa_decode(q, kp, vp, tbl, pos, softcap=cap, window=win)
+        want = ref.paged_gqa_decode_ref(q, kp, vp, tbl, pos, softcap=cap, window=win)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        dname = str(dt).split(".")[1]
+        if not bool((err <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"paged_gqa_decode ({name}) {dname}: max err "
+                                 f"{err.max().item():.3e} > tol {tol}")
+        rec = dict(case=name, B=B, H=H, KVH=KVH, hd=hd, page=page,
+                   max_pages=max_pg, pool_pages=n_pool, pos_min=lo, pos_max=hi,
+                   dtype=dname, softcap=cap, window=win, aliased_pages=alias,
+                   main=name == "a" and dt == torch.bfloat16,
+                   max_abs_err=float(err.max()), tol=tol)
+        line = f"  paged_gqa_decode ({name}) {dname:8s} pages/row {max_pg:3d} pos " \
+               f"{lo}-{hi} cap {cap:.0f} win {win} alias {alias}: err " \
+               f"{rec['max_abs_err']:.2e} (tol {tol})"
+        if timed:
+            sets = [(q, k, v, tbl, pos) for k, v in pools]
+
+            def kern(q, k, v, t, p):
+                return paged.paged_gqa_decode(q, k, v, t, p)
+
+            def plain(q, k, v, t, p):
+                return ref.paged_gqa_decode_ref(q, k, v, t, p)
+            idx = torch.arange(max_pg * page, device="cuda")
+            mask = (idx[None, :] < pos.long()[:, None])[:, None, None, :]
+
+            def gather_sdpa(q, k, v, t, p, mask=mask):
+                ti = t.long()
+                kc = k[ti].reshape(B, max_pg * page, KVH, hd)
+                vc = v[ti].reshape(B, max_pg * page, KVH, hd)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+            rec.update(ms=device_ms(kern, sets), plain_ms=device_ms(plain, sets, 10),
+                       library_ms=device_ms(gather_sdpa, sets, 10),
+                       call_ms=bench_ms(kern, sets))
+            keys = int(pos.long().sum())
+            pages_read = int(((pos.long() + page - 1) // page).sum())
+            nbytes = (2 * q.numel() * elt + 2 * keys * KVH * hd * elt
+                      + 4 * pages_read + 4 * B)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * keys * H * hd,
+                                                        dname)
+            line += (f" kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+                     f"gather+SDPA {rec['library_ms']:.4f} ms bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager call "
+                     f"{rec['call_ms']:.4f} ms")
+        cases.append(rec)
+        log(line)
+    # (d) identity table: the paged kernel reads what gqa_decode reads
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+        max_pg = 8
+        ck = torch.randn(B, max_pg * page, KVH, hd, generator=g, device="cuda").to(dt)
+        cv = torch.randn(B, max_pg * page, KVH, hd, generator=g, device="cuda").to(dt)
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        pos = torch.randint(1, max_pg * page + 1, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        zero = torch.zeros(1, page, KVH, hd, device="cuda", dtype=dt)
+        kp = torch.cat([ck.reshape(B * max_pg, page, KVH, hd), zero])
+        vp = torch.cat([cv.reshape(B * max_pg, page, KVH, hd), zero])
+        tbl = torch.arange(B * max_pg, dtype=torch.int32,
+                           device="cuda").reshape(B, max_pg)
+        got = paged.paged_gqa_decode(q, kp, vp, tbl, pos)
+        want = gqa.gqa_decode(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        dname = str(dt).split(".")[1]
+        log(f"  paged_gqa_decode (d) {dname:8s} identity table vs gqa_decode kernel: "
+            f"max abs diff {err:.2e} (tol {tol})")
+        if err > tol:
+            raise AssertionError(f"paged_gqa_decode identity table {dname}: {err}")
+        cases.append(dict(case="d", dtype=dname, main=False, max_abs_err=err, tol=tol))
+    return cases
+
+
 def kernel_entry(name, source, replaces, cases, launches, extra):
     main = next(c for c in cases if c["main"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -487,12 +631,48 @@ def profile_train(torch, cfg, params, start, tb, tc, out_dir):
         log("  " + line[:150])
 
 
+def profile_continuous(torch, cfg, params, adapters, out_dir):
+    """A short continuous run over the paged pool under torch.profiler (16
+    requests on 16 slots, 8 new tokens); the table goes to
+    out_dir/continuous_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.rollout.engine import ContinuousRolloutEngine
+
+    eng = ContinuousRolloutEngine(
+        cfg, params, max_slots=CONT_SLOTS, max_adapters=TENANTS,
+        max_len=CONT_MAX_LEN, paged_kv=True, prefix_cache=False,
+        kv_page_size=PAGE, kv_pool_pages=POOL_PAGES, seed=2, device="cuda")
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    for r in make_requests(TENANTS, CONT_SLOTS // TENANTS, max_new_tokens=8,
+                           seed=2):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_s, groups, lines, text = _profile_report(prof, wall)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "continuous_profile.txt").write_text(
+        f"decode steps {eng.stats.decode_steps}, " + text)
+    log(f"[8b profile] continuous paged, {eng.stats.decode_steps} decode steps, wall "
+        f"{wall:.4f} s (under the profiler), device busy {busy_s:.4f} s = "
+        f"{100 * busy_s / wall:.1f}%; device ms by group: " + _groups_line(groups))
+    for line in lines[:12]:
+        log("  " + line[:150])
+
+
 def _kernel_group(name):
     """Coarse owner of a device kernel, for the profile's breakdown."""
     if "sgmv" in name:
         return "sgmv"
     if "tlp_" in name:
         return "token_logprob"
+    if "paged_decode" in name:
+        return "paged_gqa_decode"
     if "gqa_decode" in name:
         return "gqa_decode"
     if "Memcpy" in name or "Memset" in name:
@@ -666,6 +846,205 @@ def train_check(torch, M, cfg, params, tb, start, tc):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the continuous engine over the paged KV pool
+# ---------------------------------------------------------------------------
+
+def continuous_phase(torch, cfg, params, adapters, counters, card):
+    """Phase 8: ContinuousRolloutEngine over the paged pool at full size,
+    CONT_PER_TENANT gsm8k requests per tenant on CONT_SLOTS slots. The last
+    tenant's requests arrive after decode step PREEMPT_AT with priority 1:
+    tenant-1 is preempted to make room (its rows snapshot to host and restore
+    when slots free), so prefills and restores happen mid-decode. Checks the
+    engine's invariants after every step and the kernels' launch counts over
+    the run. Returns the record and the completions."""
+    import numpy as np
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.rollout.engine import ContinuousRolloutEngine
+
+    reqs = make_requests(TENANTS, CONT_PER_TENANT, max_new_tokens=CONT_MAX_NEW,
+                         seed=8)
+    late = [r for r in reqs if r.task_id == f"tenant-{TENANTS - 1}"]
+    for i, r in enumerate(reqs):
+        r.seed = 1000 + i                       # distinct per-row keys
+        r.priority = 1 if r in late else 0
+    eng = ContinuousRolloutEngine(
+        cfg, params, max_slots=CONT_SLOTS, max_adapters=TENANTS,
+        max_len=CONT_MAX_LEN, paged_kv=True, prefix_cache=False,
+        kv_page_size=PAGE, kv_pool_pages=POOL_PAGES, device="cuda")
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    refill, forwards = eng._refill_fn, {"n": 0}
+
+    def counted_refill(*a):
+        forwards["n"] += 1
+        return refill(*a)
+    eng._refill_fn = counted_refill
+    for r in reqs:
+        if r not in late:
+            eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_all(counters, reset=True)
+    t0 = time.monotonic()
+    comps, preempted, steps = [], 0, 0
+    while not eng.idle():
+        eng.step()
+        steps += 1
+        eng.check_page_invariants()
+        if not preempted and eng.stats.decode_steps >= PREEMPT_AT:
+            # the last tenant arrives with a higher priority; tenant-1's rows
+            # make room for it, snapshot to host and restore when slots free
+            preempted = eng.preempt_tenant("tenant-1")
+            if not preempted:
+                raise AssertionError("phase 8: tenant-1 had no resident row")
+            for r in late:
+                eng.submit(r)
+        comps += eng.drain_completions()
+        if steps > 50 * CONT_MAX_NEW:
+            raise AssertionError("phase 8: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = count_all(counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.stats
+    pages = eng.page_stats()
+    idx = sorted(c.submit_index for c in comps)
+    if idx != list(range(len(reqs))):
+        raise AssertionError(f"phase 8: completions {idx}")
+    if not (st.preemptions > 0 and st.restores > 0 and st.replays == 0):
+        raise AssertionError(f"phase 8: preemptions {st.preemptions} restores "
+                             f"{st.restores} replays {st.replays}")
+    if pages["kv_pages_peak"] > POOL_PAGES or pages["kv_pages_used"] != 0:
+        raise AssertionError(f"phase 8: pages {pages}")
+    want = {"paged_gqa_decode": cfg.num_layers * st.decode_steps, "gqa_decode": 0,
+            "sgmv": 6 * cfg.num_layers * (st.decode_steps + forwards["n"])}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase 8: launches {got}, want {want}")
+    for c in comps:
+        gen = c.tokens[c.prompt_len:]
+        if not 1 <= len(gen) <= CONT_MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in gen):
+            raise AssertionError(f"phase 8: row of {len(gen)} tokens")
+        if not all(np.isfinite(lp) and lp <= 0 for lp in c.gen_logprobs):
+            raise AssertionError("phase 8: non-finite or positive logprob")
+    decode_tokens = st.occupied_row_steps
+    rec = dict(requests=len(reqs), slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+               page=PAGE, pool_pages=POOL_PAGES, max_new_tokens=CONT_MAX_NEW,
+               decode_steps=st.decode_steps, decode_s=st.decode_seconds,
+               decode_ms_per_step=1e3 * st.decode_seconds / st.decode_steps,
+               decode_tokens=decode_tokens,
+               decode_tokens_per_s=decode_tokens / st.decode_seconds,
+               prefill_s=st.prefill_seconds, refills=st.refills,
+               refill_forwards=forwards["n"],
+               slot_utilization=st.slot_utilization(),
+               preempted_rows=preempted, preemptions=st.preemptions,
+               restores=st.restores, snapshots=st.snapshots, replays=st.replays,
+               replay_tokens_saved=st.replay_tokens_saved,
+               kv_pages_peak=pages["kv_pages_peak"], wall_s=wall,
+               peak_mem_gib=peak_gib, launches=launches, card=card)
+    log(f"[8 continuous] {len(reqs)} requests ({TENANTS} tenants) on {CONT_SLOTS} slots, "
+        f"paged pool {POOL_PAGES} pages x {PAGE} tokens, max_len {CONT_MAX_LEN}: "
+        f"{st.decode_steps} decode steps, {decode_tokens} decode tokens in "
+        f"{st.decode_seconds:.3f} s = {rec['decode_tokens_per_s']:.1f} tok/s "
+        f"({rec['decode_ms_per_step']:.2f} ms/step), {st.refills} refills "
+        f"({forwards['n']} prefill forwards, {st.prefill_seconds:.3f} s), slot "
+        f"utilization {st.slot_utilization():.3f}, kv_pages_peak "
+        f"{pages['kv_pages_peak']:.0f}, {preempted} rows preempted -> "
+        f"{st.restores} restores, {st.replays} replays; peak memory "
+        f"{peak_gib:.2f} GiB; wall {wall:.2f} s; launches {got} on {card}")
+    return rec, comps
+
+
+def paged_check(torch, M, cfg, params, adapters, comps):
+    """Phase 9: PAGED_TF_ROWS of phase 8's rows in fp32. On the card each
+    row's prompt and all but its last PAGED_TF_STEPS + 1 tokens prefill
+    into a paged cache whose pages are shuffled, then PAGED_TF_STEPS tokens
+    are teacher-forced through decode_step (paged_gqa_decode), whose logits
+    give the logprobs of the row's last PAGED_TF_STEPS tokens; the steps
+    cross a page boundary. On the CPU the same on a dense cache with the
+    plain versions. The logprobs must agree within TF_TOL."""
+    from repro_torch.kernels import paged_decode as paged
+    from repro_torch.lora.adapters import batched_ctx, stack_adapters
+    from repro_torch.rollout.prefill import _bucket_len
+
+    T = PAGED_TF_STEPS
+    rows = [c for c in sorted(comps, key=lambda c: c.submit_index)
+            if len(c.tokens) - c.prompt_len > T and (len(c.tokens) - T - 1) % PAGE]
+    rows = rows[::max(1, len(rows) // PAGED_TF_ROWS)][:PAGED_TF_ROWS]
+    if len(rows) < PAGED_TF_ROWS:
+        raise AssertionError("phase 9: too few rows long enough")
+    n = len(rows)
+    pre = [c.tokens[:len(c.tokens) - T - 1] for c in rows]
+    S = _bucket_len(max(len(p) for p in pre))
+    S_c = -(-S // PAGE) * PAGE
+    max_pg = -(-max(len(c.tokens) for c in rows) // PAGE) + 1
+    tokens = torch.zeros((n, S), dtype=torch.int32)
+    for i, p in enumerate(pre):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in pre], dtype=torch.int32)
+    feed = torch.tensor([c.tokens[len(c.tokens) - T - 1:-1] for c in rows])
+    target = torch.tensor([c.tokens[len(c.tokens) - T:] for c in rows])
+    ids = torch.tensor([int(c.task_id.split("-")[1]) for c in rows],
+                       dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def fp32(tree, dev=dev):
+            return M.tree_map(lambda t: t.to(device=dev, dtype=torch.float32), tree)
+        p32 = fp32(params)
+        lora = batched_ctx(stack_adapters([fp32(a) for a in adapters]),
+                           ids.to(dev), cfg)
+        n0 = paged.LAUNCHES.n
+        with torch.inference_mode():
+            scratch = M.init_cache(cfg, n, S_c, dtype=torch.float32, device=dev)
+            _, scratch, _ = M.forward_seq(p32, tokens.to(dev), cfg, lora, scratch)
+            if dev == "cuda":
+                cache = M.init_paged_cache(cfg, n, pool_pages=n * max_pg,
+                                           page_size=PAGE,
+                                           max_pages_per_row=max_pg,
+                                           dtype=torch.float32, device=dev)
+                gen = torch.Generator(device="cuda").manual_seed(9)
+                perm = torch.randperm(n * max_pg, generator=gen, device=dev)
+                cache["tbl"].copy_(perm.reshape(n, max_pg).to(torch.int32))
+                chunks = S_c // PAGE
+                dest = cache["tbl"][:, :chunks].reshape(-1).long()
+                L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+                cache["kp"][:, dest] = scratch["k"].reshape(L, n * chunks, PAGE,
+                                                            KVH, hd)
+                cache["vp"][:, dest] = scratch["v"].reshape(L, n * chunks, PAGE,
+                                                            KVH, hd)
+            else:
+                cache = M.init_cache(cfg, n, max_pg * PAGE, dtype=torch.float32,
+                                     device=dev)
+                S_w = scratch["k"].shape[2]
+                cache["k"][:, :, :S_w] = scratch["k"]
+                cache["v"][:, :, :S_w] = scratch["v"]
+            cache["pos"].copy_(lens)
+            lps = []
+            for t in range(T):
+                logits, cache = M.decode_step(p32, feed[:, t].to(dev), cache, cfg,
+                                              lora)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                lps.append(logp.gather(1, target[:, t:t + 1].to(dev))[:, 0].cpu())
+        launched = paged.LAUNCHES.n - n0
+        if launched != (cfg.num_layers * T if dev == "cuda" else 0):
+            raise AssertionError(f"phase 9 on {dev}: {launched} paged launches")
+        out[dev] = torch.stack(lps, dim=1).double()
+        del p32, lora, scratch, cache
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    served = torch.tensor([c.gen_logprobs[-T:] for c in rows], dtype=torch.float64)
+    bf16_dev = float((out["cuda"] - served).abs().max())
+    log(f"[9 paged check] fp32, {n} rows x {T} teacher-forced decode steps over "
+        f"shuffled pages (prefix {min(lens.tolist())}-{max(lens.tolist())} tokens), "
+        f"card (paged kernel) vs CPU (dense, plain): max abs diff {err:.3e} (tol "
+        f"{TF_TOL}); served bf16 vs fp32 max abs diff {bf16_dev:.3e}")
+    if not err <= TF_TOL:
+        raise AssertionError(f"phase 9: fp32 card vs CPU logprobs differ by {err}")
+    return dict(rows=n, steps=T, max_abs_diff=err, tol=TF_TOL,
+                served_bf16_vs_fp32=bf16_dev)
+
+
 def main(argv):
     profile_dir = (Path(argv[argv.index("--profile") + 1])
                    if "--profile" in argv else None)
@@ -678,6 +1057,7 @@ def main(argv):
     import numpy as np
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.kernels import paged_decode as paged
     from repro_torch.kernels import sgmv
     from repro_torch.kernels import token_logprob as tlp
     from repro_torch import models as M
@@ -713,6 +1093,7 @@ def main(argv):
     sgmv_cases = check_sgmv(torch, sgmv, ref, g, S_p)
     train_rows = GROUPS * GROUP_SIZE * (-(-(S_p + MAX_NEW) // 8) * 8 - 1)
     tlp_fwd_cases, tlp_bwd_cases = check_token_logprob(torch, tlp, ref, g, train_rows)
+    paged_cases = check_paged_decode(torch, paged, gqa, ref, g)
 
     # -- phase 4: serve ---------------------------------------------------
     cfg = serve_config(ARCH, reduce=False)
@@ -778,6 +1159,7 @@ def main(argv):
 
     # -- phases 6 and 7: GRPO training, then fp32 card vs CPU ---------------
     counters = {"gqa_decode": gqa.LAUNCHES, "sgmv": sgmv.LAUNCHES,
+                "paged_gqa_decode": paged.LAUNCHES,
                 "token_logprob_fwd": tlp.FWD_LAUNCHES,
                 "token_logprob_bwd": tlp.BWD_LAUNCHES}
     train, last_tb, start, tc = train_phase(torch, cfg, params, counters, card)
@@ -790,12 +1172,19 @@ def main(argv):
         profile_train(torch, cfg, params, start, last_tb, tc, profile_dir)
     train["check"] = train_check(torch, M, cfg, params, last_tb, start, tc)
 
+    # -- phases 8 and 9: continuous engine over the paged pool --------------
+    cont, comps = continuous_phase(torch, cfg, params, adapters, counters, card)
+    if profile_dir is not None:
+        profile_continuous(torch, cfg, params, adapters, profile_dir)
+    cont["check"] = paged_check(torch, M, cfg, params, adapters, comps)
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
         peak_mem_gib=peak_gib, tf_max_abs_diff=tf_err,
         seconds=time.monotonic() - t_all, build_s=secs, card=card)}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"continuous": cont}), flush=True)
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
@@ -812,6 +1201,11 @@ def main(argv):
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases, n_bwd,
                      dict(launches_per_train_step=1, cuda_launches_per_call=2,
                           launches_phase="train (phase 6)")),
+        kernel_entry("paged_gqa_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_decode.py:85", paged_cases,
+                     cont["launches"]["paged_gqa_decode"],
+                     dict(launches_per_decode_step=cfg.num_layers,
+                          launches_phase="continuous serve (phase 8)")),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

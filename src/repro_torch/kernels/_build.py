@@ -5,7 +5,8 @@ library with a plain C interface, loaded with ``ctypes``. Nothing is built
 when the package is imported: the first kernel launch builds every source,
 one ``nvcc`` process per source, all started together. Libraries land in
 ``_build/`` beside this file (listed in ``.gitignore``), named by a hash of
-their source, so an unchanged source is not rebuilt.
+their source and of the shared headers (``csrc/*.cuh``), so an unchanged
+source is not rebuilt.
 """
 from __future__ import annotations
 
@@ -32,6 +33,11 @@ SIGNATURES = {
         # q, k, v, pos, out, B, S, KVH, H, hd, dtype, softcap, window, stream
         "gqa_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P],
+    },
+    "paged_decode": {
+        # q, kp, vp, tbl, pos, out, B, n_total, page, max_pages, KVH, H, hd,
+        # dtype, softcap, window, stream
+        "paged_decode_launch": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     },
     "sgmv": {
         # x, a, b, ids, h_part, y, R, d, r, dout, ksplit, x_dtype, stream
@@ -82,9 +88,10 @@ class _Builder:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.monotonic()
         jobs = {}
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         for name in SIGNATURES:
             src = CSRC / f"{name}.cu"
-            digest = hashlib.sha1(src.read_bytes()
+            digest = hashlib.sha1(src.read_bytes() + headers
                                   + " ".join(NVCC_FLAGS).encode()).hexdigest()
             lib = BUILD_DIR / f"{name}-{digest[:12]}.so"
             if lib.exists():

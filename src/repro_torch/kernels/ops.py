@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from .gqa_decode import gqa_decode as _gqa_decode
+from .paged_decode import paged_gqa_decode as _paged_gqa_decode
 from .sgmv import sgmv as _sgmv
 from .token_logprob import token_logprob_flat
 
@@ -20,6 +21,13 @@ def gqa_decode(q, cache_k, cache_v, pos, *, softcap=0.0, window=0):
     """Flash-decode GQA attention over a KV cache (one query token/row)."""
     return _gqa_decode(q, cache_k, cache_v, pos, softcap=softcap,
                        window=window)
+
+
+def paged_gqa_decode(q, kp, vp, tbl, pos, *, softcap=0.0, window=0):
+    """Flash-decode GQA attention over the shared page pool through a block
+    table (one query token/row)."""
+    return _paged_gqa_decode(q, kp, vp, tbl, pos, softcap=softcap,
+                             window=window)
 
 
 def token_logprob(hidden, vocab_w, targets, softcap: float = 0.0):

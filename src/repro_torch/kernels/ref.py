@@ -88,3 +88,20 @@ def gqa_decode_ref(q, cache_k, cache_v, pos, *, softcap=0.0, window=0):
     s = s.masked_fill(~valid[:, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+
+
+def paged_gqa_decode_ref(q, kp, vp, tbl, pos, *, softcap=0.0, window=0):
+    """Single-token GQA attention over a page pool: gather each row's pages
+    through its block table into a contiguous cache, then
+    ``gqa_decode_ref``.
+
+    q: [B, H, hd]; kp/vp: [n_pages+1, page, KVH, hd] (the last page is the
+    scratch page sentinel entries point at); tbl: [B, max_pages] physical
+    page ids; pos: [B] valid lengths. Returns [B, H, hd] in q's dtype."""
+    B = q.shape[0]
+    page, KVH, hd = kp.shape[1], kp.shape[2], kp.shape[3]
+    n_pg = tbl.shape[1]
+    idx = tbl.long()
+    ck = kp[idx].reshape(B, n_pg * page, KVH, hd)
+    cv = vp[idx].reshape(B, n_pg * page, KVH, hd)
+    return gqa_decode_ref(q, ck, cv, pos, softcap=softcap, window=window)

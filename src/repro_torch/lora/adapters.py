@@ -114,3 +114,30 @@ def stack_adapters(trees):
     if isinstance(first, dict):
         return {k: stack_adapters([t[k] for t in trees]) for k in first}
     return torch.stack(trees, dim=1).contiguous()
+
+
+def init_stacked_buffer(tree, capacity: int, device=None):
+    """Zeroed fixed-capacity stacked-LoRA buffer shaped like
+    ``stack_adapters([tree] * capacity)``: leaves [L, capacity, ...] in the
+    leaves' dtype, on `device` (default: the leaves' device).
+
+    Zero is the identity adapter (b == 0 => delta == 0), so unoccupied
+    slots are inert: a row routed at an empty slot sees the base model."""
+    if isinstance(tree, dict):
+        return {k: init_stacked_buffer(v, capacity, device)
+                for k, v in tree.items()}
+    return torch.zeros((tree.shape[0], capacity) + tuple(tree.shape[1:]),
+                       dtype=tree.dtype,
+                       device=tree.device if device is None else device)
+
+
+def write_adapter_slot(buf, tree, index: int):
+    """Install `tree` at slot `index` of a stacked buffer, IN PLACE (the JAX
+    package returns a new buffer with ``.at[:, i].set``): ``buf[:, index] =
+    leaf`` for every leaf, cast and moved to the buffer's dtype and
+    device."""
+    if isinstance(buf, dict):
+        for k, v in buf.items():
+            write_adapter_slot(v, tree[k], index)
+        return
+    buf[:, index].copy_(tree)

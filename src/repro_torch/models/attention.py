@@ -9,7 +9,9 @@ alternation (gemma2).
 per-layer windows are a list of ints, not a traced array. So
 ``attention_decode`` takes the ``gqa_decode`` kernel on the card for every
 layer and every cache length, where the JAX package routes to its kernel only
-for a static window and a cache length that tiles by 512.
+for a static window and a cache length that tiles by 512; and
+``attention_decode_paged`` takes the ``paged_gqa_decode`` kernel for every
+layer.
 
 Prefill attention stays plain tensor code, as the JAX package computes it
 outside any Pallas kernel.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.gqa_decode import gqa_decode
+from repro_torch.kernels.paged_decode import paged_gqa_decode
 from .common import (LoraCtx, apply_rope, dense_init, proj, rmsnorm,
                      rmsnorm_init, softcap)
 
@@ -159,3 +162,23 @@ def attention_decode(q, cache_k, cache_v, pos, cfg: ModelConfig, *,
     return gqa_decode(q, cache_k, cache_v, pos,
                       softcap=float(cfg.attn_softcap or 0.0),
                       window=int(window))
+
+
+def attention_decode_paged(q, kp, vp, tbl, pos, cfg: ModelConfig, *,
+                           window: int = 0):
+    """Single-token decode over the shared page pool (paged KV cache).
+
+    q: [B, H, hd]; kp/vp: [n_pages+1, page, KVH, hd] — one layer's pool
+    (physical page ``n_pages`` is the scratch page that sentinel block-table
+    entries point at); tbl: [B, max_pages] int32 physical page ids; pos: [B]
+    valid entries (incl. the just-written token).
+
+    On the card this is the hand-written ``paged_gqa_decode`` kernel, which
+    reads the pages in place through the table; on the CPU its plain version
+    (``kernels.ref.paged_gqa_decode_ref``), which gathers each row's pages
+    into a contiguous cache and attends over it, as the JAX package's oracle
+    path does. Positions >= pos (incl. whatever a sentinel entry points at)
+    are masked, so the paged output equals the dense one."""
+    return paged_gqa_decode(q, kp, vp, tbl, pos,
+                            softcap=float(cfg.attn_softcap or 0.0),
+                            window=int(window))

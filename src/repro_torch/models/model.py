@@ -8,9 +8,13 @@ port loops over it in Python.
 The KV cache is a plain dict of tensors, updated IN PLACE (JAX's arrays are
 immutable, so its functions return a new cache; the port writes into the
 one it is given, which saves a copy of the cache per call, and returns the
-same dict with a new ``pos``):
+same dict with a new ``pos``). Dense (``init_cache``):
   k, v        [L, B, Smax, KVH, hd]
   pos         [B] int32 — valid entries per row
+or paged (``init_paged_cache``; ``decode_step`` tells them apart by ``tbl``):
+  kp, vp      [L, n_pages+1, page, KVH, hd] — the shared page pool
+  tbl         [B, max_pages] int32 — per-row physical page ids
+  pos         [B] int32
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
-from .attention import attention_chunked, attention_decode, attn_init, qkv
+from .attention import (attention_chunked, attention_decode,
+                        attention_decode_paged, attn_init, qkv)
 from .common import (LoraCtx, dense_init, dtype_of, embed_init, proj,
                      resolve_device, rmsnorm, rmsnorm_init, rope_tables,
                      softcap)
@@ -122,6 +127,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, *, pool_pages: int,
+                     page_size: int, max_pages_per_row: int, dtype=None,
+                     device="cuda") -> Params:
+    """Block-pool KV cache: attention K/V live in a SHARED pool of
+    ``pool_pages`` pages of ``page_size`` tokens (``kp``/``vp``:
+    [L, pool_pages+1, page, KVH, hd]) and each row names its pages through a
+    block table ``tbl: [batch, max_pages_per_row]``. Physical page
+    ``pool_pages`` is the scratch page: sentinel table entries (==
+    pool_pages) route frozen/empty-lane writes and masked reads there. The
+    host-side allocator (``rollout/kvcache.py``) owns the free list; this
+    function only lays out device memory. Keys, shapes and the sentinel are
+    the JAX package's."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dt = dtype or dtype_of(cfg.dtype)
+    shape = (cfg.num_layers, pool_pages + 1, page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "tbl": torch.full((batch, max_pages_per_row), pool_pages,
+                              dtype=torch.int32, device=dev),
+            "kp": torch.zeros(shape, dtype=dt, device=dev),
+            "vp": torch.zeros(shape, dtype=dt, device=dev)}
+
+
 def _write_kv(ck, cv, k_new, v_new, pos):
     """Decode write: one token's K/V ([B, 1, KVH, hd]) at each row's offset
     `pos` ([B]) of ck/cv ([B, Smax, KVH, hd]), in place.
@@ -164,14 +193,37 @@ def _dense_block_seq(x, lp, cfg, lora, window, positions, rope, q_chunk,
     return x + y, (k, v)
 
 
-def _dense_block_decode(x, lp, cfg, lora, window, ck, cv, pos, rope):
-    """x: [B, d] one token; ck/cv: [B, Smax, KVH, hd], written in place."""
+def _write_kv_paged(kp, vp, tbl, k_new, v_new, pos):
+    """Paged decode write: one token's K/V ([B, 1, KVH, hd]) into physical
+    page ``tbl[b, pos // page]`` of kp/vp ([n_pages+1, page, KVH, hd]) at
+    offset ``pos % page``, in place. Frozen and empty lanes whose entry is
+    the sentinel write the scratch page, which is never validly read; so does
+    a row whose pos is past its table (the JAX package's scatter drops that
+    write)."""
+    page, sentinel, max_pg = kp.shape[1], kp.shape[0] - 1, tbl.shape[1]
+    lpage = (pos // page).long()
+    pidx = tbl.gather(1, lpage.clamp(max=max_pg - 1)[:, None])[:, 0]
+    pidx = torch.where(lpage < max_pg, pidx, sentinel).long()
+    off = (pos % page).long()
+    kp[pidx, off] = k_new[:, 0].to(kp.dtype)
+    vp[pidx, off] = v_new[:, 0].to(vp.dtype)
+
+
+def _block_decode(x, lp, cfg, lora, window, ck, cv, pos, rope, tbl=None):
+    """x: [B, d] one token. Dense cache: ck/cv [B, Smax, KVH, hd]; paged
+    cache (`tbl` [B, max_pages] given): ck/cv are this layer's page pool
+    [n_pages+1, page, KVH, hd]. Either is written in place."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)[:, None, :]      # [B,1,d]
     q, k, v = qkv(h, lp["attn"], cfg, pos[:, None], lora, rope_tables=rope)
-    _write_kv(ck, cv, k, v, pos)
-    o = attention_decode(q[:, 0].contiguous(), ck, cv, pos + 1, cfg,
-                         window=window)
+    q = q[:, 0].contiguous()
+    if tbl is None:
+        _write_kv(ck, cv, k, v, pos)
+        o = attention_decode(q, ck, cv, pos + 1, cfg, window=window)
+    else:
+        _write_kv_paged(ck, cv, tbl, k, v, pos)
+        o = attention_decode_paged(q, ck, cv, tbl, pos + 1, cfg,
+                                   window=window)
     o = o.reshape(B, cfg.q_dim)
     x = x + proj(o, lp["attn"].wo, lora=lora, name="attn_o")
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
@@ -243,19 +295,27 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
     `advance` ([B] int32 0/1, default all-ones) freezes rows awaiting
     external tool responses: a frozen row's K/V slot is written (and
     overwritten on resume) but its `pos` does not move, so its cache never
-    accumulates garbage. Returns (logits [B, V], cache)."""
+    accumulates garbage. Returns (logits [B, V], cache).
+
+    The cache may be dense (``init_cache``) or paged (``init_paged_cache``,
+    told apart by its ``tbl`` block table): the paged path writes the
+    token's K/V into the row's current page and attends through the table
+    (the ``paged_gqa_decode`` kernel on the card), with the dense path's
+    values."""
     _check_family(cfg)
     B = new_tokens.shape[0]
     pos = cache["pos"]
+    paged = "tbl" in cache
     if advance is None:
         advance = torch.ones((B,), dtype=torch.int32, device=pos.device)
     x = params["embed"][new_tokens.long()]                   # [B, d]
     rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    ck, cv = (cache["kp"], cache["vp"]) if paged else (cache["k"], cache["v"])
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
-        x = _dense_block_decode(x, lp, cfg, _lora_layer(lora, i),
-                                _window_for(cfg, i), cache["k"][i],
-                                cache["v"][i], pos, rope)
+        x = _block_decode(x, lp, cfg, _lora_layer(lora, i),
+                          _window_for(cfg, i), ck[i], cv[i], pos, rope,
+                          cache.get("tbl"))
     cache = dict(cache, pos=(pos + advance).to(torch.int32))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(x, params, cfg), cache

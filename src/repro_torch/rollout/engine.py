@@ -1,28 +1,65 @@
-"""Round-fused multi-LoRA rollout engine (paper §4.1/§4.5): the part of
-``repro.rollout.engine`` behind ``RolloutEngine.generate``.
+"""Multi-LoRA rollout engines (paper §4.1/§4.4/§4.5); port of
+``repro.rollout.engine``.
 
-One fixed batch of cross-task requests runs to completion: one batched
-prefill, then a loop of decode steps. Each row runs under its own tenant's
-LoRA adapter (the SGMV kernel on the card) and samples from its own key, so a
+Two engines share one decode-step body and one per-row sampling rule:
+
+``RolloutEngine.generate()`` — the round-fused baseline. One fixed batch of
+cross-task requests runs to completion: one batched prefill, then a loop of
+decode steps; every row waits for the slowest.
+
+``ContinuousRolloutEngine`` — the slot model. A persistent pool of
+``max_slots`` decode slots holds rows from any tenant, each tagged with an
+adapter id into a fixed-capacity stacked-LoRA buffer. Decode is one step
+over the pool and never drains: a finished row (EOS / sampled budget /
+cache capacity) is evicted, its ``RolloutCompletion`` streams back, and
+freed slots are filled from a cross-task request queue, ordered by
+``rollout/scheduler.py`` (SRPT with priority tiers and a starvation bound,
+or FIFO). The fill is fused: the incoming rows prefill in one batched call
+on the decode stream, and their cache state and first tokens are spliced
+into the pool. Preemption (``preempt_tenant``/``preempt_slots``) evicts
+resident rows mid-decode; a victim re-queues and later either replays
+``prompt + gen`` through the refill with the counter it would have used, or,
+with the paged cache and ``resume_restore``, has its live KV pages copied to
+host and spliced back, with no replay. Either way its tokens equal an
+uninterrupted run's.
+
+Each row runs under its own tenant's LoRA adapter (the SGMV kernel on the
+card) and samples from its own key (``fold_in(PRNGKey(seed), request.seed
+or submission index)``, folded with the row's generated-token count), so a
 row's tokens depend only on its own (key, counter, logits) and reproduce the
-JAX engine's tokens from the same logits. Agentic rows that emit
-``tok.CALL`` are frozen (advance 0) while their tool call runs on a thread
+JAX engine's tokens from the same logits. Rows that emit ``tok.CALL`` are
+frozen in their slot (advance 0) while their tool call runs on a thread
 pool, then force-fed the response; forced tokens do not count against
 ``max_new_tokens``.
 
-The step functions are plain Python closures over the model; the engine
-keeps them as ``_prefill_fn``, ``_first_fn`` and ``_step_fn`` so that a test
-can wrap them, as the JAX engine's tests do. Serving runs under
-``torch.inference_mode()``. ``to_trajectory_batch`` packs one task's
-results for the trainer. The continuous slot engine, the paged cache, the
-disaggregated prefill workers and the env stage are not ported yet.
+Paged KV cache (``paged_kv=True``): attention K/V live in a shared pool of
+``kv_pool_pages`` pages of ``kv_page_size`` tokens (``rollout/kvcache.py``
+owns the free list, ``models.init_paged_cache`` the device side); a slot
+holds ``ceil(len/page)`` pages, growing one page at a time, and decode reads
+them through per-slot block tables (the ``paged_gqa_decode`` kernel on the
+card). A row the pool cannot serve finishes with ``capacity``.
+
+The step functions are plain Python closures over the model that write the
+engine's cache and row-state tensors in place (the JAX engine's jitted calls
+donate them instead); the engines keep them as attributes (``_step_fn``,
+``_refill_fn``, ...) so that a test can wrap them, as the JAX engine's tests
+do. Serving runs under ``torch.inference_mode()``. ``to_trajectory_batch``
+packs one task's results for the trainer.
+
+Not ported yet (each raises ``NotImplementedError`` at construction where
+the JAX engine has a switch for it): the prefix cache over the paged pool
+(``prefix_cache=True`` with ``paged_kv``), the disaggregated prefill
+workers, the env stage, the tracer, chaos injection and stage supervision;
+and ``abort_tenant``.
 """
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,12 +67,17 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.data import tokenizer as tok
 from repro_torch.envs.base import CancelToken, Env, call_session
-from repro_torch.lora.adapters import batched_ctx, stack_adapters
-from repro_torch.models import decode_step, forward_seq, init_cache, lm_logits
+from repro_torch.lora.adapters import (batched_ctx, init_stacked_buffer,
+                                       stack_adapters, write_adapter_slot)
+from repro_torch.models import (decode_step, forward_seq, init_cache,
+                                init_paged_cache, lm_logits)
 from repro_torch.models.common import resolve_device, synchronize
 from repro_torch.rl.types import RolloutCompletion, TrajectoryBatch
 from repro_torch.rollout import prng
+from repro_torch.rollout.kvcache import (KVSnapshot, PagePool, SnapshotStore,
+                                         pages_for)
 from repro_torch.rollout.prefill import _bucket_len, _sample_rows
+from repro_torch.rollout.scheduler import LengthPredictor, SlotScheduler
 
 
 @dataclass
@@ -49,23 +91,66 @@ class RolloutRequest:
     temperature: float = 1.0
     seed: Optional[int] = None    # per-row key = fold_in(master, seed)
                                   # (defaults to batch/submission index)
+    priority: int = 0             # scheduler tier: higher pops first and is
+                                  # never chosen as a preemption victim over
+                                  # a lower tier
     max_turns: Optional[int] = None   # tool-turn budget for this episode
                                       # (None -> env.max_turns; 0 = unlimited)
 
 
 @dataclass
 class RolloutStats:
-    """The counters ``generate`` fills (the continuous engine's extras of the
-    JAX package are not ported yet)."""
+    """Engine counters, the JAX package's fields. ``generate`` fills the
+    first group; the continuous engine fills the extras. The extras of
+    stages not ported yet (disaggregated prefill, env stage, prefix cache)
+    stay 0 and are kept so that both packages' stats compare field by
+    field."""
     decode_steps: int = 0
     prefill_tokens: int = 0
     decode_seconds: float = 0.0     # decode-stage device time only
     prefill_seconds: float = 0.0    # prefill-stage device time
     env_wait_seconds: float = 0.0
     wall_seconds: float = 0.0
+    # continuous-engine extras (zero for round-fused generate())
     prefills: int = 0
+    refills: int = 0
+    completions: int = 0
     tokens_generated: int = 0
     sampled_tokens: int = 0
+    occupied_row_steps: int = 0    # sum over decode steps of advanced rows
+    capacity_row_steps: int = 0    # decode_steps x max_slots
+    preemptions: int = 0           # rows evicted mid-decode and re-queued
+    replays: int = 0               # preempted rows re-prefilled into a slot
+    replay_tokens: int = 0         # prompt+prefix tokens re-processed
+    # disaggregated-prefill extras (not ported yet: always 0)
+    splices: int = 0
+    splice_seconds: float = 0.0    # decode-side install time (restores)
+    splice_wait_seconds: float = 0.0
+    prefill_chunks: int = 0
+    decode_stall_seconds: float = 0.0   # prefill-stage work executed ON the
+                                        # decode stream (fused refill)
+    # env-stage extras (not ported yet: always 0)
+    parks: int = 0
+    resumes: int = 0
+    tool_errors: int = 0
+    # paged-KV / snapshot-restore extras (rollout/kvcache.py)
+    restores: int = 0              # rows resumed by splicing saved KV pages
+                                   # back (NO prefill replay ran)
+    replay_tokens_saved: int = 0   # prompt+prefix tokens a replay would
+                                   # have re-prefilled but restore skipped
+    snapshots: int = 0             # preemption snapshots taken to host
+    snapshot_drops: int = 0        # snapshots rejected under host memory
+                                   # pressure (row fell back to replay)
+    pool_exhausted: int = 0        # rows finished by cache-capacity
+                                   # eviction when the page pool ran dry
+    # prefix-cache extras (not ported yet: always 0)
+    prefix_hits: int = 0
+    prefix_hit_tokens: int = 0
+    cow_forks: int = 0
+    device_resident_resumes: int = 0
+    fused_forced_tokens: int = 0
+    tool_wait_slot_steps: int = 0  # sum over decode steps of resident rows
+                                   # frozen on a tool wait
     env_wait_by_task: Dict[str, float] = field(default_factory=dict)
                                    # per-tenant env-interaction wait seconds
 
@@ -74,6 +159,11 @@ class RolloutStats:
         self.env_wait_seconds += wait
         self.env_wait_by_task[task_id] = (
             self.env_wait_by_task.get(task_id, 0.0) + wait)
+
+    def slot_utilization(self) -> float:
+        if self.capacity_row_steps <= 0:
+            return 0.0
+        return self.occupied_row_steps / self.capacity_row_steps
 
 
 def _log_softmax_at(logits, idx):
@@ -116,13 +206,176 @@ def _build_fns(cfg: ModelConfig):
     return prefill, first, step
 
 
-class _Row:
-    """Host-side per-episode state machine (one batch lane)."""
-    __slots__ = ("req", "prompt_len", "gen", "lps", "lmask", "sampled",
-                 "forced", "status", "forced_q", "finish_reason", "session",
-                 "turns")
+def _build_cont_step_fn(cfg: ModelConfig):
+    """Continuous-engine decode step with device-resident row state: the
+    current tokens and per-row counters are carried through the call
+    (frozen/empty lanes keep their previous token), so the host uploads
+    nothing per step beyond the occasionally-changing advance/forced
+    masks."""
 
-    def __init__(self, req: RolloutRequest):
+    def step(params, adapters, row_ids, cur_tokens, cache, keys, counters,
+             temps, forced, forced_mask, advance):
+        nxt, lp, cache = _decode_sample_core(cfg, params, adapters, row_ids,
+                                             cur_tokens, cache, keys,
+                                             counters, temps, forced,
+                                             forced_mask, advance)
+        nxt = torch.where(advance > 0, nxt, cur_tokens)
+        return nxt, lp, cache, counters + advance
+
+    return step
+
+
+def _prefill_first(cfg, params, adapters, tokens, prompt_lens, init_counters,
+                   new_row_ids, new_keys, new_temps, forced, forced_mask,
+                   pcache):
+    """Prefill a batch of incoming rows on a fresh scratch cache and pick
+    each row's first token: sampled with its key at `init_counters` (0 for
+    a fresh row, ``len(gen)`` for a replayed one), or forced."""
+    lora = batched_ctx(adapters, new_row_ids, cfg)
+    h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache)
+    rows = torch.arange(h.shape[0], device=h.device)
+    logits = lm_logits(h[rows, prompt_lens.long() - 1], params, cfg)
+    sampled = _sample_rows(logits, new_keys, init_counters, new_temps)
+    first = torch.where(forced_mask > 0, forced.long(),
+                        sampled).to(torch.int32)
+    return first, _log_softmax_at(logits, first), pcache
+
+
+def _set_row_state(slots, first, counters_next, new_keys, new_temps,
+                   new_row_ids, cur, counters, keys, temps, row_ids):
+    """Write the incoming rows' device state at their slots, in place."""
+    cur[slots] = first
+    counters[slots] = counters_next
+    keys[slots] = new_keys
+    temps[slots] = new_temps
+    row_ids[slots] = new_row_ids
+    return cur, counters, keys, temps, row_ids
+
+
+def _build_refill_fn(cfg: ModelConfig, max_len: int):
+    """The fused refill on the dense cache: ONE call prefills the incoming
+    rows on a width-k scratch cache, samples their first tokens, and writes
+    every row's K/V into the pool at its slot (in place).
+
+    The JAX engine pads the batch to a power-of-two width with ghost rows
+    whose slot is out of bounds, so that XLA drops their scatters; the port
+    runs eagerly and prefills only the real rows, so nothing is padded and
+    every index is in bounds. The scratch cache holds the prompt bucket
+    only: entries of a slot past the new row's length keep its previous
+    occupant's values, which are masked (>= pos) and overwritten by decode
+    before they are read."""
+
+    def refill(params, adapters, tokens, prompt_lens, init_counters, slots,
+               new_row_ids, new_keys, new_temps, forced, forced_mask, cache,
+               cur, counters, keys, temps, row_ids):
+        S = min(tokens.shape[1], max_len)
+        pcache = init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                            dtype=cache["k"].dtype, device=tokens.device)
+        first, lp, pcache = _prefill_first(
+            cfg, params, adapters, tokens, prompt_lens, init_counters,
+            new_row_ids, new_keys, new_temps, forced, forced_mask, pcache)
+        sl = slots.long()
+        cache["k"][:, sl, :S] = pcache["k"][:, :, :S]
+        cache["v"][:, sl, :S] = pcache["v"][:, :, :S]
+        cache["pos"][sl] = prompt_lens
+        state = _set_row_state(sl, first, init_counters + 1, new_keys,
+                               new_temps, new_row_ids, cur, counters, keys,
+                               temps, row_ids)
+        return first, lp, cache, state
+
+    return refill
+
+
+def _paged_scatter(cache, pcache_k, pcache_v, dest_pages, page: int):
+    """Write a dense prefill scratch cache's K/V ([L, W, S, KVH, hd],
+    S % page == 0) into the page pool, in place, at the physical pages named
+    by ``dest_pages`` [W, S//page]. Sentinel entries all name the scratch
+    page: several chunks may land there (harmless, it is never validly
+    read), while a real page is named once."""
+    L, W, S, KVH, hd = pcache_k.shape
+    dest = dest_pages.reshape(W * (S // page)).long()
+    cache["kp"][:, dest] = pcache_k.reshape(L, -1, page, KVH, hd).to(
+        cache["kp"].dtype)
+    cache["vp"][:, dest] = pcache_v.reshape(L, -1, page, KVH, hd).to(
+        cache["vp"].dtype)
+
+
+def _build_refill_fn_paged(cfg: ModelConfig, max_len: int, page: int):
+    """Paged twin of ``_build_refill_fn``: the batched prefill still runs on
+    a dense scratch cache (prefill is contiguous by nature; here the prompt
+    bucket rounded up to whole pages), and each incoming row's K/V is
+    written page by page into the physical pages the host allocator handed
+    it (`dest_pages` [k, chunks], sentinel past the row's page count). Only
+    ``ceil(seq_len/page)`` pages per row are consumed. (The JAX engine's
+    response-prefill fusion, reachable only from env-stage resumes, is not
+    ported.)"""
+
+    def refill(params, adapters, tokens, prompt_lens, init_counters, slots,
+               dest_pages, new_row_ids, new_keys, new_temps, forced,
+               forced_mask, cache, cur, counters, keys, temps, row_ids):
+        pcache = init_cache(cfg, tokens.shape[0], dest_pages.shape[1] * page,
+                            dtype=cache["kp"].dtype, device=tokens.device)
+        first, lp, pcache = _prefill_first(
+            cfg, params, adapters, tokens, prompt_lens, init_counters,
+            new_row_ids, new_keys, new_temps, forced, forced_mask, pcache)
+        _paged_scatter(cache, pcache["k"], pcache["v"], dest_pages, page)
+        sl = slots.long()
+        cache["pos"][sl] = prompt_lens
+        state = _set_row_state(sl, first, init_counters + 1, new_keys,
+                               new_temps, new_row_ids, cur, counters, keys,
+                               temps, row_ids)
+        return first, lp, cache, state
+
+    return refill
+
+
+def _build_snap_fn(cfg: ModelConfig):
+    """Gather one resident row's live KV pages for a host snapshot. The
+    gather is a copy, taken before the pages return to the pool (the pool is
+    written in place, so a view would be overwritten by the next owner)."""
+
+    def snap(cache, pages):
+        idx = pages.long()
+        return {"kp": cache["kp"][:, idx].cpu(),
+                "vp": cache["vp"][:, idx].cpu()}
+
+    return snap
+
+
+def _build_restore_fn(cfg: ModelConfig):
+    """Splice a host snapshot back into the pool: its KV pages into the
+    freshly allocated physical pages `dest_pages` (exactly ``n_pages`` of
+    them), `pos` to the snapshot position, and the device row state to
+    (pending token, counter); the next ordinary decode step then continues
+    the row with the logits an uninterrupted run would produce. No prefill
+    runs."""
+
+    def restore(cache, kpages, vpages, dest_pages, slot, pos_val, cur_tok,
+                counter, key, temp, row_id, cur, counters, keys, temps,
+                row_ids):
+        dest = dest_pages.long()
+        cache["kp"][:, dest] = kpages.to(device=cache["kp"].device,
+                                         dtype=cache["kp"].dtype)
+        cache["vp"][:, dest] = vpages.to(device=cache["vp"].device,
+                                         dtype=cache["vp"].dtype)
+        cache["pos"][slot] = pos_val
+        state = _set_row_state(slot, cur_tok, counter, key, temp, row_id,
+                               cur, counters, keys, temps, row_ids)
+        return cache, state
+
+    return restore
+
+
+class _Row:
+    """Host-side per-episode state machine (one batch lane, or one slot of
+    the continuous engine while resident)."""
+    __slots__ = ("req", "prompt_len", "gen", "lps", "lmask", "sampled",
+                 "forced", "status", "forced_q", "finish_reason", "key",
+                 "submit_index", "meta", "submitted_at", "started_at",
+                 "replays", "session", "turns", "snap")
+
+    def __init__(self, req: RolloutRequest, key=None, submit_index: int = 0,
+                 meta=None, submitted_at: float = 0.0):
         self.req = req
         self.prompt_len = len(req.prompt)
         self.gen: List[int] = []
@@ -133,8 +386,18 @@ class _Row:
         self.status = "active"            # active|calling|done
         self.forced_q: List[int] = []
         self.finish_reason = ""
-        self.session = None           # per-episode ToolSession (lazy)
+        self.key = key                    # [2] uint32 base key
+        self.submit_index = submit_index
+        self.meta = meta or {}
+        self.submitted_at = submitted_at
+        self.started_at = 0.0
+        self.replays = 0              # times preempted and re-queued
+        self.session = None           # per-episode ToolSession (lazy; kept
+                                      # across preemption)
         self.turns = 0                # tool calls dispatched this episode
+        self.snap = None              # host KVSnapshot while preempted
+                                      # (paged engine, resume_restore);
+                                      # None -> the row replays from tokens
 
     def turn_limit(self) -> int:
         """Effective tool-turn budget (0 = unlimited)."""
@@ -441,6 +704,847 @@ class RolloutEngine:
         pending[i], pending_tok[i] = _submit_tool_call(
             row, token_row[:row.prompt_len], pool, rng, sim_latency)
         pending_t0[i] = time.monotonic()
+
+
+class ContinuousRolloutEngine:
+    """Persistent slot-pool engine: decode never drains between tenants.
+
+    Usage: ``set_adapters(slot, tree)`` to (re)install a tenant's LoRA in
+    the fixed-capacity stacked buffer, ``submit(request)`` any number of
+    requests (request.adapter_index names the adapter slot), then call
+    ``step()`` from the scheduler loop, or ``drain()`` to run to empty.
+    Finished rows stream out of ``drain_completions()`` the moment they
+    evict.
+
+    The request queue pops in ``scheduler`` order ("srpt": priority tiers,
+    then shortest predicted remaining budget via a per-tenant EMA length
+    predictor, with a ``starvation_k``-refill progress bound; "fifo":
+    arrival order). ``preempt_tenant``/``preempt_slots`` evict resident
+    rows; they resume with the tokens an uninterrupted run gives (see the
+    module docstring).
+
+    The signature is the JAX engine's, less ``use_kernel`` (the port has no
+    switch: kernels run for tensors on the card) and plus ``device``
+    (default "cuda", which raises when no card is present); ``base_params``
+    and the adapters passed to ``set_adapters`` live on ``device``. The
+    switches of stages not ported yet raise ``NotImplementedError``:
+    ``disagg_prefill``, ``env_stage``, ``tracer``, ``chaos``,
+    ``supervise_wedge_s``, and the prefix cache, which is the JAX default
+    with ``paged_kv`` — so the paged engine needs ``prefix_cache=False``
+    passed explicitly. Their companion arguments (``prefill_chunk``,
+    ``prefill_workers``, ``env_workers``, ``env_inflight_per_tenant``,
+    ``tool_retry_*``) are accepted and unused.
+    """
+
+    def __init__(self, cfg: ModelConfig, base_params, *, max_slots: int = 8,
+                 max_adapters: int = 8, max_len: int = 128, seed: int = 0,
+                 tool_executor: Optional[ThreadPoolExecutor] = None,
+                 sim_latency: bool = False, tool_timeout_s: float = 60.0,
+                 scheduler: str = "srpt", starvation_k: int = 8,
+                 predictor: Optional[LengthPredictor] = None,
+                 disagg_prefill: bool = False, prefill_chunk: int = 0,
+                 prefill_workers: int = 1, env_stage: bool = False,
+                 env_workers: int = 2, env_inflight_per_tenant: int = 0,
+                 paged_kv: bool = False, kv_page_size: int = 16,
+                 kv_pool_pages: int = 0, resume_restore: bool = True,
+                 snapshot_budget_bytes: int = 0, prefix_cache: bool = True,
+                 on_stage=None, tracer=None, chaos=None,
+                 tool_retry_max: int = 3, tool_retry_base_s: float = 0.05,
+                 tool_retry_max_s: float = 2.0,
+                 tool_retry_episode_cap: int = 0,
+                 supervise_wedge_s: float = 0.0, device="cuda"):
+        later = {"disagg_prefill": (disagg_prefill, "5 (e)"),
+                 "env_stage": (env_stage, "5 (f)"),
+                 "prefix_cache (with paged_kv)": (paged_kv and prefix_cache,
+                                                  "5 (d)"),
+                 "tracer": (tracer is not None, "7"),
+                 "chaos": (chaos is not None, "7"),
+                 "supervise_wedge_s": (supervise_wedge_s > 0, "7")}
+        for name, (on, item) in later.items():
+            if on:
+                raise NotImplementedError(
+                    f"ContinuousRolloutEngine: {name} is not ported yet "
+                    f"(ROADMAP.md, §1 item {item})")
+        self.cfg = cfg
+        self.base_params = base_params
+        self.max_slots = max_slots
+        self.max_adapters = max_adapters
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        self.tool_timeout_s = tool_timeout_s
+        # -- paged KV-cache block pool ------------------------------------
+        self.paged_kv = paged_kv
+        self.kv_page_size = kv_page_size
+        self.resume_restore = paged_kv and resume_restore
+        if paged_kv:
+            if max_len % kv_page_size != 0:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"kv_page_size {kv_page_size}")
+            self._max_pg = max_len // kv_page_size
+            # default pool: dense-equivalent capacity (every slot could run
+            # to max_len); size it down to save memory, at the cost of
+            # cache-capacity evictions if every row runs long
+            self.kv_pool_pages = kv_pool_pages or max_slots * self._max_pg
+            self._pages = PagePool(self.kv_pool_pages, kv_page_size)
+            self._slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
+            self._slot_pos = [0] * max_slots      # device cache["pos"] mirror
+            self._tbl_host = np.full((max_slots, self._max_pg),
+                                     self._pages.sentinel, np.int32)
+            self._tbl_dirty = False
+            self._snap_store = SnapshotStore(snapshot_budget_bytes)
+        else:
+            self.kv_pool_pages = 0
+            self._pages = None
+            self._snap_store = None
+        self._snap_fn = None
+        self._restore_fn = None
+        self.sim_latency = sim_latency
+        self.on_stage = on_stage    # optional (phase, task_id, t0, t1) hook
+        self._master = prng.prng_key(seed)
+        self._rng = np.random.RandomState(seed + 7919)
+        self._own_pool = tool_executor is None
+        self._pool = tool_executor or ThreadPoolExecutor(max_workers=4)
+
+        self._step_fn = None
+        self._refill_fn = None
+        self._stacked = None                     # [L, T, ...] LoRA buffer
+        self._cache = None                       # batch = max_slots
+
+        N = max_slots
+        self._rows: List[Optional[_Row]] = [None] * N
+        self._prompts: List[Optional[List[int]]] = [None] * N
+        # device-resident row state (written in place by the step, refill
+        # and restore calls; the host uploads only the advance/forced masks,
+        # and only when they change — see step())
+        self._d_cur = None          # [N] int32   current token per lane
+        self._d_counters = None     # [N] int32   == len(gen) per lane
+        self._d_keys = None         # [N,2] int64 per-row base key words
+        self._d_temps = None        # [N] float32
+        self._d_row_ids = None      # [N] int32   adapter slot per lane
+        self._mask_sig = None       # last uploaded (advance,forced,fmask)
+        self._d_masks = None
+        self._pending: Dict[int, Future] = {}
+        self._pending_t0: Dict[int, float] = {}
+        self._pending_tok: Dict[int, CancelToken] = {}
+        self.predictor = predictor or LengthPredictor()
+        self._sched = SlotScheduler(policy=scheduler,
+                                    predictor=self.predictor,
+                                    starvation_k=starvation_k)
+        self._completed: Deque[RolloutCompletion] = deque()
+        self._n_submitted = 0
+        self.stats = RolloutStats()
+        # submit() and the introspection methods may run on another thread
+        # than step(). (Named apart from the JAX engine's _stage_lock: the
+        # repo's lock analyzer names locks by class and attribute.)
+        self._queue_lock = threading.Lock()   # guards: _sched
+
+    # -- build ----------------------------------------------------------
+    def _ensure_built(self):
+        if self._step_fn is None:
+            self._step_fn = _build_cont_step_fn(self.cfg)
+            if self.paged_kv:
+                self._refill_fn = _build_refill_fn_paged(
+                    self.cfg, self.max_len, self.kv_page_size)
+                self._snap_fn = _build_snap_fn(self.cfg)
+                self._restore_fn = _build_restore_fn(self.cfg)
+            else:
+                self._refill_fn = _build_refill_fn(self.cfg, self.max_len)
+        if self._cache is None:
+            N, dev = self.max_slots, self.device
+            if self.paged_kv:
+                self._cache = init_paged_cache(
+                    self.cfg, N, pool_pages=self.kv_pool_pages,
+                    page_size=self.kv_page_size,
+                    max_pages_per_row=self._max_pg, device=dev)
+            else:
+                self._cache = init_cache(self.cfg, N, self.max_len,
+                                         device=dev)
+            self._d_cur = torch.zeros((N,), dtype=torch.int32, device=dev)
+            self._d_counters = torch.zeros((N,), dtype=torch.int32,
+                                           device=dev)
+            self._d_keys = torch.zeros((N, 2), dtype=torch.int64, device=dev)
+            self._d_temps = torch.ones((N,), dtype=torch.float32, device=dev)
+            self._d_row_ids = torch.zeros((N,), dtype=torch.int32,
+                                          device=dev)
+
+    def _tensor(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # -- adapters --------------------------------------------------------
+    @torch.no_grad()
+    def set_adapters(self, index: int, tree):
+        """Install/replace the LoRA tree at adapter slot `index` of the
+        fixed-capacity stacked buffer, in place."""
+        if not 0 <= index < self.max_adapters:
+            raise ValueError(f"adapter slot {index} out of range "
+                             f"[0, {self.max_adapters})")
+        self._ensure_built()
+        if self._stacked is None:
+            self._stacked = init_stacked_buffer(tree, self.max_adapters,
+                                                self.device)
+        write_adapter_slot(self._stacked, tree, index)
+
+    # -- submission ------------------------------------------------------
+    def submit(self, req: RolloutRequest, meta=None):
+        if len(req.prompt) + 1 >= self.max_len:
+            raise ValueError("prompt does not fit decode cache")
+        key = prng.fold_in_host(
+            self._master,
+            req.seed if req.seed is not None else self._n_submitted)
+        row = _Row(req, key, self._n_submitted, meta=meta,
+                   submitted_at=time.monotonic())
+        self._n_submitted += 1
+        with self._queue_lock:
+            self._sched.push(row, self.stats.refills)
+        return row.submit_index
+
+    # -- introspection ---------------------------------------------------
+    def occupancy(self) -> Tuple[int, int]:
+        return sum(r is not None for r in self._rows), self.max_slots
+
+    def occupant_tasks(self) -> frozenset:
+        return frozenset(r.req.task_id for r in self._rows if r is not None)
+
+    def queued(self) -> int:
+        with self._queue_lock:
+            return len(self._sched)
+
+    def idle(self) -> bool:
+        return self.queued() == 0 and all(r is None for r in self._rows)
+
+    def active_tenants(self) -> frozenset:
+        """Tenants with rows resident in slots or queued (incl. preempted
+        rows awaiting resume) — i.e. whose adapter slot must stay
+        resident."""
+        with self._queue_lock:
+            queued = self._sched.tenants()
+        return self.occupant_tasks() | queued
+
+    def queued_progress(self, task_id: str) -> Tuple[int, float]:
+        """(row count, mean sampled tokens) over a tenant's queued rows.
+        Preempted rows carry their generated prefix, so this feeds an
+        admission controller's remaining-budget re-estimate."""
+        with self._queue_lock:
+            rows = self._sched.rows_for(task_id)
+        if not rows:
+            return 0, 0.0
+        return len(rows), float(sum(r.sampled for r in rows)) / len(rows)
+
+    def drain_completions(self) -> List[RolloutCompletion]:
+        out = []
+        while self._completed:
+            out.append(self._completed.popleft())
+        return out
+
+    # -- slot lifecycle --------------------------------------------------
+    def _completion(self, row: _Row, prompt, slot: int) -> RolloutCompletion:
+        """One finished episode -> completion record. The behaviour version
+        is stamped per row from the submit meta, which lives on the row and
+        so survives preemption."""
+        meta = row.meta if isinstance(row.meta, dict) else {}
+        return RolloutCompletion(
+            task_id=row.req.task_id, prompt_len=row.prompt_len,
+            tokens=list(prompt) + row.gen, gen_logprobs=row.lps,
+            gen_loss_mask=row.lmask, truth=row.req.truth, env=row.req.env,
+            finish_reason=row.finish_reason, slot=slot,
+            version=int(meta.get("version", -1)),
+            sampled_tokens=row.sampled, forced_tokens=row.forced,
+            submit_index=row.submit_index, submitted_at=row.submitted_at,
+            started_at=row.started_at, finished_at=time.monotonic(),
+            finished_step=self.stats.decode_steps, meta=row.meta)
+
+    def _evict(self, slot: int):
+        row = self._rows[slot]
+        self._completed.append(self._completion(row, self._prompts[slot],
+                                                slot))
+        self.stats.completions += 1
+        if row.finish_reason in ("eos", "budget", "capacity", "turn_limit"):
+            # natural finishes only: a tool_timeout/aborted row's partial
+            # sampled count would bias the tenant's length EMA low
+            self.predictor.observe(row.req.task_id, row.sampled)
+        self._rows[slot] = None
+        self._prompts[slot] = None
+        if self.paged_kv:
+            self._free_slot_pages(slot)
+        # cancel, don't just drop, a pending tool call: a late response must
+        # never reach the slot's next occupant, and the token makes an
+        # already-running call return early, freeing its pool thread
+        fut = self._pending.pop(slot, None)
+        if fut is not None:
+            fut.cancel()
+        tok_ = self._pending_tok.pop(slot, None)
+        if tok_ is not None:
+            tok_.cancel()
+        self._pending_t0.pop(slot, None)
+
+    def _complete_parked(self, row: _Row):
+        """Finish an episode that holds no slot (queued: capacity or
+        abort)."""
+        self._drop_snap(row)          # a dead row's snapshot frees its arena
+        self._completed.append(self._completion(row, row.req.prompt, -1))
+        self.stats.completions += 1
+
+    # -- paged KV page + snapshot lifecycle (rollout/kvcache.py) ----------
+    def _row_pages_needed(self, tokens: int) -> int:
+        """Pool pages holding `tokens` cache entries for one row."""
+        return pages_for(tokens, self.kv_page_size)
+
+    def _assign_slot_pages(self, slot: int, pages: List[int], pos: int):
+        """Install a slot's host-side page list + block-table mirror."""
+        self._slot_pages[slot] = list(pages)
+        self._slot_pos[slot] = pos
+        self._tbl_host[slot, :] = self._pages.sentinel
+        self._tbl_host[slot, :len(pages)] = pages
+        self._tbl_dirty = True
+
+    def _free_slot_pages(self, slot: int):
+        """Vacating a slot returns its pages to the pool and neutralizes its
+        block-table row: stale entries would let the empty lane's (garbage)
+        decode writes corrupt pages re-allocated to other rows."""
+        if self._slot_pages[slot]:
+            self._pages.release(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._tbl_host[slot, :] = self._pages.sentinel
+        self._tbl_dirty = True
+
+    def _snapshot_row(self, slot: int, row: _Row):
+        """Copy a row's live pages to HOST before vacating its slot: only
+        the ``ceil(pos/page)`` pages holding entries, never the max_len
+        worst case. Under host memory pressure the snapshot is dropped and
+        the row replays from tokens instead (same output, recomputed)."""
+        if not self.resume_restore:
+            return
+        pos = self._slot_pos[slot]
+        n_pg = self._row_pages_needed(pos)
+        # the slot may hold one extra page allocated for the pending write
+        # (pos % page == 0); it holds no valid entries, so it is skipped
+        outs = self._snap_fn(self._cache, self._tensor(
+            self._slot_pages[slot][:n_pg], torch.int64))
+        snap = KVSnapshot(pos=pos, cur=row.gen[-1], kpages=outs["kp"],
+                          vpages=outs["vp"])
+        if self._snap_store.try_add(snap):
+            row.snap = snap
+            self.stats.snapshots += 1
+        else:
+            row.snap = None
+            self.stats.snapshot_drops += 1
+
+    def _drop_snap(self, row: _Row):
+        if row.snap is not None:
+            self._snap_store.remove(row.snap)
+            row.snap = None
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Pool allocation (all-or-nothing; None when the pool is short).
+        The JAX engine's relief steps (evicting prefix-cache entries,
+        spilling device-parked rows) belong to the prefix cache."""
+        return [] if n == 0 else self._pages.alloc(n)
+
+    def _finish_capacity(self, row: _Row):
+        """Cache-capacity eviction: the page pool cannot serve this row even
+        when otherwise idle, so the episode finishes with what it has
+        instead of deadlocking the queue."""
+        self._drop_snap(row)
+        row.status, row.finish_reason = "done", "capacity"
+        self.stats.pool_exhausted += 1
+        self._complete_parked(row)
+
+    def _restore_rows(self) -> bool:
+        """Install queued rows that carry a host snapshot: splice the saved
+        KV pages into freshly allocated pool pages and resume with the
+        pending token; the next decode step produces the logits an
+        uninterrupted run would have. No token is accepted at install (the
+        pending one was accepted before the preemption), so only the device
+        state moves."""
+        if not self.resume_restore or self._cache is None:
+            return False
+        free = [s for s in range(self.max_slots) if self._rows[s] is None]
+        did = False
+        while free:
+            with self._queue_lock:
+                # pop_if, not pop(where=): a snapshot row restores only
+                # when it is genuinely next in scheduler order
+                row = self._sched.pop_if(self.stats.refills,
+                                         lambda r: r.snap is not None)
+            if row is None:
+                break
+            snap = row.snap
+            pages = self._alloc_pages(snap.n_pages)
+            if pages is None:
+                if (self._pages.used_pages == 0
+                        and snap.n_pages > self._pages.n_pages):
+                    self._finish_capacity(row)      # can never fit
+                    continue
+                with self._queue_lock:              # pool pressure: retry
+                    self._sched.push(row, self.stats.refills)
+                break
+            slot = free.pop(0)
+            t0 = time.monotonic()
+            # eager, as the step functions are: a row-sized argument
+            # recompiles nothing (the analyzer's jit rule does not apply)
+            self._cache, state = self._restore_fn(  # noqa: RA204
+                self._cache, snap.kpages, snap.vpages,
+                self._tensor(pages, torch.int64), slot, snap.pos, snap.cur,
+                len(row.gen), self._tensor(row.key.astype(np.int64),
+                                           torch.int64),
+                row.req.temperature, row.req.adapter_index, self._d_cur,
+                self._d_counters, self._d_keys, self._d_temps,
+                self._d_row_ids)
+            (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
+             self._d_row_ids) = state
+            self._mask_sig = None
+            now = time.monotonic()
+            self._rows[slot] = row
+            self._prompts[slot] = list(row.req.prompt)
+            self._assign_slot_pages(slot, pages, snap.pos)
+            self._drop_snap(row)
+            self.stats.restores += 1
+            self.stats.replay_tokens_saved += row.prompt_len + len(row.gen)
+            self.stats.splice_seconds += now - t0
+            if self.on_stage is not None:
+                self.on_stage("splice", row.req.task_id, t0, now)
+            did = True
+        if did:
+            self.stats.refills += 1     # one refill event (starvation aging)
+        return did
+
+    def _ensure_decode_pages(self):
+        """Pre-step growth: every resident ACTIVE row is about to write its
+        K/V at cache position ``_slot_pos``; allocate the covering page when
+        the row crosses a page boundary. A row the pool cannot serve
+        finishes via cache-capacity eviction (pool exhaustion is a
+        scheduling condition, not a crash)."""
+        for slot, r in enumerate(self._rows):
+            if r is None or r.status != "active":
+                continue
+            need_idx = self._slot_pos[slot] // self.kv_page_size
+            if need_idx >= self._max_pg:
+                continue            # accept() finishes the row at max_len
+            if need_idx < len(self._slot_pages[slot]):
+                continue
+            pg = self._pages.alloc(1)
+            if pg is None:
+                r.status, r.finish_reason = "done", "capacity"
+                self.stats.pool_exhausted += 1
+                self._evict(slot)
+                continue
+            self._slot_pages[slot].extend(pg)
+            self._tbl_host[slot, need_idx] = pg[0]
+            self._tbl_dirty = True
+
+    def page_stats(self) -> Dict[str, float]:
+        """Pool occupancy/fragmentation gauges: used/total pages, the
+        high-water mark, internal fragmentation (allocated page slack beyond
+        the live cache entries), HBM bytes per resident row and the host
+        snapshot arena's bytes. (The prefix-cache gauges are 0.)"""
+        if self._pages is None:
+            return {}
+        used = self._pages.used_pages
+        cap_tokens = used * self.kv_page_size
+        live = sum(min(self._slot_pos[s],
+                       len(self._slot_pages[s]) * self.kv_page_size)
+                   for s in range(self.max_slots)
+                   if self._rows[s] is not None)
+        frag = 1.0 - live / cap_tokens if cap_tokens else 0.0
+        resident = sum(1 for r in self._rows if r is not None)
+        dtype_bytes = (self._cache["kp"].element_size()
+                       if self._cache is not None else 2)
+        hbm = cap_tokens * self.cfg.state_bytes_per_token(dtype_bytes)
+        return {"kv_pages_used": float(used),
+                "kv_pages_total": float(self._pages.n_pages),
+                "kv_pages_peak": float(self._pages.peak_used),
+                "kv_page_frag": float(frag),
+                "kv_shared_pages": float(self._pages.shared_pages),
+                "kv_prefix_pages": 0.0,
+                "kv_hbm_bytes_per_row": float(hbm / max(1, resident)),
+                "snapshot_bytes": float(self._snap_store.bytes_used)}
+
+    def check_page_invariants(self):
+        """Debug assertion the tests run after every step: allocator-level
+        conservation (``PagePool.check_invariants``) plus exact refcount
+        accounting (every page's rc equals the number of slots that hold
+        it), the host block-table mirror naming exactly the slots' pages,
+        and, once the cache exists, the device ``pos`` of every resident
+        row equal to its host mirror ``_slot_pos``."""
+        if self._pages is None:
+            return
+        self._pages.check_invariants()
+        owners = np.zeros((self._pages.n_pages,), np.int64)
+        for s in range(self.max_slots):
+            for p in self._slot_pages[s]:
+                owners[p] += 1
+            want = np.full((self._max_pg,), self._pages.sentinel, np.int32)
+            want[:len(self._slot_pages[s])] = self._slot_pages[s]
+            assert (self._tbl_host[s] == want).all(), \
+                f"slot {s}: block-table mirror out of sync"
+        for p in range(self._pages.n_pages):
+            assert self._pages.refcount(p) == owners[p], (
+                f"page {p}: rc={self._pages.refcount(p)} but "
+                f"{owners[p]} owning slots")
+        if self._cache is not None:
+            pos = self._cache["pos"].cpu().numpy()
+            for s, r in enumerate(self._rows):
+                if r is not None:
+                    assert pos[s] == self._slot_pos[s], (
+                        f"slot {s}: device pos {pos[s]} != host mirror "
+                        f"{self._slot_pos[s]}")
+
+    def queued_state_bytes(self, task_id: str,
+                           dtype_bytes: int = 2) -> Optional[int]:
+        """Actual byte need of a tenant's queued rows (paged mode): snapshot
+        page counts for restore rows (exact — what restore will allocate),
+        page-rounded prompt+prefix for replay rows. None in dense mode."""
+        if not self.paged_kv:
+            return None
+        with self._queue_lock:
+            rows = self._sched.rows_for(task_id)
+        per_tok = self.cfg.state_bytes_per_token(dtype_bytes)
+        fixed = self.cfg.state_bytes_fixed(dtype_bytes)
+        total = 0
+        for r in rows:
+            n_pg = (r.snap.n_pages if r.snap is not None
+                    else self._row_pages_needed(r.prompt_len + len(r.gen)))
+            total += n_pg * self.kv_page_size * per_tok + fixed
+        return int(total)
+
+    # -- preemption -------------------------------------------------------
+    def _preemptible(self, slot: int, protect=()) -> bool:
+        r = self._rows[slot]
+        return (r is not None and r.status == "active" and not r.forced_q
+                and slot not in self._pending
+                and r.req.task_id not in protect)
+
+    def _preempt_slot(self, slot: int):
+        """Free one slot: the generated prefix already lives host-side in
+        the _Row, so vacate and re-queue. With the paged cache and
+        ``resume_restore`` the row's live KV pages are first copied to host,
+        so the later resume splices them back instead of re-prefilling
+        (unless the snapshot was dropped under memory pressure: then the
+        row replays, with the same output)."""
+        row = self._rows[slot]
+        row.replays += 1
+        if self.paged_kv:
+            self._snapshot_row(slot, row)
+            self._free_slot_pages(slot)
+        self._rows[slot] = None
+        self._prompts[slot] = None
+        self.stats.preemptions += 1
+        with self._queue_lock:
+            self._sched.push(row, self.stats.refills)
+
+    def preempt_tenant(self, task_id: str, max_rows: Optional[int] = None
+                       ) -> int:
+        """Preempt up to `max_rows` (default: all) of a tenant's resident
+        rows; returns the number preempted. Rows mid tool-call or mid
+        force-feed keep their slots (a replay always samples its first
+        token)."""
+        n = 0
+        for slot in range(self.max_slots):
+            if max_rows is not None and n >= max_rows:
+                break
+            r = self._rows[slot]
+            if (r is not None and r.req.task_id == task_id
+                    and self._preemptible(slot)):
+                self._preempt_slot(slot)
+                n += 1
+        return n
+
+    def preempt_slots(self, n: int, protect=()) -> int:
+        """Free up to `n` slots for an incoming tenant by preempting the
+        lowest-priority / longest-remaining-budget resident rows (tenants in
+        `protect` are never victims). Returns the number actually freed."""
+        victims = [s for s in range(self.max_slots)
+                   if self._preemptible(s, protect)]
+        victims.sort(key=lambda s: (self._rows[s].req.priority,
+                                    -(self._rows[s].req.max_new_tokens
+                                      - self._rows[s].sampled),
+                                    -self._rows[s].submit_index))
+        freed = 0
+        for slot in victims[:n]:
+            self._preempt_slot(slot)
+            freed += 1
+        return freed
+
+    # -- fused refill ------------------------------------------------------
+    def _refill_free_slots(self) -> bool:
+        """Fill every freed slot from the queue with ONE fused call:
+        batch-prefill the incoming rows, write their cache state into the
+        pool, and sample their first tokens.
+
+        The queue pops in scheduler order. A preemption-replayed row
+        prefills its prompt + generated prefix in one sequence and samples
+        token `len(gen)` with counter `len(gen)`: the same continuation.
+        Snapshot-carrying rows restore in ``_restore_rows`` and are skipped
+        here."""
+        free = [s for s in range(self.max_slots) if self._rows[s] is None]
+        with self._queue_lock:
+            has_queued = bool(self._sched)
+        if not free or not has_queued:
+            return False
+        self._ensure_built()
+        if self._stacked is None:
+            raise RuntimeError("no adapters installed — call set_adapters()")
+        t0 = time.monotonic()
+        incoming: List[Tuple[int, _Row]] = []
+        pages_of: List[List[int]] = []
+        where = (lambda r: r.snap is None) if self.resume_restore else None
+        with self._queue_lock:
+            while free and self._sched:
+                row = self._sched.pop(self.stats.refills, where=where)
+                if row is None:
+                    break
+                if self.paged_kv:
+                    pages = self._alloc_pages(self._row_pages_needed(
+                        len(row.req.prompt) + len(row.gen)))
+                    if pages is None:
+                        if self._pages.used_pages == 0:
+                            self._finish_capacity(row)   # can never fit
+                            continue
+                        # pool pressure: resident rows will free pages
+                        self._sched.push(row, self.stats.refills)
+                        break
+                    pages_of.append(pages)
+                incoming.append((free.pop(0), row))
+        if not incoming:
+            return False
+        k = len(incoming)
+        seqs = [list(row.req.prompt) + row.gen for _, row in incoming]
+        S_p = _bucket_len(max(len(s) for s in seqs))
+        tokens = np.zeros((k, S_p), np.int32)
+        prompt_lens = np.array([len(s) for s in seqs], np.int32)
+        forced = np.zeros((k,), np.int32)
+        fmask = np.zeros((k,), np.int32)
+        for j, (slot, row) in enumerate(incoming):
+            tokens[j, :len(seqs[j])] = seqs[j]
+            if row.forced_q:
+                forced[j] = row.forced_q[0]
+                fmask[j] = 1
+        args = [self.base_params, self._stacked,
+                self._tensor(tokens, torch.int32),
+                self._tensor(prompt_lens, torch.int32),
+                self._tensor([len(r.gen) for _, r in incoming], torch.int32),
+                self._tensor([s for s, _ in incoming], torch.int64)]
+        if self.paged_kv:
+            # physical destination pages per (row, chunk); chunks past a
+            # row's page count name the scratch page
+            dest = np.full((k, -(-S_p // self.kv_page_size)),
+                           self._pages.sentinel, np.int32)
+            for j, pages in enumerate(pages_of):
+                dest[j, :len(pages)] = pages
+            args.append(self._tensor(dest, torch.int64))
+        keys = np.stack([r.key for _, r in incoming]).astype(np.int64)
+        # the step functions run eagerly: no trace, so a batch-sized shape
+        # recompiles nothing (the analyzer's jit rule does not apply)
+        first, lp, self._cache, state = self._refill_fn(  # noqa: RA204
+            *args,
+            self._tensor([r.req.adapter_index for _, r in incoming],
+                         torch.int32),
+            self._tensor(keys, torch.int64),
+            self._tensor([r.req.temperature for _, r in incoming],
+                         torch.float32),
+            self._tensor(forced, torch.int32),
+            self._tensor(fmask, torch.int32), self._cache, self._d_cur,
+            self._d_counters, self._d_keys, self._d_temps, self._d_row_ids)
+        (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
+         self._d_row_ids) = state
+        first = first.cpu().numpy()
+        lp = lp.float().cpu().numpy()
+        now = time.monotonic()
+        self.stats.refills += 1
+        # the fused refill is prefill-stage work, and because it runs on the
+        # decode stream it is also decode-stall time
+        self.stats.prefill_seconds += now - t0
+        self.stats.decode_stall_seconds += now - t0
+        if self.on_stage is not None:
+            self.on_stage("prefill",
+                          "+".join(sorted({r.req.task_id
+                                           for _, r in incoming})), t0, now)
+        for j, (slot, row) in enumerate(incoming):
+            self._rows[slot] = row
+            self._prompts[slot] = list(row.req.prompt)
+            if self.paged_kv:
+                self._assign_slot_pages(slot, pages_of[j], len(seqs[j]))
+            was_forced = fmask[j] == 1
+            if row.gen:                           # preemption replay
+                self.stats.replays += 1
+                self.stats.replay_tokens += len(seqs[j])
+            else:                                 # fresh row
+                self.stats.prefills += 1
+                row.started_at = now
+            self.stats.prefill_tokens += len(seqs[j])
+            if was_forced:
+                row.forced_q.pop(0)
+            self.stats.tokens_generated += 1
+            if not was_forced:
+                self.stats.sampled_tokens += 1
+            action = row.accept(int(first[j]), float(lp[j]),
+                                0.0 if was_forced else 1.0, self.max_len)
+            if action == "call":
+                self._dispatch_tool(slot)
+            elif action == "done":
+                self._evict(slot)
+        return True
+
+    # -- tool calls (freeze-in-slot) --------------------------------------
+    def _dispatch_tool(self, slot: int):
+        """A freshly sampled CALL: the row freezes in its slot while the call
+        runs on the pool (the env stage, which parks it instead, is not
+        ported yet)."""
+        self._pending[slot], self._pending_tok[slot] = _submit_tool_call(
+            self._rows[slot], self._prompts[slot], self._pool, self._rng,
+            self.sim_latency)
+        self._pending_t0[slot] = time.monotonic()
+
+    # -- scheduler interface ---------------------------------------------
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One engine iteration: resolve tools, restore snapshot rows, fill
+        freed slots (fused refill), one decode step over the pool, evict
+        finished rows. Returns True if any device work happened."""
+        now = time.monotonic()
+        progressed = False
+        # resolve / time out pending tool calls (freeze-in-slot)
+        for slot in list(self._pending):
+            fut = self._pending[slot]
+            row = self._rows[slot]
+            if fut.done():
+                resp = fut.result()
+                t0w = self._pending_t0[slot]
+                tid = row.req.task_id
+                self.stats.add_env_wait(tid, now - t0w)
+                if self.on_stage is not None:
+                    self.on_stage("env", tid, t0w, now)
+                row.forced_q = [tok.RESP] + list(resp) + [tok.ENDRESP]
+                row.status = "active"
+                del self._pending[slot], self._pending_t0[slot]
+                self._pending_tok.pop(slot, None)
+            elif now - self._pending_t0[slot] > self.tool_timeout_s:
+                row.status, row.finish_reason = "done", "tool_timeout"
+                self._evict(slot)
+        # snapshot-restore resume (paged engine): queued rows carrying a host
+        # snapshot splice their saved pages back, before the fill path runs
+        if self.resume_restore and self._restore_rows():
+            progressed = True
+        if self._refill_free_slots():
+            progressed = True
+        if self.paged_kv:
+            # pre-step growth: allocate the page each active row's next K/V
+            # write lands in (cache-capacity eviction on exhaustion), then
+            # upload the block table if the topology changed: one
+            # host-to-device copy of [max_slots, max_pages] int32
+            self._ensure_decode_pages()
+            if self._tbl_dirty and self._cache is not None:
+                self._cache["tbl"].copy_(torch.from_numpy(self._tbl_host))
+                self._tbl_dirty = False
+        advance = np.array(
+            [1 if (r is not None and r.status == "active") else 0
+             for r in self._rows], np.int32)
+        if advance.sum() == 0:
+            return progressed
+        forced = np.zeros((self.max_slots,), np.int32)
+        fmask = np.zeros((self.max_slots,), np.int32)
+        for i, r in enumerate(self._rows):
+            if r is not None and r.status == "active" and r.forced_q:
+                forced[i] = r.forced_q[0]
+                fmask[i] = 1
+        # upload the masks only when they changed (steady decode between
+        # evictions re-uses the device copies — zero uploads per step)
+        sig = advance.tobytes() + forced.tobytes() + fmask.tobytes()
+        if sig != self._mask_sig:
+            self._d_masks = (self._tensor(forced, torch.int32),
+                             self._tensor(fmask, torch.int32),
+                             self._tensor(advance, torch.int32))
+            self._mask_sig = sig
+        d_forced, d_fmask, d_advance = self._d_masks
+        synchronize(self.device)
+        t0 = time.monotonic()
+        nxt, lp, self._cache, self._d_counters = self._step_fn(  # noqa: RA204
+            self.base_params, self._stacked, self._d_row_ids, self._d_cur,
+            self._cache, self._d_keys, self._d_counters, self._d_temps,
+            d_forced, d_fmask, d_advance)
+        self._d_cur = nxt
+        nxt = nxt.cpu().numpy()
+        lp = lp.float().cpu().numpy()
+        self.stats.decode_seconds += time.monotonic() - t0
+        self.stats.decode_steps += 1
+        self.stats.occupied_row_steps += int(advance.sum())
+        self.stats.capacity_row_steps += self.max_slots
+        # slot dead weight of freeze-in-slot: resident rows that spent this
+        # decode step waiting on a tool
+        self.stats.tool_wait_slot_steps += sum(
+            1 for r in self._rows if r is not None and r.status == "calling")
+        for slot, r in enumerate(self._rows):
+            if r is None or r.status != "active" or advance[slot] == 0:
+                continue
+            if self.paged_kv:
+                self._slot_pos[slot] += 1     # device cache["pos"] mirror
+            was_forced = fmask[slot] == 1
+            if was_forced:
+                r.forced_q.pop(0)
+            action = r.accept(int(nxt[slot]), float(lp[slot]),
+                              0.0 if was_forced else 1.0, self.max_len)
+            self.stats.tokens_generated += 1
+            if not was_forced:
+                self.stats.sampled_tokens += 1
+            if action == "call":
+                self._dispatch_tool(slot)
+            elif action == "done":
+                self._evict(slot)
+        return True
+
+    def drain(self, deadline_s: float = 300.0,
+              stop: Optional[Callable[[], bool]] = None
+              ) -> List[RolloutCompletion]:
+        """Run until queue and pool are empty (or deadline); returns all
+        completions produced during the drain. At the deadline, rows still
+        resident or queued finish with "aborted", so every submitted request
+        yields exactly one completion."""
+        out: List[RolloutCompletion] = []
+        deadline = time.monotonic() + deadline_s
+        while not self.idle() and time.monotonic() < deadline:
+            if stop is not None and stop():
+                break
+            progressed = self.step()
+            out.extend(self.drain_completions())
+            if not progressed:
+                time.sleep(0.001)     # waiting only on external tools
+        for slot, r in enumerate(self._rows):
+            if r is not None:
+                r.status = "done"
+                r.finish_reason = r.finish_reason or "aborted"
+                self._evict(slot)
+        with self._queue_lock:
+            leftovers = self._sched.pop_all()
+        for row in leftovers:
+            # a preempted-then-aborted row keeps its generated prefix
+            row.status, row.finish_reason = "done", "aborted"
+            self._complete_parked(row)
+        out.extend(self.drain_completions())
+        return out
+
+    def run_requests(self, requests: Sequence[RolloutRequest], adapter_trees,
+                     deadline_s: float = 300.0
+                     ) -> Tuple[List[Dict], RolloutStats]:
+        """Convenience: submit a request list, drain, return results in
+        submission order — drop-in comparable with `generate()`."""
+        t0 = time.monotonic()
+        for i, tree in enumerate(adapter_trees):
+            self.set_adapters(i, tree)
+        idx = {}
+        for i, r in enumerate(requests):
+            # unseeded requests default to the advancing submission counter
+            idx[self.submit(r)] = i
+        comps = self.drain(deadline_s)
+        results: List[Optional[Dict]] = [None] * len(requests)
+        for c in comps:
+            if c.submit_index in idx:     # skip strays from an earlier call
+                results[idx[c.submit_index]] = c.to_result()
+        self.stats.wall_seconds += time.monotonic() - t0
+        return results, self.stats
+
+    def shutdown(self):
+        if self._own_pool:
+            self._pool.shutdown(wait=False)
 
 
 def to_trajectory_batch(results: List, task_id: str, version: int,

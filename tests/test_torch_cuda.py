@@ -1,7 +1,7 @@
 """The port on the card: each hand-written CUDA kernel against its plain
-version, the wrappers' refusals, and RolloutEngine.generate and a GRPO
-train step on the card (kernels) against the CPU (plain versions) on the
-same weights. Every test is marked `cuda`, needs a CUDA device and skips
+version, the wrappers' refusals, and RolloutEngine.generate, a GRPO train
+step and the paged ContinuousRolloutEngine on the card (kernels) against
+the CPU (plain versions) on the same weights. Every test is marked `cuda`, needs a CUDA device and skips
 without one (decided in the `card` fixture); on a machine with a card run
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
@@ -18,12 +18,14 @@ torch.set_num_threads(1)   # small shapes; leave the cores to the other workers
 from repro_torch.configs import REGISTRY, reduced
 from repro_torch.data import tokenizer as tok
 from repro_torch.kernels import gqa_decode as gqa
+from repro_torch.kernels import paged_decode as paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import sgmv
 from repro_torch.kernels import token_logprob as tlp
 from repro_torch.launch.serve import make_adapters, make_requests
 from repro_torch.models import init_params, tree_leaves, tree_map
-from repro_torch.rollout.engine import RolloutEngine, to_trajectory_batch
+from repro_torch.rollout.engine import (ContinuousRolloutEngine, RolloutEngine,
+                                        to_trajectory_batch)
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import (TrainConfig, batch_from_trajectory,
                                           init_opt_state, make_train_step)
@@ -182,3 +184,111 @@ def test_train_step_on_card_matches_cpu(card):
         sure = (10 * mc).abs() > 1e-6
         assert sure.float().mean() > 0.5
         assert (pg.cpu() - pc).abs()[sure].max() <= 1e-6
+
+
+def _paged_inputs(card, B, H, KVH, hd, n_pg, page, dtype):
+    """A pool of 2*B*n_pg pages (+ scratch) handed out as a random
+    permutation; rows past ceil(pos/page) keep sentinel entries."""
+    P = 2 * B * n_pg
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    kp = torch.randn(P + 1, page, KVH, hd, generator=card, device="cuda").to(dtype)
+    vp = torch.randn(P + 1, page, KVH, hd, generator=card, device="cuda").to(dtype)
+    perm = torch.randperm(P, generator=card, device="cuda")[:B * n_pg]
+    tbl = perm.reshape(B, n_pg).to(torch.int32)
+    pos = torch.randint(1, n_pg * page + 1, (B,), generator=card, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 1, n_pg * page
+    live = (pos.long() + page - 1) // page
+    tbl[torch.arange(n_pg, device="cuda")[None, :] >= live[:, None]] = P
+    return q, kp, vp, tbl, pos
+
+
+@pytest.mark.parametrize("hd,page", [(16, 8), (64, 16), (128, 16), (128, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_paged_gqa_decode_matches_plain(card, hd, page, dtype, tol):
+    q, kp, vp, tbl, pos = _paged_inputs(card, 5, 16, 8, hd, 7, page, dtype)
+    for cap, win in ((0.0, 0), (50.0, 0), (0.0, 24)):
+        got = paged.paged_gqa_decode(q, kp, vp, tbl, pos, softcap=cap, window=win)
+        want = ref.paged_gqa_decode_ref(q, kp, vp, tbl, pos, softcap=cap,
+                                        window=win)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_paged_gqa_decode_identity_table_equals_gqa_decode(card):
+    """Pages laid out in row order through an identity table: the paged
+    kernel reads the same values as the contiguous kernel."""
+    B, H, KVH, hd, n_pg, page = 3, 16, 8, 128, 6, 16
+    ck = torch.randn(B, n_pg * page, KVH, hd, generator=card, device="cuda")
+    cv = torch.randn(B, n_pg * page, KVH, hd, generator=card, device="cuda")
+    q = torch.randn(B, H, hd, generator=card, device="cuda")
+    pos = torch.tensor([5, 40, 96], dtype=torch.int32, device="cuda")
+    zero = torch.zeros(1, page, KVH, hd, device="cuda")
+    kp = torch.cat([ck.reshape(B * n_pg, page, KVH, hd), zero])
+    vp = torch.cat([cv.reshape(B * n_pg, page, KVH, hd), zero])
+    tbl = torch.arange(B * n_pg, dtype=torch.int32, device="cuda").reshape(B, n_pg)
+    torch.testing.assert_close(paged.paged_gqa_decode(q, kp, vp, tbl, pos),
+                               gqa.gqa_decode(q, ck, cv, pos), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_paged_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros(2, 4, 32, device="cuda")
+    pool = torch.zeros(5, 8, 2, 32, device="cuda")
+    tbl = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    pos = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_gqa_decode(q, pool, pool, tbl.long(), pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged.paged_gqa_decode(torch.zeros(2, 4, 48, device="cuda"),
+                               torch.zeros(5, 8, 2, 48, device="cuda"),
+                               torch.zeros(5, 8, 2, 48, device="cuda"), tbl, pos)
+    with pytest.raises(ValueError, match="dtypes"):
+        paged.paged_gqa_decode(q.half(), pool.half(), pool.half(), tbl, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged.paged_gqa_decode(q, pool, pool, tbl.t().contiguous().t(), pos)
+
+
+def test_continuous_paged_on_card_matches_cpu(card):
+    """qwen3-0.6b reduced (hd=16) in fp32 through the paged continuous
+    engine (4 slots, a pool of 12 pages of 8 tokens, tenant-0 preempted
+    mid-run and restored from its host snapshot): the card (kernels) and
+    the CPU (plain versions) give the same tokens, page invariants hold
+    after every step, and the paged kernel launches once per layer per
+    decode step."""
+    cfg = dataclasses.replace(reduced(REGISTRY["qwen3-0.6b"], dtype="float32"),
+                              vocab_size=tok.VOCAB_SIZE)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 2, seed=0, device="cpu", b_scale=0.2)
+    reqs = make_requests(2, 4, max_new_tokens=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousRolloutEngine(
+            cfg, tree_map(lambda t: t.to(dev), params), max_slots=4,
+            max_adapters=2, max_len=64, paged_kv=True, prefix_cache=False,
+            kv_page_size=8, kv_pool_pages=12, device=dev)
+        for i, a in enumerate(adapters):
+            eng.set_adapters(i, tree_map(lambda t: t.to(dev), a))
+        pos_of = {eng.submit(r): i for i, r in enumerate(reqs)}
+        paged.LAUNCHES.n = gqa.LAUNCHES.n = 0
+        comps, it = {}, 0
+        while not eng.idle() and it < 200:
+            eng.step()
+            it += 1
+            eng.check_page_invariants()
+            if it == 3:
+                eng.preempt_tenant("tenant-0")
+            for c in eng.drain_completions():
+                comps[pos_of[c.submit_index]] = c
+        assert len(comps) == len(reqs)
+        st = eng.stats
+        assert st.preemptions > 0 and st.restores > 0 and st.replays == 0
+        want = cfg.num_layers * st.decode_steps if dev == "cuda" else 0
+        assert (paged.LAUNCHES.n, gqa.LAUNCHES.n) == (want, 0)
+        out[dev] = comps
+    for i in range(len(reqs)):
+        a, b = out["cpu"][i], out["cuda"][i]
+        assert a.tokens == b.tokens
+        torch.testing.assert_close(torch.tensor(b.gen_logprobs),
+                                   torch.tensor(a.gen_logprobs), rtol=1e-4,
+                                   atol=1e-4)

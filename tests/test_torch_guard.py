@@ -20,13 +20,15 @@ SLICE_MODULES = [
     "repro_torch.data.tokenizer", "repro_torch.envs.base",
     "repro_torch.envs.tasks", "repro_torch.kernels",
     "repro_torch.kernels._build", "repro_torch.kernels.gqa_decode",
-    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode",
+    "repro_torch.kernels.ref",
     "repro_torch.kernels.sgmv", "repro_torch.launch.serve",
     "repro_torch.lora.adapters", "repro_torch.lora.multilora",
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.common", "repro_torch.models.mlp",
     "repro_torch.models.model", "repro_torch.rollout.engine",
-    "repro_torch.rollout.prefill", "repro_torch.rollout.prng",
+    "repro_torch.rollout.kvcache", "repro_torch.rollout.prefill",
+    "repro_torch.rollout.prng", "repro_torch.rollout.scheduler",
     "repro_torch.kernels.token_logprob", "repro_torch.rl.grpo",
     "repro_torch.rl.types", "repro_torch.train.optimizer",
     "repro_torch.train.sft", "repro_torch.train.train_step",
