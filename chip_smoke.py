@@ -23,7 +23,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     entropy terms on, token_logprob kernels: 2 forwards + 1 backward a step);
  7. train check: one group of phase 6's batch in fp32, the step's loss,
     metrics, adapter gradient and updated adapters on the card (kernels)
-    against the CPU (plain versions);
+    against the CPU (plain versions); then the same group in bf16 on the
+    card, its adapter gradient with the token_logprob backward kernel
+    against the same step with the plain backward in the kernel's place
+    (fp32 takes the FMA backward, bf16 the tensor-core one);
  8. continuous serve: ContinuousRolloutEngine over the paged KV pool
     (16 slots, max_len 512, a pool of 128 pages of 16 tokens, a quarter of
     the dense-equivalent 512) at the same full size for 4 tenants x 8 gsm8k
@@ -60,6 +63,7 @@ GROUPS, GROUP_SIZE, TRAIN_ITERS = 4, 4, 3      # phase 6: GRPO groups per batch
 LR = 3e-3               # the JAX package's TaskSpec default
 METRIC_TOL = 1e-4       # phase 7: fp32 loss and metrics, card vs CPU (absolute)
 GRAD_TOL = 1e-3         # phase 7: gradient max abs diff / gradient norm
+BF16_GRAD_TOL = 1e-2    # phase 7, bf16: the same ratio at phase 3's bf16 dh factor
 PROD_ROWS = 4096        # a production micro-batch of token rows (phase 3)
 CONT_PER_TENANT, CONT_MAX_NEW, CONT_SLOTS = 8, 64, 16    # phase 8
 CONT_MAX_LEN, PAGE, POOL_PAGES = 512, 16, 128            # paged pool
@@ -269,7 +273,13 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
     softcap and with an untied head. Tolerances: logprob/entropy 1e-3 bf16
     and 1e-4 fp32 absolute (fp32 accumulation both sides, sum order only);
     dh 1e-2 (bf16: dz rounds to bf16 before dz @ W^T) and 1e-4 (fp32) of
-    dh's largest element."""
+    dh's largest element. Two backward calls must give the same bits. Each
+    record carries the CUDA kernels one call launched, as the C launchers
+    count them, and the backward's the scratch one call allocated (peak
+    allocator bytes less dh); the bf16 backward's scratch must stay within
+    tlp.SCRATCH_LIMIT and its launches must match its plan (two products per
+    vocab chunk and a reduce). The bf16 records also carry that plan (vocab
+    chunk, K-splits, planned scratch) and, where timed, the TFLOP/s."""
     import torch.nn.functional as F
     d, V = 1024, 151936
     fwd_cases, bwd_cases = [], []
@@ -288,12 +298,27 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
         t = torch.randint(0, Vc, (R,), generator=g, device="cuda", dtype=torch.int32)
         g_lp = torch.randn(R, generator=g, device="cuda") / R
         g_ent = torch.randn(R, generator=g, device="cuda") / R
+        n_fwd = tlp.FWD_CUDA_LAUNCHES.n
         lp, ent, _ = tlp.token_logprob_fwd(h, w, t, cap)
+        n_fwd = tlp.FWD_CUDA_LAUNCHES.n - n_fwd
         want_lp, want_ent, want_lse = ref.token_logprob_stats_ref(h, w, t, cap)
         dh = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent, cap)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n_bwd = tlp.BWD_CUDA_LAUNCHES.n
+        dh_again = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent,
+                                         cap)
+        n_bwd = tlp.BWD_CUDA_LAUNCHES.n - n_bwd
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base - dh_again.nbytes
         want_dh = ref.token_logprob_bwd_ref(h, w, t, want_lse, want_ent, g_lp,
                                             g_ent, cap)
         torch.cuda.synchronize()
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        if not torch.equal(dh.view(bits), dh_again.view(bits)):
+            raise AssertionError(f"token_logprob R={R} V={Vc} {dt}: two backward "
+                                 f"calls gave different bits")
         tol = 1e-3 if dt == torch.bfloat16 else 1e-4
         dh_tol = 1e-2 if dt == torch.bfloat16 else 1e-4
         f_err = max(float((lp - want_lp).abs().max()),
@@ -307,10 +332,24 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
                                  f"{dh_tol} x {dh_scale:.3e})")
         shape = dict(R=R, d=d, V=Vc, dtype=str(dt).split(".")[1], softcap=cap,
                      layout=layout, main=R == R_main and timed)
-        fc = dict(shape, max_abs_err=f_err, tol=tol)
-        bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale)
+        fc = dict(shape, max_abs_err=f_err, tol=tol, cuda_launches_per_call=n_fwd)
+        bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale,
+                  cuda_launches_per_call=n_bwd, scratch_bytes=scratch)
+        if dt == torch.bfloat16:
+            plan = tlp.backward_plan(R, d, Vc)
+            bc.update(plan=dict(vc=plan.vc, splits=plan.splits, piece=plan.piece,
+                                chunks=-(-Vc // plan.vc),
+                                scratch_bytes=plan.scratch_bytes))
+            if scratch > tlp.SCRATCH_LIMIT or n_bwd != 2 * bc["plan"]["chunks"] + 1:
+                raise AssertionError(f"token_logprob {name}: backward scratch "
+                                     f"{scratch} B (limit {tlp.SCRATCH_LIMIT}), "
+                                     f"{n_bwd} CUDA launches for plan {bc['plan']}")
         line = f"  token_logprob {name}: fwd err {f_err:.2e} (tol {tol}) dh err " \
-               f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e})"
+               f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e}), two calls bit-identical" \
+               f"; CUDA launches a call fwd {n_fwd} bwd {n_bwd}, bwd scratch " \
+               f"{scratch / 2**20:.1f} MiB"
+        if "plan" in bc:
+            line += f"; plan {bc['plan']}"
         if timed:
             elt = h.element_size()
             peak = str(dt).split(".")[1]
@@ -356,14 +395,15 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
             bb_ms, bb_by = bound_ms(w_bytes + 2 * h_bytes + 4 * R + 16 * R,
                                     4 * R * d * Vc, peak)
             fc.update(bound_ms=fb_ms, bound_by=fb_by)
-            bc.update(bound_ms=bb_ms, bound_by=bb_by)
+            bc.update(bound_ms=bb_ms, bound_by=bb_by,
+                      tflops=4 * R * d * Vc / bc["ms"] / 1e9)
             line += (f"\n    forward: kernel {fc['ms']:.4f} ms (eager call "
                      f"{fc['call_ms']:.4f}) plain {fc['plain_ms']:.4f} library "
                      f"{fc['library_ms']:.4f} bound {fb_ms:.4f} ({fb_by})"
                      f"\n    backward: kernel {bc['ms']:.4f} ms (eager call "
                      f"{bc['call_ms']:.4f}) plain {bc['plain_ms']:.4f} library "
                      f"{bc['library_ms']:.4f} (fwd+bwd {lib_fb:.4f}) bound "
-                     f"{bb_ms:.4f} ({bb_by})")
+                     f"{bb_ms:.4f} ({bb_by}); {bc['tflops']:.1f} TFLOP/s")
         fwd_cases.append(fc)
         bwd_cases.append(bc)
         log(line)
@@ -508,7 +548,9 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
                 shape={k: v for k, v in main.items()
                        if k not in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "tol", "main",
-                                    "call_ms", "library_fwd_bwd_ms")},
+                                    "call_ms", "library_fwd_bwd_ms", "tflops",
+                                    "scratch_bytes", "plan",
+                                    "cuda_launches_per_call")},
                 **extra, cases=cases)
 
 
@@ -846,6 +888,51 @@ def train_check(torch, M, cfg, params, tb, start, tc):
     return rec
 
 
+def train_check_bf16(torch, cfg, params, tb, start, tc):
+    """Phase 7 in bf16: one group of the last batch through make_grad_fn on
+    the card at the served dtype, once as the step runs (token_logprob's bf16
+    backward kernel) and once with the plain backward
+    (``token_logprob_bwd_ref``) in the kernel's place; the rest of the step is
+    the same code on the same inputs. The adapter gradients' max abs diff must
+    stay within BF16_GRAD_TOL of the plain gradient's norm. Raises on a miss."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import token_logprob as tlp
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import batch_from_trajectory, make_grad_fn
+
+    lora, _ = start
+    batch = {k: v[:GROUP_SIZE] for k, v in
+             batch_from_trajectory(tb, tc, "cuda").items()}
+    grad_fn = make_grad_fn(cfg, tc)
+    kernel_bwd, grads = tlp.token_logprob_bwd, {}
+    for name, bwd, want in (("kernel", kernel_bwd, (2, 1)),
+                            ("plain", ref.token_logprob_bwd_ref, (2, 0))):
+        n0 = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
+        tlp.token_logprob_bwd = bwd      # what the autograd node calls
+        try:
+            _, grads[name] = grad_fn(params, lora, batch)
+        finally:
+            tlp.token_logprob_bwd = kernel_bwd
+        n1 = (tlp.FWD_LAUNCHES.n - n0[0], tlp.BWD_LAUNCHES.n - n0[1])
+        if n1 != want:
+            raise AssertionError(f"phase 7 bf16 ({name} backward): token_logprob "
+                                 f"launches {n1}, want {want}")
+    g_norm = float(global_norm(grads["plain"]))
+    g_err = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(tree_leaves(grads["kernel"]), tree_leaves(grads["plain"])))
+    rec = dict(rows=GROUP_SIZE, dtype=str(params["embed"].dtype).split(".")[1],
+               grad_norm=g_norm, grad_max_abs_diff=g_err,
+               grad_tol=BF16_GRAD_TOL * g_norm)
+    log(f"[7 train check] {rec['dtype']}, {GROUP_SIZE} rows, on the card, backward "
+        f"kernel vs plain backward: gradient max abs diff {g_err:.3e} of norm "
+        f"{g_norm:.4e} (tol {BF16_GRAD_TOL} x norm)")
+    if not g_norm > 0 or g_err > rec["grad_tol"]:
+        raise AssertionError(f"phase 7 bf16: backward kernel and plain backward "
+                             f"steps differ: {rec}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 8 and 9: the continuous engine over the paged KV pool
 # ---------------------------------------------------------------------------
@@ -1171,6 +1258,7 @@ def main(argv):
     if profile_dir is not None:
         profile_train(torch, cfg, params, start, last_tb, tc, profile_dir)
     train["check"] = train_check(torch, M, cfg, params, last_tb, start, tc)
+    train["check_bf16"] = train_check_bf16(torch, cfg, params, last_tb, start, tc)
 
     # -- phases 8 and 9: continuous engine over the paged pool --------------
     cont, comps = continuous_phase(torch, cfg, params, adapters, counters, card)
@@ -1185,21 +1273,26 @@ def main(argv):
         seconds=time.monotonic() - t_all, build_s=secs, card=card)}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"continuous": cont}), flush=True)
+    fwd_main = next(c for c in tlp_fwd_cases if c["main"])
+    bwd_main = next(c for c in tlp_bwd_cases if c["main"])
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
                      dict(launches_per_decode_step=cfg.num_layers)),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases, n_sgmv,
-                     dict(launches_per_decode_step=6 * cfg.num_layers,
-                          cuda_launches_per_call=2)),
+                     dict(launches_per_decode_step=6 * cfg.num_layers)),
         kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases, n_fwd,
-                     dict(launches_per_train_step=2, cuda_launches_per_call=2,
+                     dict(launches_per_train_step=2,
+                          cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           launches_phase="train (phase 6)")),
         kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases, n_bwd,
-                     dict(launches_per_train_step=1, cuda_launches_per_call=2,
+                     dict(launches_per_train_step=1,
+                          cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
+                          tflops=bwd_main["tflops"], plan=bwd_main["plan"],
+                          scratch_bytes=bwd_main["scratch_bytes"],
                           launches_phase="train (phase 6)")),
         kernel_entry("paged_gqa_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:85", paged_cases,

@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C signatures of the exported launchers: name -> argtypes. Every launcher
-# returns the cudaError_t of its launch as an int.
+# returns the cudaError_t of its launch as an int; token_logprob's also add
+# the number of kernels they launched to a host int (`launched`).
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gqa_decode": {
@@ -45,20 +46,25 @@ SIGNATURES = {
     },
     "token_logprob": {
         # h, w, tgt, part, lp, ent, lse, R, d, V, ws_k, ws_v, vsplit,
-        # slice_tiles, softcap, dtype, stream
+        # slice_tiles, softcap, dtype, stream, launched
         "token_logprob_fwd_launch": [_P] * 7 + [_I, _I, _I, _L, _L, _I, _I,
-                                                _F, _I, _P],
+                                                _F, _I, _P, _P],
         # h, w, tgt, lse, ent, g_lp, g_ent, dpart, dh, R, d, V, ws_k, ws_v,
-        # vsplit, slice_tiles, dch, softcap, dtype, stream
-        "token_logprob_bwd_launch": [_P] * 9 + [_I, _I, _I, _L, _L, _I, _I,
-                                                _I, _F, _I, _P],
+        # vsplit, slice_tiles, softcap, stream, launched
+        "token_logprob_bwd_f32_launch": [_P] * 9 + [_I, _I, _I, _L, _L, _I,
+                                                    _I, _F, _P, _P],
+        # h, w, tgt, lse, ent, g_lp, g_ent, dz, part, dh, R, d, V, ws_k,
+        # ws_v, vc, splits, piece, softcap, stream, launched
+        "token_logprob_bwd_bf16_launch": [_P] * 10 + [_I, _I, _I, _L, _L, _I,
+                                                      _I, _I, _F, _P, _P],
     },
 }
 
 
 class LaunchCount:
     """A wrapper's count of kernel launches: a plain integer, ``n``, that the
-    wrapper raises by one where it launches and a caller may set to 0."""
+    wrapper raises where it launches (by one a call, or by the CUDA kernels
+    its C launcher reports) and a caller may set to 0."""
 
     def __init__(self):
         self.n = 0

@@ -14,35 +14,52 @@
 //            (times 1 - tanh^2(raw/cap) under a softcap)
 //   dh     = dz @ W^T
 //
-// What bounds it on an H100: the logits product, 2*R*d*V operations forward
-// (4*R*d*V backward: the logits are recomputed, then dz @ W^T); at R = 624,
-// d = 1024, V = 151936 that is 1.9e11 operations, 0.2 ms at 989 TFLOP/s bf16,
-// against 0.1 ms to read W's 311 MB once. Below about R = 300 rows the bytes
-// of W bound it instead.
+// What bounds it on an H100: the products. The forward is 2*R*d*V
+// operations, the backward 4*R*d*V (the logits are recomputed, then
+// dz @ W^T): at R = 624, d = 1024, V = 151936 that is 3.9e11 operations,
+// 0.39 ms at 989 TFLOP/s bf16, against 0.09 ms to read W's 311 MB once.
+// Below about R = 300 rows the bytes of W bound it instead.
 //
-// Design (not the Pallas grid, which walks the vocab in sequence per row
-// block and carries m, l, s in VMEM scratch):
-//  * Blocks tile rows AND the vocabulary: grid (row blocks, vocab slices), so
-//    a training micro-batch of a few hundred rows still fills the 132 SMs.
-//    Each block walks its slice in 64-column tiles; each tile's logits are
-//    made in the block itself, h and W streamed through shared memory in
-//    32-wide d-chunks. bf16 inputs use tensor cores (wmma 16x16x16, fp32
-//    accumulate); fp32 inputs use an fp32 FMA loop (no TF32: fp32 stays
-//    fp32). W comes with its two strides, so the tied [V, d] embedding is read
-//    as [d, V] in place (k contiguous: 16-byte vector loads) and an untied
-//    [d, V] head as it lies (v contiguous: coalesced scalar loads).
-//  * The ragged last vocab tile is masked (columns >= V take no part), so V
-//    need not divide by anything.
-//  * Forward: each block keeps (m, l, s, target logit) per row for its slice
-//    and writes them as one partial; a second launch merges the slices of
-//    each row in slice order, so results do not depend on scheduling.
-//  * Backward: row blocks of 32, the dh accumulator [32, <=1024] fp32 lives in
-//    shared memory. Per vocab tile the block recomputes the logits, forms dz
-//    in shared memory (bf16 for bf16 inputs, as a bf16 autograd would), and
-//    adds dz @ W_tile^T into the accumulator chunk by chunk. Each vocab slice
-//    writes its own partial dh; a reduce launch sums the slices in order and
-//    casts to h's dtype. No float atomics anywhere: every run gives the same
-//    bits.
+// W comes with its two strides, so the tied [V, d] embedding is read as
+// [d, V] in place (k contiguous) and an untied [d, V] head as it lies (v
+// contiguous). The ragged last vocab tile is masked, so V need not divide by
+// anything.
+//
+// Forward (not the Pallas grid, which walks the vocab in sequence per row
+// block and carries m, l, s in VMEM scratch): blocks tile rows AND the
+// vocabulary, grid (row blocks, vocab slices), so a training micro-batch of
+// a few hundred rows fills the 132 SMs. Each block walks its slice in
+// 64-column tiles, h and W streamed through shared memory in 32-wide
+// d-chunks (wmma 16x16x16 for bf16, an fp32 FMA loop for fp32: no TF32),
+// keeps (m, l, s, target logit) per row and writes them as one partial; a
+// merge launch combines the slices of each row in slice order.
+//
+// Backward, bf16: per vocab chunk of vc columns, two ordinary tiled
+// products on the tensor cores, so that W is read about once per product
+// (not once per row block, as a fused kernel with a d-wide dh accumulator
+// must) and dh stays in registers:
+//  1. Z = h @ W[:, chunk], 128 x 128 tiles; the epilogue turns the fp32
+//     accumulators into dz (softcap, softmax and entropy terms from the
+//     forward's lse and ent), rounds it to bf16 as a bf16 autograd would and
+//     writes it to a [R, vc] scratch (0 past V). Row tiles are the fastest
+//     grid dimension, so the blocks that share a W tile run together.
+//  2. part[s] (+)= dz @ W[:, chunk]^T, M = R, N = d, K = the chunk, 128 x 128
+//     tiles, K split into S pieces so that a few hundred rows still fill the
+//     card; piece s adds into its own fp32 partial [R, d], whose tile belongs
+//     to one block per launch. Chunks run in order on the stream.
+// A last launch sums the S partials in order and casts to bf16. Both
+// products share one mainloop: 8 warps of 64 x 32, mma.sync m16n8k16 (bf16
+// in, fp32 accumulate) fed by ldmatrix, and a 4-stage ring of 16-byte
+// cp.async copies (zero-filled past the ragged edges) in dynamic shared
+// memory, so three K-steps of loads are in flight while one computes. W's
+// tile is staged as it lies: k contiguous takes ldmatrix, v contiguous
+// ldmatrix.trans. No float atomics anywhere: every run gives the same bits.
+//
+// Backward, fp32 (the FMA path that holds the kernels to fp32 references):
+// row blocks of 32, a [32, <=1024] fp32 dh accumulator in shared memory;
+// per 64-column vocab tile the block recomputes the logits, forms dz and adds
+// dz @ W_tile^T into the accumulator; each vocab slice writes a partial dh
+// and a reduce launch sums the slices in order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -53,11 +70,11 @@ namespace {
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;     // 4 warps per block
+constexpr int kThreads = 128;     // 4 warps per forward / fp32 backward block
 constexpr int BN = 64;            // vocab columns per tile
 constexpr int BK = 32;            // d-chunk streamed through shared memory
 constexpr int BM_FWD = 64;        // rows per forward block
-constexpr int BM_BWD = 32;        // rows per backward block
+constexpr int BM_BWD = 32;        // rows per fp32 backward block
 constexpr int ZLD = BN + 4;       // row stride of the fp32 logits tile
 constexpr float kNegInf = -1e30f;
 
@@ -66,17 +83,27 @@ template <> struct Tr<float> {    // FMA path: odd strides keep banks apart
   static constexpr int LD = BK + 1, DZLD = BN + 1, VEC = 4;
 };
 template <> struct Tr<bf16> {     // wmma path: strides multiples of 8 elements
-  static constexpr int LD = BK + 8, DZLD = BN + 8, VEC = 8;
+  static constexpr int LD = BK + 8, VEC = 8;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float capz(float z, float cap) {
   return cap != 0.f ? tanhf(z / cap) * cap : z;
+}
+
+// dz of one logit (see the note at the top); z is already softcapped.
+__device__ __forceinline__ float dz_of(float z, bool hit, float lse, float ent, float g_lp,
+                                       float g_ent, float cap) {
+  const float p = expf(z - lse);
+  float dz = g_lp * ((hit ? 1.f : 0.f) - p) - g_ent * p * (z - lse + ent);
+  if (cap != 0.f) {
+    const float t = z / cap;
+    dz *= 1.f - t * t;
+  }
+  return dz;
 }
 
 // dst[r * LD + k] = src[(r0 + r) * s_r + (k0 + k) * s_k] for r < ROWS, k < BK;
@@ -195,25 +222,9 @@ template <int BM> struct ZAcc<float, BM> {
   }
 };
 
-// Backward: acc[BM_BWD, BK] += sDz[BM_BWD, BN] . sW[BN, BK] (sW holds W^T's
-// chunk: element (n, k) = W[k0 + k, n0 + n]); acc is a chunk of the shared
-// dh accumulator with row stride dld.
-__device__ __forceinline__ void dh_chunk(const bf16* sDz, const bf16* sW, float* acc, int dld) {
-  constexpr int LD = Tr<bf16>::LD, DZLD = Tr<bf16>::DZLD;
-  const int w = threadIdx.x / 32, r0 = (w / 2) * 16, c0 = (w % 2) * 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-  wmma::load_matrix_sync(c, acc + r0 * dld + c0, dld, wmma::mem_row_major);
-#pragma unroll
-  for (int n = 0; n < BN; n += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-    wmma::load_matrix_sync(a, sDz + r0 * DZLD + n, DZLD);
-    wmma::load_matrix_sync(b, sW + n * LD + c0, LD);
-    wmma::mma_sync(c, a, b, c);
-  }
-  wmma::store_matrix_sync(acc + r0 * dld + c0, c, dld, wmma::mem_row_major);
-}
-
+// fp32 backward: acc[BM_BWD, BK] += sDz[BM_BWD, BN] . sW[BN, BK] (sW holds
+// W^T's chunk: element (n, k) = W[k0 + k, n0 + n]); acc is a chunk of the
+// shared dh accumulator with row stride dld.
 __device__ __forceinline__ void dh_chunk(const float* sDz, const float* sW, float* acc, int dld) {
   constexpr int LD = Tr<float>::LD, DZLD = Tr<float>::DZLD;
   const int k = threadIdx.x % 32, rg = threadIdx.x / 32;
@@ -328,7 +339,7 @@ __global__ void tlp_merge(const float4* __restrict__ part, int R, int vsplit,
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward, fp32
 // ---------------------------------------------------------------------------
 
 __host__ __device__ inline size_t round128(size_t b) { return (b + 127) & ~(size_t)127; }
@@ -337,8 +348,8 @@ struct BwdSmem {                  // byte offsets into the dynamic shared memory
   size_t w, z, dz, row, acc, total;
 };
 
-template <typename T>
 __host__ __device__ inline BwdSmem bwd_smem(int dld) {
+  using T = float;
   BwdSmem o;
   o.w = round128(sizeof(T) * BM_BWD * Tr<T>::LD);
   o.z = o.w + round128(sizeof(T) * BN * Tr<T>::LD);
@@ -349,18 +360,19 @@ __host__ __device__ inline BwdSmem bwd_smem(int dld) {
   return o;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tlp_bwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ tgt,
-        const float* __restrict__ lse, const float* __restrict__ ent,
-        const float* __restrict__ g_lp, const float* __restrict__ g_ent,
-        float* __restrict__ dpart, int R, int d, int V, long long ws_k, long long ws_v,
-        int slice_tiles, int dch, float cap, int vec_h, int vec_w) {
+tlp_bwd_f32(const float* __restrict__ h, const float* __restrict__ w,
+            const int* __restrict__ tgt, const float* __restrict__ lse,
+            const float* __restrict__ ent, const float* __restrict__ g_lp,
+            const float* __restrict__ g_ent, float* __restrict__ dpart, int R, int d, int V,
+            long long ws_k, long long ws_v, int slice_tiles, int dch, float cap, int vec_h,
+            int vec_w) {
+  using T = float;
   constexpr int BM = BM_BWD;
-  constexpr int LD = Tr<T>::LD, DZLD = Tr<T>::DZLD;
+  constexpr int DZLD = Tr<T>::DZLD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int dld = dch + 4;
-  const BwdSmem o = bwd_smem<T>(dld);
+  const BwdSmem o = bwd_smem(dld);
   T* sH = reinterpret_cast<T*>(smem);
   T* sW = reinterpret_cast<T*>(smem + o.w);
   float* sZ = reinterpret_cast<float*>(smem + o.z);
@@ -407,18 +419,10 @@ tlp_bwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict_
     for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
       const int rr = i / BN, j = i % BN, col = n0 + j;
       float dz = 0.f;
-      if (row0 + rr < R && col < V) {
-        const float z = capz(sZ[rr * ZLD + j], cap);
-        const float L = s_lse[rr];
-        const float p = expf(z - L);
-        dz = s_glp[rr] * ((col == s_tgt[rr] ? 1.f : 0.f) - p)
-             - s_gent[rr] * p * (z - L + s_ent[rr]);
-        if (cap != 0.f) {
-          const float t = z / cap;
-          dz *= 1.f - t * t;
-        }
-      }
-      sDz[rr * DZLD + j] = from_f<T>(dz);
+      if (row0 + rr < R && col < V)
+        dz = dz_of(capz(sZ[rr * ZLD + j], cap), col == s_tgt[rr], s_lse[rr], s_ent[rr],
+                   s_glp[rr], s_gent[rr], cap);
+      sDz[rr * DZLD + j] = dz;
     }
     __syncthreads();
     for (int k0 = kd0; k0 < kd1; k0 += BK) {
@@ -436,16 +440,258 @@ tlp_bwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict_
   }
 }
 
-// dh = sum over vocab slices of the partials, in slice order, cast to T.
+// dh = sum over the partials (vocab slices, or K-splits), in order, cast to T.
 template <typename T>
 __global__ void tlp_bwd_reduce(const float* __restrict__ dpart, T* __restrict__ dh,
-                               long long n, int vsplit) {
+                               long long n, int nparts) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int v = 0; v < vsplit; ++v) s += dpart[(size_t)v * n + i];
+    for (int v = 0; v < nparts; ++v) s += dpart[(size_t)v * n + i];
     dh[i] = from_f<T>(s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16: the two tiled products
+// ---------------------------------------------------------------------------
+
+constexpr int TM = 128, TN = 128, TK = 32;   // block tile and K-step of both products
+constexpr int kStages = 4;                   // depth of the cp.async ring
+constexpr int kMmThreads = 256;              // 8 warps: 2 along M x 4 along N, 64 x 32 each
+constexpr int A_LD = TK + 8;                 // A staged [TM][TK]: 80-byte rows, so the 8
+                                             // rows of an ldmatrix hit distinct banks
+constexpr int BK_LD = TK + 8;                // B staged [TN][TK] (k contiguous)
+constexpr int BN_LD = TN + 8;                // B staged [TK][TN] (n contiguous), 272-byte rows
+constexpr int A_STAGE = TM * A_LD;           // elements per stage
+constexpr int B_STAGE = TN * BK_LD > TK * BN_LD ? TN * BK_LD : TK * BN_LD;
+constexpr int MM_SMEM = kStages * (A_STAGE + B_STAGE) * (int)sizeof(bf16);   // 80 KB
+
+// An operand of a tiled product: element (i, k) at p[i * si + k * sk] for
+// i < rows, k < K, zero outside. vec: the contiguous dimension takes 16-byte
+// copies (base 16-byte aligned, the other stride and the contiguous extent
+// multiples of 8), so an 8-element vector is all in or all out.
+struct Opnd {
+  const bf16* p;
+  long long si, sk;
+  int rows, K, vec;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage rows [i0, i0 + ROWS) x k [k0, k0 + TK) of an operand whose k is
+// contiguous as s[r * (TK + 8) + k].
+template <int ROWS>
+__device__ __forceinline__ void stage_k(bf16* s, const Opnd& o, int i0, int k0) {
+  constexpr int LD = TK + 8;
+  if (o.vec) {
+    for (int c = threadIdx.x; c < ROWS * (TK / 8); c += kMmThreads) {
+      const int r = c / (TK / 8), k = (c % (TK / 8)) * 8;
+      const bool ok = i0 + r < o.rows && k0 + k < o.K;
+      cp_async16(s + r * LD + k, ok ? o.p + (i0 + r) * o.si + (k0 + k) : o.p, ok);
+    }
+  } else {                        // neighbouring threads along k
+    for (int e = threadIdx.x; e < ROWS * TK; e += kMmThreads) {
+      const int r = e / TK, k = e % TK;
+      const bool ok = i0 + r < o.rows && k0 + k < o.K;
+      s[r * LD + k] = ok ? o.p[(i0 + r) * o.si + (k0 + k) * o.sk] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The same for an operand whose i is contiguous, as s[k * (ROWS + 8) + r].
+template <int ROWS>
+__device__ __forceinline__ void stage_i(bf16* s, const Opnd& o, int i0, int k0) {
+  constexpr int LD = ROWS + 8;
+  if (o.vec) {
+    for (int c = threadIdx.x; c < TK * (ROWS / 8); c += kMmThreads) {
+      const int k = c / (ROWS / 8), r = (c % (ROWS / 8)) * 8;
+      const bool ok = i0 + r < o.rows && k0 + k < o.K;
+      cp_async16(s + k * LD + r, ok ? o.p + (i0 + r) + (k0 + k) * o.sk : o.p, ok);
+    }
+  } else {                        // neighbouring threads along i
+    for (int e = threadIdx.x; e < TK * ROWS; e += kMmThreads) {
+      const int k = e / ROWS, r = e % ROWS;
+      const bool ok = i0 + r < o.rows && k0 + k < o.K;
+      s[k * LD + r] = ok ? o.p[(i0 + r) * o.si + (k0 + k) * o.sk] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// acc[TM x TN tile at (m0, n0)] = sum over k in [k0, k1) of A(m, k) B(n, k).
+// A's k is contiguous; B's k is contiguous when B_K (ldmatrix), its n
+// otherwise (ldmatrix.trans). Warp w owns rows (w / 4) * 64 .. +64 and
+// columns (w % 4) * 32 .. +32: acc[mi][nj] is the 16 x 8 block at row
+// 16 mi, column 8 nj of that, in mma.sync's accumulator layout.
+template <bool B_K>
+__device__ __forceinline__ void mm_mainloop(float (&acc)[4][4][4], const Opnd& A, const Opnd& B,
+                                            int m0, int n0, int k0, int k1, bf16* smem) {
+  bf16* sA = smem;
+  bf16* sB = smem + kStages * A_STAGE;
+  const int nk = k1 > k0 ? (k1 - k0 + TK - 1) / TK : 0;
+  auto load = [&](int kt) {
+    const int st = kt % kStages, k = k0 + kt * TK;
+    stage_k<TM>(sA + st * A_STAGE, A, m0, k);
+    if (B_K)
+      stage_k<TN>(sB + st * B_STAGE, B, n0, k);
+    else
+      stage_i<TN>(sB + st * B_STAGE, B, n0, k);
+  };
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < nk) load(kt);
+    cp_async_commit();            // one group per K-step, empty ones included
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();   // step kt has landed (for this thread) ...
+    __syncthreads();                // ... for all, and step kt - 1's stage is free
+    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
+    cp_async_commit();
+    const bf16* a_s = sA + (kt % kStages) * A_STAGE;
+    const bf16* b_s = sB + (kt % kStages) * B_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < TK; ks += 16) {
+      unsigned a[4][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4(a[mi], a_s + (wm + mi * 16 + (lane & 15)) * A_LD + ks + (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        unsigned r[4];            // n-blocks 2p and 2p+1, k halves 0 and 1
+        if (B_K)
+          ldsm_x4(r, b_s + (wn + p * 16 + (lane >> 4) * 8 + (lane & 7)) * BK_LD + ks +
+                         ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_t(r, b_s + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * BN_LD + wn + p * 16 +
+                           (lane >> 4) * 8);
+        b[2 * p][0] = r[0];
+        b[2 * p][1] = r[1];
+        b[2 * p + 1][0] = r[2];
+        b[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a[mi], b[nj][0], b[nj][1]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// What product 1's epilogue needs to turn logits into dz.
+struct DzArgs {
+  const int* tgt;
+  const float *lse, *ent, *g_lp, *g_ent;
+  bf16* dz;                       // [R, ldz] chunk scratch
+  int ldz, R, v0, V;              // v0: the chunk's first vocab column
+  float cap;
+};
+
+// Product 1: dz[:, tile] of Z = h @ W[:, chunk]. Grid (row tiles, vocab tiles
+// of the chunk): row tiles fastest, so the blocks that read one W tile run
+// together. B_K: W's k is contiguous (the tied embedding's transpose).
+template <bool B_K>
+__global__ void __launch_bounds__(kMmThreads, 2)
+tlp_bwd_logits(Opnd A, Opnd B, DzArgs e) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  float acc[4][4][4] = {};
+  mm_mainloop<B_K>(acc, A, B, m0, n0, 0, A.K, reinterpret_cast<bf16*>(smem));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + wm + mi * 16 + (lane >> 2) + 8 * hf;
+      if (r >= e.R) continue;
+      const float L = e.lse[r], En = e.ent[r], gl = e.g_lp[r], ge = e.g_ent[r];
+      const int t = e.tgt[r];
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int c = n0 + wn + nj * 8 + (lane & 3) * 2;     // column in the chunk
+        float out[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int v = e.v0 + c + q;
+          out[q] = v < e.V ? dz_of(capz(acc[mi][nj][2 * hf + q], e.cap), v == t, L, En, gl, ge,
+                                   e.cap)
+                           : 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(e.dz + (size_t)r * e.ldz + c) =
+            __floats2bfloat162_rn(out[0], out[1]);
+      }
+    }
+}
+
+// Product 2: part[s] (+)= dz @ W[:, chunk]^T over the chunk's K piece
+// [s * piece, (s + 1) * piece), s = blockIdx.z. Grid (row tiles, d tiles,
+// pieces). B_K: W's v is contiguous (an untied [d, V] head). `add`: add into
+// the partial (every chunk after the first) instead of writing it.
+template <bool B_K>
+__global__ void __launch_bounds__(kMmThreads, 2)
+tlp_bwd_dh(Opnd A, Opnd B, float* __restrict__ part, int R, int d, int piece, int add) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  const int k0 = blockIdx.z * piece, k1 = min(A.K, k0 + piece);
+  float acc[4][4][4] = {};
+  mm_mainloop<B_K>(acc, A, B, m0, n0, k0, k1, reinterpret_cast<bf16*>(smem));
+  float* out = part + (size_t)blockIdx.z * R * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + wm + mi * 16 + (lane >> 2) + 8 * hf;
+      if (r >= R) continue;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = n0 + wn + nj * 8 + (lane & 3) * 2 + q;
+          if (c >= d) continue;
+          float* o = out + (size_t)r * d + c;
+          *o = add ? *o + acc[mi][nj][2 * hf + q] : acc[mi][nj][2 * hf + q];
+        }
+    }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -461,7 +707,7 @@ void vec_flags(const void* h, const void* w, int d, long long ws_k, long long ws
 template <typename T>
 cudaError_t fwd_t(const void* h, const void* w, const int* tgt, float4* part, float* lp,
                   float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
-                  int vsplit, int slice_tiles, float cap, cudaStream_t st) {
+                  int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
   int vh, vw;
   vec_flags<T>(h, w, d, ws_k, ws_v, &vh, &vw);
   tlp_fwd<T><<<dim3((R + BM_FWD - 1) / BM_FWD, vsplit), kThreads, 0, st>>>(
@@ -469,42 +715,105 @@ cudaError_t fwd_t(const void* h, const void* w, const int* tgt, float4* part, fl
       slice_tiles, cap, vh, vw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  ++*launched;
   tlp_merge<<<(R + 255) / 256, 256, 0, st>>>(part, R, vsplit, lp, ent, lse);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
 }
 
 template <typename T>
-cudaError_t bwd_t(const void* h, const void* w, const int* tgt, const float* lse,
-                  const float* ent, const float* g_lp, const float* g_ent, float* dpart,
-                  void* dh, int R, int d, int V, long long ws_k, long long ws_v, int vsplit,
-                  int slice_tiles, int dch, float cap, cudaStream_t st) {
+cudaError_t reduce_parts(const float* part, T* dh, int R, int d, int nparts, cudaStream_t st,
+                         int* launched) {
+  const long long n = (long long)R * d;
+  const long long blocks = (n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048;
+  tlp_bwd_reduce<T><<<(int)blocks, 256, 0, st>>>(part, dh, n, nparts);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
+}
+
+cudaError_t bwd_f32(const float* h, const float* w, const int* tgt, const float* lse,
+                    const float* ent, const float* g_lp, const float* g_ent, float* dpart,
+                    float* dh, int R, int d, int V, long long ws_k, long long ws_v, int vsplit,
+                    int slice_tiles, float cap, cudaStream_t st, int* launched) {
   static bool attr_set = false;
-  const BwdSmem o = bwd_smem<T>(dch + 4);
+  const int dch = d < 1024 ? (d + BK - 1) / BK * BK : 1024;   // dh columns per block
   if (!attr_set) {
-    // sized for the largest chunk the wrapper passes (1024 columns)
-    cudaError_t err = cudaFuncSetAttribute(tlp_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bwd_smem<T>(1024 + 4).total);
+    cudaError_t err = cudaFuncSetAttribute(tlp_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bwd_smem(1024 + 4).total);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   int vh, vw;
-  vec_flags<T>(h, w, d, ws_k, ws_v, &vh, &vw);
+  vec_flags<float>(h, w, d, ws_k, ws_v, &vh, &vw);
   const int dsplit = (d + dch - 1) / dch;
-  tlp_bwd<T><<<dim3((R + BM_BWD - 1) / BM_BWD, vsplit, dsplit), kThreads, o.total, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), tgt, lse, ent, g_lp, g_ent, dpart, R,
-      d, V, ws_k, ws_v, slice_tiles, dch, cap, vh, vw);
+  tlp_bwd_f32<<<dim3((R + BM_BWD - 1) / BM_BWD, vsplit, dsplit), kThreads,
+                bwd_smem(dch + 4).total, st>>>(h, w, tgt, lse, ent, g_lp, g_ent, dpart, R, d, V,
+                                               ws_k, ws_v, slice_tiles, dch, cap, vh, vw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long n = (long long)R * d;
-  const long long blocks = (n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048;
-  tlp_bwd_reduce<T><<<(int)blocks, 256, 0, st>>>(dpart, static_cast<T*>(dh), n, vsplit);
-  return cudaGetLastError();
+  ++*launched;
+  return reduce_parts(dpart, dh, R, d, vsplit, st, launched);
 }
 
-bool bad_args(int R, int d, int V, int vsplit, int slice_tiles, int dtype) {
+template <typename K>
+cudaError_t allow_mm_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
+}
+
+cudaError_t bwd_bf16(const bf16* h, const bf16* w, const int* tgt, const float* lse,
+                     const float* ent, const float* g_lp, const float* g_ent, bf16* dz,
+                     float* part, bf16* dh, int R, int d, int V, long long ws_k, long long ws_v,
+                     int vc, int splits, int piece, float cap, cudaStream_t st,
+                     int* launched) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = allow_mm_smem(tlp_bwd_logits<true>);
+    if (err == cudaSuccess) err = allow_mm_smem(tlp_bwd_logits<false>);
+    if (err == cudaSuccess) err = allow_mm_smem(tlp_bwd_dh<true>);
+    if (err == cudaSuccess) err = allow_mm_smem(tlp_bwd_dh<false>);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const bool k_contig = ws_k == 1;       // the tied embedding's transpose
+  const Opnd A1{h, d, 1, R, d, aligned16(h) && d % 8 == 0};
+  for (int v0 = 0; v0 < V; v0 += vc) {
+    const int kc = min(vc, V - v0);                  // the chunk's vocab columns
+    const int kpad = (kc + TN - 1) / TN * TN;        // ... as whole tiles
+    const bf16* wc = w + (long long)v0 * ws_v;
+    const int wvec = aligned16(wc) && (k_contig ? ws_v % 8 == 0 && d % 8 == 0
+                                                : ws_k % 8 == 0 && kc % 8 == 0);
+    // product 1: B(n = v, k = j) = W[j, v0 + v]
+    const Opnd B1{wc, ws_v, ws_k, kc, d, wvec};
+    const DzArgs e{tgt, lse, ent, g_lp, g_ent, dz, vc, R, v0, V, cap};
+    const dim3 g1((R + TM - 1) / TM, kpad / TN);
+    if (k_contig)
+      tlp_bwd_logits<true><<<g1, kMmThreads, MM_SMEM, st>>>(A1, B1, e);
+    else
+      tlp_bwd_logits<false><<<g1, kMmThreads, MM_SMEM, st>>>(A1, B1, e);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+    // product 2: A = dz [R, kpad]; B(n = j, k = v) = W[j, v0 + v]
+    const Opnd A2{dz, vc, 1, R, kpad, 1};
+    const Opnd B2{wc, ws_k, ws_v, d, kc, wvec};
+    const dim3 g2((R + TM - 1) / TM, (d + TN - 1) / TN, splits);
+    if (k_contig)
+      tlp_bwd_dh<false><<<g2, kMmThreads, MM_SMEM, st>>>(A2, B2, part, R, d, piece, v0 > 0);
+    else
+      tlp_bwd_dh<true><<<g2, kMmThreads, MM_SMEM, st>>>(A2, B2, part, R, d, piece, v0 > 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  return reduce_parts(part, dh, R, d, splits, st, launched);
+}
+
+bool bad_args(int R, int d, int V, int vsplit, int slice_tiles) {
   const int n_tiles = (V + BN - 1) / BN;
   return R < 0 || d <= 0 || V <= 0 || vsplit < 1 || slice_tiles < 1 ||
-         (long long)vsplit * slice_tiles < n_tiles || dtype < 0 || dtype > 1;
+         (long long)vsplit * slice_tiles < n_tiles;
 }
 
 }  // namespace
@@ -512,13 +821,15 @@ bool bad_args(int R, int d, int V, int vsplit, int slice_tiles, int dtype) {
 // dtype: 0 = float32, 1 = bfloat16 (h and w share it). tgt int32 [R] in [0, V);
 // w[k, v] at w + k * ws_k + v * ws_v. part: [vsplit, R] float4 scratch;
 // lp, ent, lse: [R] float32 outputs. Vocab slice s covers tiles
-// [s * slice_tiles, (s + 1) * slice_tiles) of 64 columns.
+// [s * slice_tiles, (s + 1) * slice_tiles) of 64 columns. Each launcher adds
+// one to *launched (a host int) for every kernel it launches.
 extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void* tgt,
                                         void* part, void* lp, void* ent, void* lse, int R,
                                         int d, int V, long long ws_k, long long ws_v,
                                         int vsplit, int slice_tiles, float cap, int dtype,
-                                        void* stream) {
-  if (bad_args(R, d, V, vsplit, slice_tiles, dtype)) return (int)cudaErrorInvalidValue;
+                                        void* stream, int* launched) {
+  if (bad_args(R, d, V, vsplit, slice_tiles) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tgt);
@@ -527,32 +838,50 @@ extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void
   float* b = static_cast<float*>(ent);
   float* c = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)fwd_t<float>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st);
-  return (int)fwd_t<bf16>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st);
+    return (int)fwd_t<float>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap,
+                             st, launched);
+  return (int)fwd_t<bf16>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st,
+                          launched);
 }
 
-// lse, ent: the forward's [R] float32; g_lp, g_ent: upstream grads [R] float32.
-// dpart: [vsplit, R, d] float32 scratch; dh: [R, d] in h's dtype. dch: width
-// of the d-chunk one block accumulates, a multiple of 32 up to 1024.
-extern "C" int token_logprob_bwd_launch(const void* h, const void* w, const void* tgt,
-                                        const void* lse, const void* ent, const void* g_lp,
-                                        const void* g_ent, void* dpart, void* dh, int R, int d,
-                                        int V, long long ws_k, long long ws_v, int vsplit,
-                                        int slice_tiles, int dch, float cap, int dtype,
-                                        void* stream) {
-  if (bad_args(R, d, V, vsplit, slice_tiles, dtype) || dch <= 0 || dch > 1024 || dch % BK)
+// The fp32 backward. lse, ent: the forward's [R] float32; g_lp, g_ent:
+// upstream grads [R] float32. dpart: [vsplit, R, d] float32 scratch; dh:
+// [R, d] float32. Vocab slices as in the forward.
+extern "C" int token_logprob_bwd_f32_launch(const void* h, const void* w, const void* tgt,
+                                            const void* lse, const void* ent, const void* g_lp,
+                                            const void* g_ent, void* dpart, void* dh, int R,
+                                            int d, int V, long long ws_k, long long ws_v,
+                                            int vsplit, int slice_tiles, float cap,
+                                            void* stream, int* launched) {
+  if (bad_args(R, d, V, vsplit, slice_tiles)) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  return (int)bwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
+                      static_cast<const int*>(tgt), static_cast<const float*>(lse),
+                      static_cast<const float*>(ent), static_cast<const float*>(g_lp),
+                      static_cast<const float*>(g_ent), static_cast<float*>(dpart),
+                      static_cast<float*>(dh), R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap,
+                      static_cast<cudaStream_t>(stream), launched);
+}
+
+// The bf16 backward. w's k or v stride must be 1. Vocab chunks of vc
+// columns (a multiple of 128); dz: [R, vc] bf16 scratch; the dz @ W^T
+// product of a chunk splits its K into `splits` pieces of `piece` columns (a
+// multiple of 32, splits * piece >= vc); part: [splits, R, d] float32
+// scratch; dh: [R, d] bf16. Other arguments as in the fp32 backward.
+extern "C" int token_logprob_bwd_bf16_launch(const void* h, const void* w, const void* tgt,
+                                             const void* lse, const void* ent, const void* g_lp,
+                                             const void* g_ent, void* dz, void* part, void* dh,
+                                             int R, int d, int V, long long ws_k,
+                                             long long ws_v, int vc, int splits, int piece,
+                                             float cap, void* stream, int* launched) {
+  if (R < 0 || d <= 0 || V <= 0 || vc <= 0 || vc % TN || splits < 1 || splits > 65535 ||
+      piece <= 0 || piece % TK || (long long)splits * piece < vc || (ws_k != 1 && ws_v != 1))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(tgt);
-  const float* ls = static_cast<const float*>(lse);
-  const float* en = static_cast<const float*>(ent);
-  const float* gl = static_cast<const float*>(g_lp);
-  const float* ge = static_cast<const float*>(g_ent);
-  float* dp = static_cast<float*>(dpart);
-  if (dtype == 0)
-    return (int)bwd_t<float>(h, w, t, ls, en, gl, ge, dp, dh, R, d, V, ws_k, ws_v, vsplit,
-                             slice_tiles, dch, cap, st);
-  return (int)bwd_t<bf16>(h, w, t, ls, en, gl, ge, dp, dh, R, d, V, ws_k, ws_v, vsplit,
-                          slice_tiles, dch, cap, st);
+  return (int)bwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                       static_cast<const int*>(tgt), static_cast<const float*>(lse),
+                       static_cast<const float*>(ent), static_cast<const float*>(g_lp),
+                       static_cast<const float*>(g_ent), static_cast<bf16*>(dz),
+                       static_cast<float*>(part), static_cast<bf16*>(dh), R, d, V, ws_k, ws_v,
+                       vc, splits, piece, cap, static_cast<cudaStream_t>(stream), launched);
 }

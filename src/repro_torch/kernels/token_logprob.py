@@ -6,15 +6,20 @@ of ``repro.kernels.token_logprob``, with the backward the TPU kernel lacks).
 entropy) per row and is differentiable in ``h``. On the card it is a
 ``torch.autograd.Function`` over the hand-written CUDA kernels of
 ``csrc/token_logprob.cu``: the forward kernel (plus a merge launch over the
-vocab slices) and the backward kernel for ``dh`` (plus a reduce launch). W
-is the frozen base: a ``w`` that requires grad raises on the card (``dW`` is
-not written yet). For tensors on the CPU it runs the plain version
+vocab slices) and the backward kernels for ``dh`` (bf16: two tiled
+tensor-core products per vocab chunk, as ``backward_plan`` cuts the work;
+fp32: one FMA kernel; either ends with a reduce launch). W is the frozen
+base: a ``w`` that requires grad raises on the card (``dW`` is not written
+yet). For tensors on the CPU it runs the plain version
 ``token_logprob_ref`` (``kernels/ref.py``) under torch autograd, which
 differentiates both. A CUDA tensor the kernels do not take raises.
 ``token_logprob_fwd`` and ``token_logprob_bwd`` are the two kernels'
 wrappers (plain versions on the CPU).
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,18 +28,30 @@ from .ref import (token_logprob_bwd_ref, token_logprob_ref,
                   token_logprob_stats_ref)
 
 __all__ = ["token_logprob_flat", "token_logprob_fwd", "token_logprob_bwd",
-           "token_logprob_ref", "token_logprob_bwd_ref", "FWD_LAUNCHES",
-           "BWD_LAUNCHES"]
+           "token_logprob_ref", "token_logprob_bwd_ref", "backward_plan",
+           "FWD_LAUNCHES", "BWD_LAUNCHES", "FWD_CUDA_LAUNCHES",
+           "BWD_CUDA_LAUNCHES"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BM_FWD, _BM_BWD, _BN, _BK, _DCH = 64, 32, 64, 32, 1024   # as in the .cu
+_BM_FWD, _BM_F32_BWD, _BN = 64, 32, 64   # as in the .cu
 _FWD_TARGET_BLOCKS = 528     # about four forward blocks per SM of an H100
-_BWD_TARGET_BLOCKS = 264     # about two backward blocks per SM (~150 KB each)
+_F32_BWD_TARGET_BLOCKS = 264  # about two fp32 backward blocks per SM
+# the bf16 backward's products: 128 x 128 tiles, K-steps of 32, two blocks
+# of 80 KB shared memory per SM on 132 SMs (as in the .cu)
+_TILE, _TK, _MM_SLOTS = 128, 32, 2 * 132
+# a few rows do not fill the card with any split (W's bytes bound them);
+# past 16 pieces more partials only lengthen the final sum
+_MAX_SPLITS = 16
+SCRATCH_LIMIT = 128 << 20    # the bf16 backward's dz chunk + fp32 partials
 
 # calls that launched the forward kernel (each also launches its merge), and
-# calls that launched the backward kernel (each also launches its reduce)
+# calls that launched the backward kernels (bf16: two products per vocab
+# chunk; each call ends with a reduce launch)
 FWD_LAUNCHES = _build.LaunchCount()
 BWD_LAUNCHES = _build.LaunchCount()
+# the CUDA kernels those calls launched, as the C launchers count them
+FWD_CUDA_LAUNCHES = _build.LaunchCount()
+BWD_CUDA_LAUNCHES = _build.LaunchCount()
 
 
 def vocab_split(R: int, V: int, bm: int, target_blocks: int):
@@ -45,6 +62,39 @@ def vocab_split(R: int, V: int, bm: int, target_blocks: int):
     want = max(1, min(n_tiles, -(-target_blocks // row_blocks)))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+class BackwardPlan(NamedTuple):
+    """How the bf16 backward cuts its work (see ``backward_plan``)."""
+    vc: int             # vocab columns per chunk, a multiple of the tile
+    splits: int         # K pieces of the dz @ W^T product per chunk
+    piece: int          # columns per K piece, a multiple of the K-step
+    scratch_bytes: int  # the [R, vc] bf16 dz chunk + [splits, R, d] fp32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_plan(R: int, d: int, V: int) -> BackwardPlan:
+    """The bf16 backward's tiling. The vocabulary is cut into chunks of
+    ``vc`` columns (the last may be shorter); per chunk, product 1 covers
+    the chunk in 128-column tiles and product 2 (``dz @ W^T``) splits its K,
+    the chunk's columns, into ``splits`` pieces of ``piece`` columns, so
+    that its (row tiles x d tiles) output tiles times ``splits`` about fill
+    the card's block slots without a second wave. ``vc`` is as large as the
+    scratch limit allows, then evened out over the chunks. The scratch stays
+    under SCRATCH_LIMIT wherever one fp32 partial (R * d * 4 bytes) and one
+    128-column dz chunk fit under it."""
+    rows = max(R, 1)
+    tiles = _cdiv(rows, _TILE) * _cdiv(d, _TILE)
+    splits = max(1, min(_MAX_SPLITS, _MM_SLOTS // tiles))
+    part = splits * R * d * 4
+    room = max(_TILE, (SCRATCH_LIMIT - part) // (2 * rows) // _TILE * _TILE)
+    n_chunks = _cdiv(V, room)
+    vc = _cdiv(_cdiv(V, n_chunks), _TILE) * _TILE
+    piece = _cdiv(_cdiv(vc, splits), _TK) * _TK
+    return BackwardPlan(vc, splits, piece, R * vc * 2 + part)
 
 
 def _check(h, w, targets):
@@ -90,11 +140,13 @@ def token_logprob_fwd(h, w, targets, softcap: float = 0.0):
     part = torch.empty((vsplit, R, 4), dtype=torch.float32, device=h.device)
     lp, ent, lse = (torch.empty((R,), dtype=torch.float32, device=h.device)
                     for _ in range(3))
+    launched = ctypes.c_int(0)
     err = _build.library("token_logprob").token_logprob_fwd_launch(
         h.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
         lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), R, d, V,
         w.stride(0), w.stride(1), vsplit, per, float(softcap),
-        _DTYPE_CODE[h.dtype], _stream(h))
+        _DTYPE_CODE[h.dtype], _stream(h), ctypes.addressof(launched))
+    FWD_CUDA_LAUNCHES.n += launched.value
     _build.check(err, "token_logprob forward")
     FWD_LAUNCHES.n += 1
     return lp, ent, lse
@@ -115,15 +167,34 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
     if any(t.shape != (R,) or t.device != h.device for t in f32):
         raise ValueError("token_logprob: lse, ent, g_lp and g_ent must be [R] "
                          "on h's card")
-    vsplit, per = vocab_split(R, V, _BM_BWD, _BWD_TARGET_BLOCKS)
-    dch = min(_DCH, -(-d // _BK) * _BK)
-    dpart = torch.empty((vsplit, R, d), dtype=torch.float32, device=h.device)
+    lib = _build.library("token_logprob")
     dh = torch.empty_like(h)
-    err = _build.library("token_logprob").token_logprob_bwd_launch(
-        h.data_ptr(), w.data_ptr(), targets.data_ptr(),
-        *(t.data_ptr() for t in f32), dpart.data_ptr(), dh.data_ptr(), R, d,
-        V, w.stride(0), w.stride(1), vsplit, per, dch, float(softcap),
-        _DTYPE_CODE[h.dtype], _stream(h))
+    launched = ctypes.c_int(0)
+    if h.dtype == torch.bfloat16:
+        if 1 not in w.stride():
+            raise ValueError(f"token_logprob: the bf16 backward reads w with "
+                             f"its k or its v contiguous; strides "
+                             f"{w.stride()}")
+        plan = backward_plan(R, d, V)
+        dz = torch.empty((R, plan.vc), dtype=torch.bfloat16, device=h.device)
+        part = torch.empty((plan.splits, R, d), dtype=torch.float32,
+                           device=h.device)
+        err = lib.token_logprob_bwd_bf16_launch(
+            h.data_ptr(), w.data_ptr(), targets.data_ptr(),
+            *(t.data_ptr() for t in f32), dz.data_ptr(), part.data_ptr(),
+            dh.data_ptr(), R, d, V, w.stride(0), w.stride(1), plan.vc,
+            plan.splits, plan.piece, float(softcap), _stream(h),
+            ctypes.addressof(launched))
+    else:
+        vsplit, per = vocab_split(R, V, _BM_F32_BWD, _F32_BWD_TARGET_BLOCKS)
+        dpart = torch.empty((vsplit, R, d), dtype=torch.float32,
+                            device=h.device)
+        err = lib.token_logprob_bwd_f32_launch(
+            h.data_ptr(), w.data_ptr(), targets.data_ptr(),
+            *(t.data_ptr() for t in f32), dpart.data_ptr(), dh.data_ptr(), R,
+            d, V, w.stride(0), w.stride(1), vsplit, per, float(softcap),
+            _stream(h), ctypes.addressof(launched))
+    BWD_CUDA_LAUNCHES.n += launched.value
     _build.check(err, "token_logprob backward")
     BWD_LAUNCHES.n += 1
     return dh

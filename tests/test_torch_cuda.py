@@ -137,6 +137,76 @@ def test_token_logprob_matches_plain(card, layout, softcap, dtype, tol, dh_tol):
     assert err <= dh_tol * want.float().abs().max(), err
 
 
+def _bf16_backward(card, R, d, V, layout, softcap):
+    """Two calls of the bf16 backward kernel and the plain version, on
+    W = a [V, d] table's transpose ('tied') or a [d, V] head ('untied')."""
+    h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
+    if layout == "tied":
+        w = (torch.randn(V, d, generator=card, device="cuda") * 0.02).bfloat16().T
+    else:
+        w = (torch.randn(d, V, generator=card, device="cuda") * 0.02).bfloat16()
+    t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    g_lp = torch.randn(R, generator=card, device="cuda") / R
+    g_ent = torch.randn(R, generator=card, device="cuda") / R
+    _, ent, lse = ref.token_logprob_stats_ref(h, w, t, softcap)
+    dh = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, softcap)
+    again = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, softcap)
+    want = ref.token_logprob_bwd_ref(h, w, t, lse, ent, g_lp, g_ent, softcap)
+    return dh, again, want
+
+
+def _assert_bf16_dh(dh, again, want):
+    assert dh.dtype == torch.bfloat16
+    err = (dh.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max(), err
+    assert torch.equal(dh.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("V", [5003, 100])
+@pytest.mark.parametrize("R", [1, 127, 300])
+def test_token_logprob_bf16_backward_matches_plain(card, R, V, layout, softcap):
+    """The bf16 backward (two tiled tensor-core products per vocab chunk) at
+    d = 1024 against the plain version: ragged R, V = 5003 (with an untied
+    head its odd row stride takes the unvectorised loads) and V = 100 (less
+    than one 128-column tile). dh within 1e-2 of its largest element (dz
+    rounds to bf16 before dz @ W^T); two calls give the same bits."""
+    _assert_bf16_dh(*_bf16_backward(card, R, 1024, V, layout, softcap))
+
+
+def test_token_logprob_bf16_backward_at_qwen3_width(card):
+    """qwen3-0.6b's training shape: 624 rows, V = 151936 (two vocab chunks
+    of the plan), the tied embedding's transpose as W."""
+    _assert_bf16_dh(*_bf16_backward(card, 624, 1024, 151936, "tied", 0.0))
+
+
+def test_token_logprob_bf16_backward_scratch_at_production_rows(card):
+    """At a production micro-batch (4096 rows, qwen3-0.6b widths) the
+    backward allocates dh and its plan's scratch, and that scratch (the
+    [R, vc] dz chunk and the fp32 partials) stays under 128 MiB: no [R, V]
+    buffer. The C launcher reports two products per vocab chunk and a
+    reduce."""
+    R, d, V = 4096, 1024, 151936
+    plan = tlp.backward_plan(R, d, V)
+    assert plan.scratch_bytes <= tlp.SCRATCH_LIMIT == 128 << 20
+    h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
+    w = (torch.randn(V, d, generator=card, device="cuda") * 0.02).bfloat16().T
+    t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    stats = [torch.zeros(R, device="cuda") for _ in range(4)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = tlp.BWD_CUDA_LAUNCHES.n
+    dh = tlp.token_logprob_bwd(h, w, t, *stats)
+    launched = tlp.BWD_CUDA_LAUNCHES.n - n0
+    torch.cuda.synchronize()
+    used = torch.cuda.max_memory_allocated() - base
+    assert used <= plan.scratch_bytes + dh.numel() * 2 + (1 << 20), used
+    # two products per vocab chunk, then the reduce
+    assert launched == 2 * -(-V // plan.vc) + 1, (launched, plan)
+
+
 def test_token_logprob_refuses_what_the_kernels_do_not_take(card):
     h = torch.zeros(4, 32, device="cuda", requires_grad=True)
     w = torch.zeros(32, 70, device="cuda")
@@ -149,6 +219,11 @@ def test_token_logprob_refuses_what_the_kernels_do_not_take(card):
         tlp.token_logprob_fwd(h.detach(), w.detach(), t + 70)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tlp.token_logprob_fwd(h.detach().half(), w.detach().half(), t)
+    strided = torch.zeros(64, 140, device="cuda", dtype=torch.bfloat16)[::2, ::2]
+    stats = torch.zeros(4, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tlp.token_logprob_bwd(h.detach().bfloat16(), strided, t, stats, stats,
+                              stats, stats)
 
 
 def test_train_step_on_card_matches_cpu(card):

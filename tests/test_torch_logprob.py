@@ -166,3 +166,95 @@ def test_vocab_split_covers_the_vocabulary():
             tiles = -(-V // 64)
             assert (n - 1) * per < tiles <= n * per
             assert n * -(-R // bm) >= min(target, tiles * -(-R // bm)) // 2
+
+
+# The bf16 backward on the card: per vocab chunk, product 1 makes dz from the
+# logits (rounded to bf16) and product 2 adds dz @ W^T into fp32 partials, one
+# per K piece; a last pass sums the partials in order. Its tiling comes from
+# backward_plan, which the card's wrapper allocates from.
+
+@pytest.mark.parametrize("R,d,V", [(R, 1024, 151936) for R in (1, 624, 4096)]
+                         + [(R, 2048, 49155) for R in (1, 624, 4096)]
+                         + [(R, 1024, 129) for R in (1, 624, 4096)])
+def test_backward_plan_covers_the_work_once(R, d, V):
+    """qwen3 (d=1024, V=151936), granite-3-2b (d=2048, V=49155) and a tiny
+    vocabulary: every vocab column in exactly one chunk, every K column of
+    a chunk's padded width in exactly one piece, no more blocks than one
+    wave of the card's slots, and the scratch under the limit."""
+    plan = ptl.backward_plan(R, d, V)
+    assert plan.vc % 128 == 0 and plan.piece % 32 == 0
+    cover = np.zeros(V, np.int64)
+    for v0 in range(0, V, plan.vc):
+        cover[v0:v0 + plan.vc] += 1
+        kpad = -(-min(plan.vc, V - v0) // 128) * 128
+        k_cover = np.zeros(kpad, np.int64)
+        for s in range(plan.splits):
+            k_cover[s * plan.piece:(s + 1) * plan.piece] += 1
+        assert (k_cover == 1).all()
+    assert (cover == 1).all()
+    tiles = -(-R // 128) * -(-d // 128)
+    assert tiles * plan.splits <= max(264, tiles)
+    assert plan.scratch_bytes == R * plan.vc * 2 + plan.splits * R * d * 4
+    assert plan.scratch_bytes <= ptl.SCRATCH_LIMIT
+
+
+def _two_product_dh(h, w, t, lse, ent, g_lp, g_ent, softcap, plan):
+    """The card's bf16 backward in plain PyTorch: chunks of plan.vc vocab
+    columns; dz in fp32 from the chunk's logits, rounded to h's dtype; fp32
+    partials, one per K piece of the chunk's padded width, accumulated over
+    the chunks in order and summed in order at the end."""
+    R, d = h.shape
+    V = w.shape[1]
+    wf = w.float()
+    part = torch.zeros(plan.splits, R, d)
+    for v0 in range(0, V, plan.vc):
+        kc = min(plan.vc, V - v0)
+        kpad = -(-kc // 128) * 128
+        z = h.float() @ wf[:, v0:v0 + kc]
+        if softcap:
+            z = torch.tanh(z / softcap) * softcap
+        p = torch.exp(z - lse[:, None])
+        hit = (torch.arange(v0, v0 + kc)[None, :] == t.long()[:, None]).float()
+        dz = g_lp[:, None] * (hit - p) - g_ent[:, None] * p * (
+            z - lse[:, None] + ent[:, None])
+        if softcap:
+            dz = dz * (1.0 - torch.square(z / softcap))
+        dz = torch.nn.functional.pad(dz.to(h.dtype).float(), (0, kpad - kc))
+        wt = torch.nn.functional.pad(wf[:, v0:v0 + kc], (0, kpad - kc)).T
+        for s in range(plan.splits):
+            k0, k1 = s * plan.piece, min(kpad, (s + 1) * plan.piece)
+            if k0 < k1:
+                part[s] += dz[:, k0:k1] @ wt[k0:k1]
+    dh = part[0].clone()
+    for s in range(1, plan.splits):
+        dh += part[s]
+    return dh.to(h.dtype)
+
+
+@pytest.mark.parametrize("plan", ["auto", "chunked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_product_decomposition_matches_plain_backward(dtype, plan):
+    """The decomposition (the algorithm; the kernel itself is held to the
+    plain version by the card tests) equals token_logprob_bwd_ref, with and
+    without a softcap: at 1e-5 of dh's largest element in fp32 (the sum
+    order differs), at 1e-2 in bf16 (dz rounds to bf16 before dz @ W^T).
+    'auto' is backward_plan's tiling (one chunk, many pieces, some of them
+    empty); 'chunked' cuts V=300 into 128-column chunks, the last one
+    ragged, each split in three pieces of 64 (the third empty)."""
+    R, d, V = 37, 48, 300
+    h, w, t, ph, pw, pt = _inputs(R, d, V, 5, "tied")
+    ph, pw = ph.to(dtype), pw.to(dtype)
+    rs = np.random.RandomState(6)
+    g_lp = torch.from_numpy(rs.randn(R).astype(np.float32))
+    g_ent = torch.from_numpy(rs.randn(R).astype(np.float32))
+    cut = (ptl.backward_plan(R, d, V) if plan == "auto"
+           else ptl.BackwardPlan(128, 3, 64, 0))
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for softcap in (0.0, 30.0):
+        _, ent, lse = pref.token_logprob_stats_ref(ph, pw, pt, softcap)
+        got = _two_product_dh(ph, pw, pt, lse, ent, g_lp, g_ent, softcap, cut)
+        want = pref.token_logprob_bwd_ref(ph, pw, pt, lse, ent, g_lp, g_ent,
+                                          softcap)
+        assert got.dtype == dtype
+        scale = want.float().abs().max()
+        assert (got.float() - want.float()).abs().max() <= rel * scale
