@@ -24,9 +24,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  7. train check: one group of phase 6's batch in fp32, the step's loss,
     metrics, adapter gradient and updated adapters on the card (kernels)
     against the CPU (plain versions); then the same group in bf16 on the
-    card, its adapter gradient with the token_logprob backward kernel
-    against the same step with the plain backward in the kernel's place
-    (fp32 takes the FMA backward, bf16 the tensor-core one);
+    card with the token_logprob kernels, against the same step with the
+    plain backward in the backward kernel's place (adapter gradient) and
+    with the plain forward in the forward kernel's place (loss, metrics and
+    gradient): fp32 takes the FMA kernels, bf16 the tensor-core ones;
  8. continuous serve: ContinuousRolloutEngine over the paged KV pool
     (16 slots, max_len 512, a pool of 128 pages of 16 tokens, a quarter of
     the dense-equivalent 512) at the same full size for 4 tenants x 8 gsm8k
@@ -45,6 +46,7 @@ the last line {"ok": true, "device": {...}}.
 """
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +66,8 @@ LR = 3e-3               # the JAX package's TaskSpec default
 METRIC_TOL = 1e-4       # phase 7: fp32 loss and metrics, card vs CPU (absolute)
 GRAD_TOL = 1e-3         # phase 7: gradient max abs diff / gradient norm
 BF16_GRAD_TOL = 1e-2    # phase 7, bf16: the same ratio at phase 3's bf16 dh factor
+BF16_METRIC_TOL = 1e-3  # phase 7, bf16: loss and metrics, forward kernel vs plain
+                        # forward (absolute; phase 3's bf16 logprob tolerance)
 PROD_ROWS = 4096        # a production micro-batch of token rows (phase 3)
 CONT_PER_TENANT, CONT_MAX_NEW, CONT_SLOTS = 8, 64, 16    # phase 8
 CONT_MAX_LEN, PAGE, POOL_PAGES = 512, 16, 128            # paged pool
@@ -133,6 +137,42 @@ def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def demangled(mangled):
+    """A kernel's name (and its one template argument) out of its mangled
+    form: _Z<n><name>..., or _ZN<n><namespace><n><name>E...; as it is
+    otherwise."""
+    m = re.match(r"_ZN?(\d+)", mangled)
+    if not m:
+        return mangled
+    i, n = m.end(), int(m.group(1))
+    name, tail = mangled[i:i + n], mangled[i + n:]
+    if name.startswith("_GLOBAL__N") and mangled.startswith("_ZN"):
+        k = re.match(r"(\d+)", tail)
+        if k:
+            name, tail = tail[k.end():k.end() + int(k.group(1))], \
+                tail[k.end() + int(k.group(1)):]
+    for code, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("IfE", "<float>"),
+                      ("I13__nv_bfloat16E", "<bf16>")):
+        if tail.startswith(code):
+            name += arg
+    return name
+
+
+def ptxas_kernels(text):
+    """[(kernel, registers, spill-store bytes)] from nvcc's -Xptxas -v
+    output; kernel names read out of their mangled form."""
+    out = []
+    for line in text.splitlines():
+        if "Compiling entry function '" in line:
+            mangled = line.split("'")[1]
+            out.append([demangled(mangled), 0, 0])
+        elif out and "bytes spill stores" in line:
+            out[-1][2] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif out and "Used " in line:
+            out[-1][1] = int(line.split("Used ")[1].split()[0])
+    return [tuple(k) for k in out]
 
 
 def nvidia_smi_line():
@@ -270,15 +310,17 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
     the smoke's training batch (R_main token rows) and a production
     micro-batch (PROD_ROWS), qwen3-0.6b widths in bf16 with the tied
     embedding's transpose as W; checked also at small V in fp32, with a
-    softcap and with an untied head. Tolerances: logprob/entropy 1e-3 bf16
-    and 1e-4 fp32 absolute (fp32 accumulation both sides, sum order only);
-    dh 1e-2 (bf16: dz rounds to bf16 before dz @ W^T) and 1e-4 (fp32) of
-    dh's largest element. Two backward calls must give the same bits. Each
-    record carries the CUDA kernels one call launched, as the C launchers
-    count them, and the backward's the scratch one call allocated (peak
-    allocator bytes less dh); the bf16 backward's scratch must stay within
-    tlp.SCRATCH_LIMIT and its launches must match its plan (two products per
-    vocab chunk and a reduce). The bf16 records also carry that plan (vocab
+    softcap and with an untied head. Tolerances: logprob/entropy/lse 1e-3
+    bf16 and 1e-4 fp32 absolute (fp32 accumulation both sides, sum order
+    only); dh 1e-2 (bf16: dz rounds to bf16 before dz @ W^T) and 1e-4 (fp32)
+    of dh's largest element. Two forward calls and two backward calls must
+    give the same bits. Each record carries the CUDA kernels one call
+    launched, as the C launchers count them (a forward call must launch 2:
+    the kernel and the merge), and the backward's the scratch one call
+    allocated (peak allocator bytes less dh); the bf16 backward's scratch
+    must stay within tlp.SCRATCH_LIMIT and its launches must match its plan
+    (two products per vocab chunk and a reduce). The bf16 records also
+    carry their plans (forward: vocab slices and blocks; backward: vocab
     chunk, K-splits, planned scratch) and, where timed, the TFLOP/s."""
     import torch.nn.functional as F
     d, V = 1024, 151936
@@ -299,8 +341,9 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
         g_lp = torch.randn(R, generator=g, device="cuda") / R
         g_ent = torch.randn(R, generator=g, device="cuda") / R
         n_fwd = tlp.FWD_CUDA_LAUNCHES.n
-        lp, ent, _ = tlp.token_logprob_fwd(h, w, t, cap)
+        lp, ent, lse = tlp.token_logprob_fwd(h, w, t, cap)
         n_fwd = tlp.FWD_CUDA_LAUNCHES.n - n_fwd
+        fwd_again = tlp.token_logprob_fwd(h, w, t, cap)
         want_lp, want_ent, want_lse = ref.token_logprob_stats_ref(h, w, t, cap)
         dh = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent, cap)
         torch.cuda.synchronize()
@@ -319,10 +362,17 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
         if not torch.equal(dh.view(bits), dh_again.view(bits)):
             raise AssertionError(f"token_logprob R={R} V={Vc} {dt}: two backward "
                                  f"calls gave different bits")
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip((lp, ent, lse), fwd_again)):
+            raise AssertionError(f"token_logprob R={R} V={Vc} {dt}: two forward "
+                                 f"calls gave different bits")
+        if n_fwd != 2:
+            raise AssertionError(f"token_logprob R={R} V={Vc} {dt}: a forward call "
+                                 f"launched {n_fwd} CUDA kernels (want 2)")
         tol = 1e-3 if dt == torch.bfloat16 else 1e-4
         dh_tol = 1e-2 if dt == torch.bfloat16 else 1e-4
-        f_err = max(float((lp - want_lp).abs().max()),
-                    float((ent - want_ent).abs().max()))
+        f_err = max(float((got - want).abs().max()) for got, want in
+                    ((lp, want_lp), (ent, want_ent), (lse, want_lse)))
         dh_scale = float(want_dh.float().abs().max())
         b_err = float((dh.float() - want_dh.float()).abs().max())
         name = f"R={R} V={Vc} {str(dt).split('.')[1]} cap={cap:.0f} {layout}"
@@ -336,6 +386,9 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
         bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale,
                   cuda_launches_per_call=n_bwd, scratch_bytes=scratch)
         if dt == torch.bfloat16:
+            fplan = tlp.forward_plan(R, Vc)
+            fc.update(plan=dict(vsplit=fplan.vsplit, slice_tiles=fplan.slice_tiles,
+                                blocks=-(-R // 128) * fplan.vsplit))
             plan = tlp.backward_plan(R, d, Vc)
             bc.update(plan=dict(vc=plan.vc, splits=plan.splits, piece=plan.piece,
                                 chunks=-(-Vc // plan.vc),
@@ -345,11 +398,11 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
                                      f"{scratch} B (limit {tlp.SCRATCH_LIMIT}), "
                                      f"{n_bwd} CUDA launches for plan {bc['plan']}")
         line = f"  token_logprob {name}: fwd err {f_err:.2e} (tol {tol}) dh err " \
-               f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e}), two calls bit-identical" \
-               f"; CUDA launches a call fwd {n_fwd} bwd {n_bwd}, bwd scratch " \
-               f"{scratch / 2**20:.1f} MiB"
+               f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e}), two calls of each " \
+               f"bit-identical; CUDA launches a call fwd {n_fwd} bwd {n_bwd}, bwd " \
+               f"scratch {scratch / 2**20:.1f} MiB"
         if "plan" in bc:
-            line += f"; plan {bc['plan']}"
+            line += f"; fwd plan {fc['plan']}; bwd plan {bc['plan']}"
         if timed:
             elt = h.element_size()
             peak = str(dt).split(".")[1]
@@ -394,20 +447,53 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
                                     2 * R * d * Vc, peak)
             bb_ms, bb_by = bound_ms(w_bytes + 2 * h_bytes + 4 * R + 16 * R,
                                     4 * R * d * Vc, peak)
-            fc.update(bound_ms=fb_ms, bound_by=fb_by)
+            fc.update(bound_ms=fb_ms, bound_by=fb_by,
+                      tflops=2 * R * d * Vc / fc["ms"] / 1e9)
+            if dt == torch.bfloat16:     # the plan's split beside others
+                fc["split_ms"] = forward_splits(torch, tlp, h, w, t, cap, it)
             bc.update(bound_ms=bb_ms, bound_by=bb_by,
                       tflops=4 * R * d * Vc / bc["ms"] / 1e9)
             line += (f"\n    forward: kernel {fc['ms']:.4f} ms (eager call "
                      f"{fc['call_ms']:.4f}) plain {fc['plain_ms']:.4f} library "
-                     f"{fc['library_ms']:.4f} bound {fb_ms:.4f} ({fb_by})"
+                     f"{fc['library_ms']:.4f} bound {fb_ms:.4f} ({fb_by}); "
+                     f"{fc['tflops']:.1f} TFLOP/s"
                      f"\n    backward: kernel {bc['ms']:.4f} ms (eager call "
                      f"{bc['call_ms']:.4f}) plain {bc['plain_ms']:.4f} library "
                      f"{bc['library_ms']:.4f} (fwd+bwd {lib_fb:.4f}) bound "
                      f"{bb_ms:.4f} ({bb_by}); {bc['tflops']:.1f} TFLOP/s")
+            if "split_ms" in fc:
+                line += "\n    forward at other vocab splits (slices: ms): " + ", ".join(
+                    f"{c['vsplit']}: {c['ms']:.4f}" + (" (plan)" if c["plan"] else "")
+                    for c in fc["split_ms"])
         fwd_cases.append(fc)
         bwd_cases.append(bc)
         log(line)
     return fwd_cases, bwd_cases
+
+
+def forward_splits(torch, tlp, h, w, t, cap, iters):
+    """Device ms of the bf16 forward at its plan's vocab split and at half,
+    twice and four times as many slices, in one run (each split patched in
+    for forward_plan, which the wrapper calls)."""
+    R, V = h.shape[0], w.shape[1]
+    n_tiles = -(-V // 128)
+    plan_fn = tlp.forward_plan
+    plan = plan_fn(R, V)
+    cands = {plan}
+    for f in (0.5, 2, 4):
+        per = -(-n_tiles // max(1, round(plan.vsplit * f)))
+        cands.add(tlp.ForwardPlan(-(-n_tiles // per), per))
+    out = []
+    for c in sorted(cands):
+        tlp.forward_plan = lambda R, V, c=c: c
+        try:
+            ms = device_ms(lambda h, w, t: tlp.token_logprob_fwd(h, w, t, cap),
+                           [(h, w, t)], iters)
+        finally:
+            tlp.forward_plan = plan_fn
+        out.append(dict(vsplit=c.vsplit, slice_tiles=c.slice_tiles,
+                        blocks=-(-R // 128) * c.vsplit, ms=ms, plan=c == plan))
+    return out
 
 
 def _paged_case(torch, g, B, H, KVH, hd, page, max_pg, n_pool, pos_lo, pos_hi, dt,
@@ -549,7 +635,7 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
                        if k not in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "tol", "main",
                                     "call_ms", "library_fwd_bwd_ms", "tflops",
-                                    "scratch_bytes", "plan",
+                                    "scratch_bytes", "plan", "split_ms",
                                     "cuda_launches_per_call")},
                 **extra, cases=cases)
 
@@ -891,10 +977,13 @@ def train_check(torch, M, cfg, params, tb, start, tc):
 def train_check_bf16(torch, cfg, params, tb, start, tc):
     """Phase 7 in bf16: one group of the last batch through make_grad_fn on
     the card at the served dtype, once as the step runs (token_logprob's bf16
-    backward kernel) and once with the plain backward
-    (``token_logprob_bwd_ref``) in the kernel's place; the rest of the step is
-    the same code on the same inputs. The adapter gradients' max abs diff must
-    stay within BF16_GRAD_TOL of the plain gradient's norm. Raises on a miss."""
+    forward and backward kernels), once with the plain backward
+    (``token_logprob_bwd_ref``) in the backward kernel's place and once with
+    the plain forward (``token_logprob_stats_ref``) in the forward kernel's
+    place; the rest of the step is the same code on the same inputs. The
+    adapter gradients' max abs diff must stay within BF16_GRAD_TOL of the
+    plain gradient's norm in both comparisons, and the loss and metrics
+    within BF16_METRIC_TOL of the plain forward's. Raises on a miss."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import token_logprob as tlp
     from repro_torch.models import tree_leaves
@@ -905,31 +994,48 @@ def train_check_bf16(torch, cfg, params, tb, start, tc):
     batch = {k: v[:GROUP_SIZE] for k, v in
              batch_from_trajectory(tb, tc, "cuda").items()}
     grad_fn = make_grad_fn(cfg, tc)
-    kernel_bwd, grads = tlp.token_logprob_bwd, {}
-    for name, bwd, want in (("kernel", kernel_bwd, (2, 1)),
-                            ("plain", ref.token_logprob_bwd_ref, (2, 0))):
+    kernel_fwd, kernel_bwd = tlp.token_logprob_fwd, tlp.token_logprob_bwd
+    runs = {}
+    for name, fwd, bwd, want in (
+            ("kernels", kernel_fwd, kernel_bwd, (2, 1)),
+            ("plain backward", kernel_fwd, ref.token_logprob_bwd_ref, (2, 0)),
+            ("plain forward", ref.token_logprob_stats_ref, kernel_bwd, (0, 1))):
         n0 = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
-        tlp.token_logprob_bwd = bwd      # what the autograd node calls
-        try:
-            _, grads[name] = grad_fn(params, lora, batch)
+        tlp.token_logprob_fwd, tlp.token_logprob_bwd = fwd, bwd   # what the
+        try:                                                       # autograd node calls
+            runs[name] = grad_fn(params, lora, batch)
         finally:
-            tlp.token_logprob_bwd = kernel_bwd
+            tlp.token_logprob_fwd, tlp.token_logprob_bwd = kernel_fwd, kernel_bwd
         n1 = (tlp.FWD_LAUNCHES.n - n0[0], tlp.BWD_LAUNCHES.n - n0[1])
         if n1 != want:
-            raise AssertionError(f"phase 7 bf16 ({name} backward): token_logprob "
-                                 f"launches {n1}, want {want}")
-    g_norm = float(global_norm(grads["plain"]))
-    g_err = max(float((a.float() - b.float()).abs().max()) for a, b in
-                zip(tree_leaves(grads["kernel"]), tree_leaves(grads["plain"])))
+            raise AssertionError(f"phase 7 bf16 ({name}): token_logprob launches "
+                                 f"{n1}, want {want}")
+
+    def grad_diff(other):
+        return max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(tree_leaves(runs["kernels"][1]), tree_leaves(runs[other][1])))
+
+    m_k, m_p = runs["kernels"][0], runs["plain forward"][0]
+    g_norm = float(global_norm(runs["plain backward"][1]))
     rec = dict(rows=GROUP_SIZE, dtype=str(params["embed"].dtype).split(".")[1],
-               grad_norm=g_norm, grad_max_abs_diff=g_err,
-               grad_tol=BF16_GRAD_TOL * g_norm)
-    log(f"[7 train check] {rec['dtype']}, {GROUP_SIZE} rows, on the card, backward "
-        f"kernel vs plain backward: gradient max abs diff {g_err:.3e} of norm "
-        f"{g_norm:.4e} (tol {BF16_GRAD_TOL} x norm)")
-    if not g_norm > 0 or g_err > rec["grad_tol"]:
-        raise AssertionError(f"phase 7 bf16: backward kernel and plain backward "
-                             f"steps differ: {rec}")
+               grad_norm=g_norm, grad_max_abs_diff=grad_diff("plain backward"),
+               grad_tol=BF16_GRAD_TOL * g_norm,
+               fwd_grad_max_abs_diff=grad_diff("plain forward"),
+               metric_max_abs_diff=max(abs(float(m_k[k]) - float(m_p[k])) for k in m_p),
+               metric_tol=BF16_METRIC_TOL, loss_kernels=float(m_k["loss"]),
+               loss_plain_forward=float(m_p["loss"]))
+    log(f"[7 train check] {rec['dtype']}, {GROUP_SIZE} rows, on the card: backward "
+        f"kernel vs plain backward: gradient max abs diff "
+        f"{rec['grad_max_abs_diff']:.3e} of norm {g_norm:.4e} (tol {BF16_GRAD_TOL} x "
+        f"norm); forward kernel vs plain forward: loss {rec['loss_kernels']:.6f} vs "
+        f"{rec['loss_plain_forward']:.6f}, metrics max abs diff "
+        f"{rec['metric_max_abs_diff']:.3e} (tol {BF16_METRIC_TOL}), gradient max abs "
+        f"diff {rec['fwd_grad_max_abs_diff']:.3e} (tol {BF16_GRAD_TOL} x norm)")
+    if not g_norm > 0 or rec["grad_max_abs_diff"] > rec["grad_tol"] \
+            or rec["fwd_grad_max_abs_diff"] > rec["grad_tol"] \
+            or not rec["metric_max_abs_diff"] <= BF16_METRIC_TOL:
+        raise AssertionError(f"phase 7 bf16: the step with the kernels and with a "
+                             f"plain version differ: {rec}")
     return rec
 
 
@@ -1164,12 +1270,16 @@ def main(argv):
     secs = _build.build_all()
     log(f"[2 build] kernels built in {secs:.2f} s")
     for name, text in _build.build_logs().items():
-        regs = [int(w.split()[0]) for w in text.split("Used ")[1:]]
-        spill = sum(int(line.split("bytes spill stores")[0].split(",")[-1])
-                    for line in text.splitlines() if "bytes spill stores" in line)
-        log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
-            f"{max(regs, default=0)}, spill stores {spill} bytes in all"
-            if regs else f"  {name}: {text.strip()[:200]}")
+        kernels = ptxas_kernels(text)
+        if not kernels:
+            log(f"  {name}: {text.strip()[:200]}")
+            continue
+        regs = [k[1] for k in kernels]
+        log(f"  {name}: {len(kernels)} kernels, registers {min(regs)}-{max(regs)}, "
+            f"spill stores {sum(k[2] for k in kernels)} bytes in all")
+        if name == "token_logprob":
+            log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
+                                   for k in kernels))
 
     reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=MAX_NEW, seed=0)
     S_p = _bucket_len(max(len(r.prompt) for r in reqs))
@@ -1286,6 +1396,7 @@ def main(argv):
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases, n_fwd,
                      dict(launches_per_train_step=2,
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
+                          tflops=fwd_main["tflops"], plan=fwd_main["plan"],
                           launches_phase="train (phase 6)")),
         kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases, n_bwd,

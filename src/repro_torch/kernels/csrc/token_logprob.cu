@@ -25,66 +25,73 @@
 // contiguous). The ragged last vocab tile is masked, so V need not divide by
 // anything.
 //
-// Forward (not the Pallas grid, which walks the vocab in sequence per row
-// block and carries m, l, s in VMEM scratch): blocks tile rows AND the
-// vocabulary, grid (row blocks, vocab slices), so a training micro-batch of
-// a few hundred rows fills the 132 SMs. Each block walks its slice in
-// 64-column tiles, h and W streamed through shared memory in 32-wide
-// d-chunks (wmma 16x16x16 for bf16, an fp32 FMA loop for fp32: no TF32),
-// keeps (m, l, s, target logit) per row and writes them as one partial; a
-// merge launch combines the slices of each row in slice order.
+// bf16: every product runs on one tensor-core mainloop (mm_mainloop): 128 x
+// 128 block tiles, 8 warps of 64 x 32, mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) fed by ldmatrix, and a 4-stage ring of 16-byte cp.async copies
+// (zero-filled past the ragged edges) in 80 KB of dynamic shared memory, so
+// three K-steps of loads are in flight while one computes. W's tile is
+// staged as it lies: k contiguous takes ldmatrix, v contiguous
+// ldmatrix.trans, other strides plain loads. Row tiles are the fastest grid
+// dimension, so the blocks that read one W tile run together and W comes
+// from memory about once per product. No float atomics anywhere: every run
+// gives the same bits.
 //
-// Backward, bf16: per vocab chunk of vc columns, two ordinary tiled
-// products on the tensor cores, so that W is read about once per product
-// (not once per row block, as a fused kernel with a d-wide dh accumulator
-// must) and dh stays in registers:
-//  1. Z = h @ W[:, chunk], 128 x 128 tiles; the epilogue turns the fp32
-//     accumulators into dz (softcap, softmax and entropy terms from the
-//     forward's lse and ent), rounds it to bf16 as a bf16 autograd would and
-//     writes it to a [R, vc] scratch (0 past V). Row tiles are the fastest
-//     grid dimension, so the blocks that share a W tile run together.
-//  2. part[s] (+)= dz @ W[:, chunk]^T, M = R, N = d, K = the chunk, 128 x 128
-//     tiles, K split into S pieces so that a few hundred rows still fill the
-//     card; piece s adds into its own fp32 partial [R, d], whose tile belongs
-//     to one block per launch. Chunks run in order on the stream.
-// A last launch sums the S partials in order and casts to bf16. Both
-// products share one mainloop: 8 warps of 64 x 32, mma.sync m16n8k16 (bf16
-// in, fp32 accumulate) fed by ldmatrix, and a 4-stage ring of 16-byte
-// cp.async copies (zero-filled past the ragged edges) in dynamic shared
-// memory, so three K-steps of loads are in flight while one computes. W's
-// tile is staged as it lies: k contiguous takes ldmatrix, v contiguous
-// ldmatrix.trans. No float atomics anywhere: every run gives the same bits.
+// Forward, bf16 (tlp_fwd_mm; not the Pallas grid, which walks the vocab in
+// sequence per row block and carries m, l, s in VMEM scratch): grid (row
+// tiles, vocab slices), so a training micro-batch of a few hundred rows
+// fills the card. A block walks its slice's 128-column tiles; per tile the
+// mainloop runs over K = d and the epilogue works from the accumulators in
+// registers: softcap, then per row the max and target logit over the 4
+// lanes of a quad (shuffles), l = sum e^(z - max) and s = sum z e^(z - max)
+// against that max (shuffles again), the 4 warps along N merged through 8
+// KB of shared memory in a fixed order, and the tile folded into the row's
+// running state. Columns past V are left out of every statistic (the zero
+// fill would give them logit 0 and corrupt the lse).
+// Each (slice, row) writes one float4 partial; a merge launch combines a
+// row's slices in slice order.
 //
-// Backward, fp32 (the FMA path that holds the kernels to fp32 references):
-// row blocks of 32, a [32, <=1024] fp32 dh accumulator in shared memory;
-// per 64-column vocab tile the block recomputes the logits, forms dz and adds
-// dz @ W_tile^T into the accumulator; each vocab slice writes a partial dh
-// and a reduce launch sums the slices in order.
+// Forward, fp32 (the FMA path that holds the kernels to fp32 references):
+// 64-row blocks walk 64-column tiles, h and W streamed through shared memory
+// in 32-wide d-chunks, the logits tile through shared memory to two threads
+// a row; partials and merge as in bf16.
+//
+// Backward, bf16: per vocab chunk of vc columns, two tiled products on the
+// mainloop, so that W is read about once per product (not once per row
+// block, as a fused kernel with a d-wide dh accumulator must) and dh stays
+// in registers:
+//  1. Z = h @ W[:, chunk]; the epilogue turns the fp32 accumulators into dz
+//     (softcap, softmax and entropy terms from the forward's lse and ent),
+//     rounds it to bf16 as a bf16 autograd would and writes it to a [R, vc]
+//     scratch (0 past V).
+//  2. part[s] (+)= dz @ W[:, chunk]^T, M = R, N = d, K = the chunk, K split
+//     into S pieces so that a few hundred rows still fill the card; piece s
+//     adds into its own fp32 partial [R, d], whose tile belongs to one block
+//     per launch. Chunks run in order on the stream.
+// A last launch sums the S partials in order and casts to bf16.
+//
+// Backward, fp32 (the FMA path): row blocks of 32, a [32, <=1024] fp32 dh
+// accumulator in shared memory; per 64-column vocab tile the block
+// recomputes the logits, forms dz and adds dz @ W_tile^T into the
+// accumulator; each vocab slice writes a partial dh and a reduce launch sums
+// the slices in order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;     // 4 warps per forward / fp32 backward block
-constexpr int BN = 64;            // vocab columns per tile
-constexpr int BK = 32;            // d-chunk streamed through shared memory
-constexpr int BM_FWD = 64;        // rows per forward block
-constexpr int BM_BWD = 32;        // rows per fp32 backward block
+constexpr int kThreads = 128;     // 4 warps per fp32 block
+constexpr int BN = 64;            // fp32: vocab columns per tile
+constexpr int BK = 32;            // fp32: d-chunk streamed through shared memory
+constexpr int BM_FWD = 64;        // fp32: rows per forward block
+constexpr int BM_BWD = 32;        // fp32: rows per backward block
 constexpr int ZLD = BN + 4;       // row stride of the fp32 logits tile
+constexpr int CLD = BK + 1;       // fp32 chunk row stride: odd, keeps banks apart
+constexpr int DZLD = BN + 1;      // row stride of the fp32 dz tile
+constexpr int VEC = 4;            // floats per 16-byte load
 constexpr float kNegInf = -1e30f;
-
-template <typename T> struct Tr;
-template <> struct Tr<float> {    // FMA path: odd strides keep banks apart
-  static constexpr int LD = BK + 1, DZLD = BN + 1, VEC = 4;
-};
-template <> struct Tr<bf16> {     // wmma path: strides multiples of 8 elements
-  static constexpr int LD = BK + 8, VEC = 8;
-};
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -106,88 +113,59 @@ __device__ __forceinline__ float dz_of(float z, bool hit, float lse, float ent, 
   return dz;
 }
 
-// dst[r * LD + k] = src[(r0 + r) * s_r + (k0 + k) * s_k] for r < ROWS, k < BK;
+// Two rows' (or row pieces') statistics (m, l, s, target logit) as one: a
+// fixed order of operations, so the same inputs give the same bits.
+__device__ __forceinline__ float4 merge_stats(float4 a, float4 b) {
+  const float mn = fmaxf(a.x, b.x);
+  const float ea = expf(a.x - mn), eb = expf(b.x - mn);
+  return make_float4(mn, a.y * ea + b.y * eb, a.z * ea + b.z * eb, fmaxf(a.w, b.w));
+}
+
+// ---------------------------------------------------------------------------
+// fp32: forward and backward on the FMA units
+// ---------------------------------------------------------------------------
+
+// dst[r * CLD + k] = src[(r0 + r) * s_r + (k0 + k) * s_k] for r < ROWS, k < BK;
 // zero outside r0 + r < r_lim, k0 + k < k_lim. `vec`: s_k == 1, rows and base
 // 16-byte aligned and k_lim a multiple of VEC, so a vector is all in or out.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_chunk(T* dst, const T* __restrict__ src, long long s_r,
-                                           long long s_k, int r0, int r_lim, int k0, int k_lim,
-                                           bool vec) {
-  constexpr int LD = Tr<T>::LD;
+template <int ROWS>
+__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ src,
+                                           long long s_r, long long s_k, int r0, int r_lim,
+                                           int k0, int k_lim, bool vec) {
   if (vec) {
-    constexpr int V = Tr<T>::VEC;
-    constexpr int PER_ROW = BK / V;
+    constexpr int PER_ROW = BK / VEC;
     for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
-      const int r = i / PER_ROW, k = (i % PER_ROW) * V;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      const int r = i / PER_ROW, k = (i % PER_ROW) * VEC;
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r0 + r < r_lim && k0 + k < k_lim)
-        u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * s_r + (k0 + k));
-      const T* v = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[r * LD + k + j] = v[j];
+        u = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * s_r + (k0 + k));
+      float* d = dst + r * CLD + k;
+      d[0] = u.x;
+      d[1] = u.y;
+      d[2] = u.z;
+      d[3] = u.w;
     }
   } else if (s_k == 1) {          // k contiguous: neighbouring threads along k
     for (int i = threadIdx.x; i < ROWS * BK; i += kThreads) {
       const int r = i / BK, k = i % BK;
-      T x = from_f<T>(0.f);
+      float x = 0.f;
       if (r0 + r < r_lim && k0 + k < k_lim) x = src[(size_t)(r0 + r) * s_r + (k0 + k)];
-      dst[r * LD + k] = x;
+      dst[r * CLD + k] = x;
     }
   } else {                        // rows contiguous: neighbouring threads along r
     for (int i = threadIdx.x; i < ROWS * BK; i += kThreads) {
       const int r = i % ROWS, k = i / ROWS;
-      T x = from_f<T>(0.f);
+      float x = 0.f;
       if (r0 + r < r_lim && k0 + k < k_lim)
         x = src[(size_t)(r0 + r) * s_r + (size_t)(k0 + k) * s_k];
-      dst[r * LD + k] = x;
+      dst[r * CLD + k] = x;
     }
   }
 }
 
-// Logits tile accumulator: [BM, BN] += sH[BM, BK] . sW[BN, BK]^T over chunks.
-template <typename T, int BM> struct ZAcc;
-
-// bf16: warp w owns rows (w/2)*BM/2 .. +BM/2 and columns (w%2)*32 .. +32.
-template <int BM> struct ZAcc<bf16, BM> {
-  static constexpr int FR = BM / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[FR][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FR; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  }
-  __device__ __forceinline__ void mma(const bf16* sH, const bf16* sW) {
-    constexpr int LD = Tr<bf16>::LD;
-    const int w = threadIdx.x / 32, r0 = (w / 2) * (BM / 2), n0 = (w % 2) * 32;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FR];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < FR; ++i) wmma::load_matrix_sync(a[i], sH + (r0 + 16 * i) * LD + ks, LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], sW + (n0 + 16 * j) * LD + ks, LD);
-#pragma unroll
-      for (int i = 0; i < FR; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* sZ) {
-    const int w = threadIdx.x / 32, r0 = (w / 2) * (BM / 2), n0 = (w % 2) * 32;
-#pragma unroll
-    for (int i = 0; i < FR; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sZ + (r0 + 16 * i) * ZLD + n0 + 16 * j, c[i][j], ZLD,
-                                wmma::mem_row_major);
-  }
-};
-
-// fp32: thread (tr, tc) owns rows tr + 8i and columns tc + 16j.
-template <int BM> struct ZAcc<float, BM> {
+// Logits tile accumulator: [BM, BN] += sH[BM, BK] . sW[BN, BK]^T over
+// chunks; thread (tr, tc) owns rows tr + 8i and columns tc + 16j.
+template <int BM> struct ZAcc {
   static constexpr int RI = BM / 8;
   float c[RI][4];
 
@@ -198,16 +176,15 @@ template <int BM> struct ZAcc<float, BM> {
       for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
   }
   __device__ __forceinline__ void mma(const float* sH, const float* sW) {
-    constexpr int LD = Tr<float>::LD;
     const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll 4
     for (int k = 0; k < BK; ++k) {
       float b[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sW[(tc + 16 * j) * LD + k];
+      for (int j = 0; j < 4; ++j) b[j] = sW[(tc + 16 * j) * CLD + k];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
-        const float a = sH[(tr + 8 * i) * LD + k];
+        const float a = sH[(tr + 8 * i) * CLD + k];
 #pragma unroll
         for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a, b[j], c[i][j]);
       }
@@ -226,14 +203,13 @@ template <int BM> struct ZAcc<float, BM> {
 // W^T's chunk: element (n, k) = W[k0 + k, n0 + n]); acc is a chunk of the
 // shared dh accumulator with row stride dld.
 __device__ __forceinline__ void dh_chunk(const float* sDz, const float* sW, float* acc, int dld) {
-  constexpr int LD = Tr<float>::LD, DZLD = Tr<float>::DZLD;
   const int k = threadIdx.x % 32, rg = threadIdx.x / 32;
   float c[BM_BWD / 4];
 #pragma unroll
   for (int i = 0; i < BM_BWD / 4; ++i) c[i] = 0.f;
 #pragma unroll 4
   for (int n = 0; n < BN; ++n) {
-    const float b = sW[n * LD + k];
+    const float b = sW[n * CLD + k];
 #pragma unroll
     for (int i = 0; i < BM_BWD / 4; ++i) c[i] = fmaf(sDz[(rg + 4 * i) * DZLD + n], b, c[i]);
   }
@@ -241,20 +217,14 @@ __device__ __forceinline__ void dh_chunk(const float* sDz, const float* sW, floa
   for (int i = 0; i < BM_BWD / 4; ++i) acc[(rg + 4 * i) * dld + k] += c[i];
 }
 
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tlp_fwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ tgt,
+tlp_fwd(const float* __restrict__ h, const float* __restrict__ w, const int* __restrict__ tgt,
         float4* __restrict__ part, int R, int d, int V, long long ws_k, long long ws_v,
         int slice_tiles, float cap, int vec_h, int vec_w) {
   constexpr int BM = BM_FWD;
-  constexpr int LD = Tr<T>::LD;
   constexpr int TPR = kThreads / BM;              // threads per row for the statistics
-  __shared__ __align__(128) T sH[BM * LD];
-  __shared__ __align__(128) T sW[BN * LD];
+  __shared__ __align__(128) float sH[BM * CLD];
+  __shared__ __align__(128) float sW[BN * CLD];
   __shared__ __align__(128) float sZ[BM * ZLD];
 
   const int row0 = blockIdx.x * BM;
@@ -265,14 +235,14 @@ tlp_fwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict_
   const int grow = row0 + r;
   const int target = grow < R ? tgt[grow] : -1;
   float m = kNegInf, l = 0.f, s = 0.f, tv = kNegInf;
-  ZAcc<T, BM> acc;
+  ZAcc<BM> acc;
 
   for (int tile = t0; tile < t1; ++tile) {
     const int n0 = tile * BN;
     acc.zero();
     for (int k0 = 0; k0 < d; k0 += BK) {
-      load_chunk<T, BM>(sH, h, d, 1, row0, R, k0, d, vec_h);
-      load_chunk<T, BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
+      load_chunk<BM>(sH, h, d, 1, row0, R, k0, d, vec_h);
+      load_chunk<BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
       __syncthreads();
       acc.mma(sH, sW);
       __syncthreads();
@@ -298,22 +268,17 @@ tlp_fwd(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict_
     m = mn;
     __syncthreads();              // sZ is rewritten by the next tile
   }
-  // the TPR threads of a row merge their partials (xor pairs: both sides
-  // compute the same sums, in a fixed order)
+  // the TPR threads of a row merge their partials (xor pairs)
+  float4 st = make_float4(m, l, s, tv);
 #pragma unroll
   for (int off = 1; off < TPR; off <<= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    const float t2 = __shfl_xor_sync(0xffffffffu, tv, off);
-    const float mn = fmaxf(m, m2);
-    const float a1 = expf(m - mn), a2 = expf(m2 - mn);
-    l = l * a1 + l2 * a2;
-    s = s * a1 + s2 * a2;
-    m = mn;
-    tv = fmaxf(tv, t2);
+    const float4 o = make_float4(__shfl_xor_sync(0xffffffffu, st.x, off),
+                                 __shfl_xor_sync(0xffffffffu, st.y, off),
+                                 __shfl_xor_sync(0xffffffffu, st.z, off),
+                                 __shfl_xor_sync(0xffffffffu, st.w, off));
+    st = merge_stats(st, o);
   }
-  if (sub == 0 && grow < R) part[(size_t)blockIdx.y * R + grow] = make_float4(m, l, s, tv);
+  if (sub == 0 && grow < R) part[(size_t)blockIdx.y * R + grow] = st;
 }
 
 // One thread per row: merges the vocab slices' partials in slice order.
@@ -349,12 +314,11 @@ struct BwdSmem {                  // byte offsets into the dynamic shared memory
 };
 
 __host__ __device__ inline BwdSmem bwd_smem(int dld) {
-  using T = float;
   BwdSmem o;
-  o.w = round128(sizeof(T) * BM_BWD * Tr<T>::LD);
-  o.z = o.w + round128(sizeof(T) * BN * Tr<T>::LD);
+  o.w = round128(sizeof(float) * BM_BWD * CLD);
+  o.z = o.w + round128(sizeof(float) * BN * CLD);
   o.dz = o.z + round128(sizeof(float) * BM_BWD * ZLD);
-  o.row = o.dz + round128(sizeof(T) * BM_BWD * Tr<T>::DZLD);
+  o.row = o.dz + round128(sizeof(float) * BM_BWD * DZLD);
   o.acc = o.row + round128(sizeof(float) * 5 * BM_BWD);
   o.total = o.acc + round128(sizeof(float) * (size_t)BM_BWD * dld);
   return o;
@@ -367,16 +331,14 @@ tlp_bwd_f32(const float* __restrict__ h, const float* __restrict__ w,
             const float* __restrict__ g_ent, float* __restrict__ dpart, int R, int d, int V,
             long long ws_k, long long ws_v, int slice_tiles, int dch, float cap, int vec_h,
             int vec_w) {
-  using T = float;
   constexpr int BM = BM_BWD;
-  constexpr int DZLD = Tr<T>::DZLD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int dld = dch + 4;
   const BwdSmem o = bwd_smem(dld);
-  T* sH = reinterpret_cast<T*>(smem);
-  T* sW = reinterpret_cast<T*>(smem + o.w);
+  float* sH = reinterpret_cast<float*>(smem);
+  float* sW = reinterpret_cast<float*>(smem + o.w);
   float* sZ = reinterpret_cast<float*>(smem + o.z);
-  T* sDz = reinterpret_cast<T*>(smem + o.dz);
+  float* sDz = reinterpret_cast<float*>(smem + o.dz);
   float* s_lse = reinterpret_cast<float*>(smem + o.row);
   float* s_ent = s_lse + BM;
   float* s_glp = s_ent + BM;
@@ -403,13 +365,13 @@ tlp_bwd_f32(const float* __restrict__ h, const float* __restrict__ w,
   for (int i = threadIdx.x; i < BM * dld; i += kThreads) dacc[i] = 0.f;
   __syncthreads();
 
-  ZAcc<T, BM> acc;
+  ZAcc<BM> acc;
   for (int tile = t0; tile < t1; ++tile) {
     const int n0 = tile * BN;
     acc.zero();
     for (int k0 = 0; k0 < d; k0 += BK) {
-      load_chunk<T, BM>(sH, h, d, 1, row0, R, k0, d, vec_h);
-      load_chunk<T, BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
+      load_chunk<BM>(sH, h, d, 1, row0, R, k0, d, vec_h);
+      load_chunk<BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
       __syncthreads();
       acc.mma(sH, sW);
       __syncthreads();
@@ -426,7 +388,7 @@ tlp_bwd_f32(const float* __restrict__ h, const float* __restrict__ w,
     }
     __syncthreads();
     for (int k0 = kd0; k0 < kd1; k0 += BK) {
-      load_chunk<T, BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
+      load_chunk<BN>(sW, w, ws_v, ws_k, n0, V, k0, d, vec_w);
       __syncthreads();
       dh_chunk(sDz, sW, dacc + (k0 - kd0), dld);
       __syncthreads();
@@ -453,10 +415,10 @@ __global__ void tlp_bwd_reduce(const float* __restrict__ dpart, T* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16: the two tiled products
+// bf16: the tensor-core mainloop of every product
 // ---------------------------------------------------------------------------
 
-constexpr int TM = 128, TN = 128, TK = 32;   // block tile and K-step of both products
+constexpr int TM = 128, TN = 128, TK = 32;   // block tile and K-step of every product
 constexpr int kStages = 4;                   // depth of the cp.async ring
 constexpr int kMmThreads = 256;              // 8 warps: 2 along M x 4 along N, 64 x 32 each
 constexpr int A_LD = TK + 8;                 // A staged [TM][TK]: 80-byte rows, so the 8
@@ -615,6 +577,100 @@ __device__ __forceinline__ void mm_mainloop(float (&acc)[4][4][4], const Opnd& A
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// forward, bf16: the logits product with an online-softmax epilogue
+// ---------------------------------------------------------------------------
+
+// The statistics of rows [m0, m0 + TM) over the 128-column vocab tiles
+// [t0, t1) of slice s = blockIdx.y, written as part[s * R + row]. A = h
+// [R, d]; B(n = v, k = j) = W[j, v], rows = V; B_K: W's k is contiguous.
+template <bool B_K>
+__global__ void __launch_bounds__(kMmThreads, 2)
+tlp_fwd_mm(Opnd A, Opnd B, const int* __restrict__ tgt, float4* __restrict__ part,
+           int slice_tiles, float cap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float4 sRed[4][TM];  // per warp along N, per row of the tile
+  __shared__ float4 sRun[TM];     // each row's running statistics (thread r's row r:
+  __shared__ int sTgt[TM];        // no registers held across the mainloop)
+  const int R = A.rows, V = B.rows;
+  const int m0 = blockIdx.x * TM;
+  const int t0 = blockIdx.y * slice_tiles;
+  const int t1 = min((V + TN - 1) / TN, t0 + slice_tiles);
+  for (int i = threadIdx.x; i < TM; i += kMmThreads) {
+    sTgt[i] = m0 + i < R ? tgt[m0 + i] : -1;
+    sRun[i] = make_float4(kNegInf, 0.f, 0.f, kNegInf);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wq = warp & 3;
+  for (int tile = t0; tile < t1; ++tile) {
+    const int n0 = tile * TN;
+    float acc[4][4][4] = {};
+    mm_mainloop<B_K>(acc, A, B, m0, n0, 0, A.K, reinterpret_cast<bf16*>(smem));
+    // this thread's 8 columns of each of its rows: j -> acc[.][j / 2][. + j % 2],
+    // column c0 + (j / 2) * 8 + j % 2; those at or past V - c0 lie past V,
+    // zero-filled, and enter no statistic. The 4 lanes of a quad hold a
+    // row's 32 columns of this warp: first their max and target logit, then
+    // l and s against that max, each combined over the quad by shuffles.
+    const int c0 = n0 + wq * 32 + (lane & 3) * 2, past = V - c0;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = wm + mi * 16 + (lane >> 2) + 8 * hf;      // row in the tile
+        const int t = sTgt[r] - c0;
+        float mx = kNegInf, tv = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float& z = acc[mi][j >> 1][2 * hf + (j & 1)];
+          z = capz(z, cap);
+          const int c = (j >> 1) * 8 + (j & 1);
+          if (c < past) {
+            mx = fmaxf(mx, z);
+            if (c == t) tv = z;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          tv = fmaxf(tv, __shfl_xor_sync(0xffffffffu, tv, off));
+        }
+        float l = 0.f, sz = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float z = acc[mi][j >> 1][2 * hf + (j & 1)];
+          if ((j >> 1) * 8 + (j & 1) < past) {
+            const float p = expf(z - mx);
+            l += p;
+            sz += p * z;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          l += __shfl_xor_sync(0xffffffffu, l, off);
+          sz += __shfl_xor_sync(0xffffffffu, sz, off);
+        }
+        if ((lane & 3) == 0) sRed[wq][r] = make_float4(mx, l, sz, tv);
+      }
+    // sRed is complete, and no warp still reads the ring, which the next
+    // tile's first loads overwrite
+    __syncthreads();
+    if (threadIdx.x < TM) {
+      float4 st = sRed[0][threadIdx.x];
+#pragma unroll
+      for (int q = 1; q < 4; ++q) st = merge_stats(st, sRed[q][threadIdx.x]);
+      sRun[threadIdx.x] = merge_stats(sRun[threadIdx.x], st);
+    }
+    // the next write of sRed follows the next mainloop's first barrier
+  }
+  if (threadIdx.x < TM && m0 + (int)threadIdx.x < R)
+    part[(size_t)blockIdx.y * R + m0 + threadIdx.x] = sRun[threadIdx.x];
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16: the two tiled products
+// ---------------------------------------------------------------------------
+
 // What product 1's epilogue needs to turn logits into dz.
 struct DzArgs {
   const int* tgt;
@@ -696,30 +752,64 @@ tlp_bwd_dh(Opnd A, Opnd B, float* __restrict__ part, int R, int d, int piece, in
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T>
-void vec_flags(const void* h, const void* w, int d, long long ws_k, long long ws_v,
-               int* vec_h, int* vec_w) {
-  constexpr int V = Tr<T>::VEC;
-  *vec_h = aligned16(h) && d % V == 0;
-  *vec_w = ws_k == 1 && aligned16(w) && ws_v % V == 0 && d % V == 0;
+void vec_flags(const void* h, const void* w, int d, long long ws_k, long long ws_v, int* vec_h,
+               int* vec_w) {
+  *vec_h = aligned16(h) && d % VEC == 0;
+  *vec_w = ws_k == 1 && aligned16(w) && ws_v % VEC == 0 && d % VEC == 0;
 }
 
-template <typename T>
-cudaError_t fwd_t(const void* h, const void* w, const int* tgt, float4* part, float* lp,
-                  float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
-                  int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
-  int vh, vw;
-  vec_flags<T>(h, w, d, ws_k, ws_v, &vh, &vw);
-  tlp_fwd<T><<<dim3((R + BM_FWD - 1) / BM_FWD, vsplit), kThreads, 0, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), tgt, part, R, d, V, ws_k, ws_v,
-      slice_tiles, cap, vh, vw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launched;
+template <typename K>
+cudaError_t allow_mm_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
+}
+
+cudaError_t merge_parts(const float4* part, float* lp, float* ent, float* lse, int R, int vsplit,
+                        cudaStream_t st, int* launched) {
   tlp_merge<<<(R + 255) / 256, 256, 0, st>>>(part, R, vsplit, lp, ent, lse);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
+}
+
+cudaError_t fwd_f32(const float* h, const float* w, const int* tgt, float4* part, float* lp,
+                    float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
+                    int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
+  int vh, vw;
+  vec_flags(h, w, d, ws_k, ws_v, &vh, &vw);
+  tlp_fwd<<<dim3((R + BM_FWD - 1) / BM_FWD, vsplit), kThreads, 0, st>>>(
+      h, w, tgt, part, R, d, V, ws_k, ws_v, slice_tiles, cap, vh, vw);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  return merge_parts(part, lp, ent, lse, R, vsplit, st, launched);
+}
+
+cudaError_t fwd_bf16(const bf16* h, const bf16* w, const int* tgt, float4* part, float* lp,
+                     float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
+                     int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = allow_mm_smem(tlp_fwd_mm<true>);
+    if (err == cudaSuccess) err = allow_mm_smem(tlp_fwd_mm<false>);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  // W staged with k contiguous (ldmatrix) unless its v stride is the smaller
+  // (ldmatrix.trans); 16-byte copies only where the contiguous stride is 1
+  const bool b_k = ws_k <= ws_v;
+  const Opnd A{h, d, 1, R, d, aligned16(h) && d % 8 == 0};
+  const int wvec = aligned16(w) && (b_k ? ws_k == 1 && ws_v % 8 == 0 && d % 8 == 0
+                                        : ws_v == 1 && ws_k % 8 == 0 && V % 8 == 0);
+  const Opnd B{w, ws_v, ws_k, V, d, wvec};
+  const dim3 grid((R + TM - 1) / TM, vsplit);
+  if (b_k)
+    tlp_fwd_mm<true><<<grid, kMmThreads, MM_SMEM, st>>>(A, B, tgt, part, slice_tiles, cap);
+  else
+    tlp_fwd_mm<false><<<grid, kMmThreads, MM_SMEM, st>>>(A, B, tgt, part, slice_tiles, cap);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  return merge_parts(part, lp, ent, lse, R, vsplit, st, launched);
 }
 
 template <typename T>
@@ -746,7 +836,7 @@ cudaError_t bwd_f32(const float* h, const float* w, const int* tgt, const float*
     attr_set = true;
   }
   int vh, vw;
-  vec_flags<float>(h, w, d, ws_k, ws_v, &vh, &vw);
+  vec_flags(h, w, d, ws_k, ws_v, &vh, &vw);
   const int dsplit = (d + dch - 1) / dch;
   tlp_bwd_f32<<<dim3((R + BM_BWD - 1) / BM_BWD, vsplit, dsplit), kThreads,
                 bwd_smem(dch + 4).total, st>>>(h, w, tgt, lse, ent, g_lp, g_ent, dpart, R, d, V,
@@ -755,11 +845,6 @@ cudaError_t bwd_f32(const float* h, const float* w, const int* tgt, const float*
   if (err != cudaSuccess) return err;
   ++*launched;
   return reduce_parts(dpart, dh, R, d, vsplit, st, launched);
-}
-
-template <typename K>
-cudaError_t allow_mm_smem(K kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
 }
 
 cudaError_t bwd_bf16(const bf16* h, const bf16* w, const int* tgt, const float* lse,
@@ -810,25 +895,27 @@ cudaError_t bwd_bf16(const bf16* h, const bf16* w, const int* tgt, const float* 
   return reduce_parts(part, dh, R, d, splits, st, launched);
 }
 
-bool bad_args(int R, int d, int V, int vsplit, int slice_tiles) {
-  const int n_tiles = (V + BN - 1) / BN;
-  return R < 0 || d <= 0 || V <= 0 || vsplit < 1 || slice_tiles < 1 ||
+// tile: the vocab columns per tile of the kernel the slices are cut for
+bool bad_args(int R, int d, int V, int vsplit, int slice_tiles, int tile) {
+  const int n_tiles = (V + tile - 1) / tile;
+  return R < 0 || d <= 0 || V <= 0 || vsplit < 1 || vsplit > 65535 || slice_tiles < 1 ||
          (long long)vsplit * slice_tiles < n_tiles;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h and w share it). tgt int32 [R] in [0, V);
-// w[k, v] at w + k * ws_k + v * ws_v. part: [vsplit, R] float4 scratch;
-// lp, ent, lse: [R] float32 outputs. Vocab slice s covers tiles
-// [s * slice_tiles, (s + 1) * slice_tiles) of 64 columns. Each launcher adds
-// one to *launched (a host int) for every kernel it launches.
+// w[k, v] at w + k * ws_k + v * ws_v, any positive strides. part: [vsplit, R]
+// float4 scratch; lp, ent, lse: [R] float32 outputs. Vocab slice s covers
+// tiles [s * slice_tiles, (s + 1) * slice_tiles) of 64 columns (float32) or
+// 128 (bfloat16). Each launcher adds one to *launched (a host int) for every
+// kernel it launches.
 extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void* tgt,
                                         void* part, void* lp, void* ent, void* lse, int R,
                                         int d, int V, long long ws_k, long long ws_v,
                                         int vsplit, int slice_tiles, float cap, int dtype,
                                         void* stream, int* launched) {
-  if (bad_args(R, d, V, vsplit, slice_tiles) || dtype < 0 || dtype > 1)
+  if (dtype < 0 || dtype > 1 || bad_args(R, d, V, vsplit, slice_tiles, dtype ? TN : BN))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -838,10 +925,10 @@ extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void
   float* b = static_cast<float*>(ent);
   float* c = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)fwd_t<float>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap,
-                             st, launched);
-  return (int)fwd_t<bf16>(h, w, t, p, a, b, c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st,
-                          launched);
+    return (int)fwd_f32(static_cast<const float*>(h), static_cast<const float*>(w), t, p, a, b,
+                        c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched);
+  return (int)fwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w), t, p, a, b, c,
+                       R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched);
 }
 
 // The fp32 backward. lse, ent: the forward's [R] float32; g_lp, g_ent:
@@ -853,7 +940,7 @@ extern "C" int token_logprob_bwd_f32_launch(const void* h, const void* w, const 
                                             int d, int V, long long ws_k, long long ws_v,
                                             int vsplit, int slice_tiles, float cap,
                                             void* stream, int* launched) {
-  if (bad_args(R, d, V, vsplit, slice_tiles)) return (int)cudaErrorInvalidValue;
+  if (bad_args(R, d, V, vsplit, slice_tiles, BN)) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   return (int)bwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
                       static_cast<const int*>(tgt), static_cast<const float*>(lse),

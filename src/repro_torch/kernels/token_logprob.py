@@ -5,10 +5,12 @@ of ``repro.kernels.token_logprob``, with the backward the TPU kernel lacks).
 ``token_logprob_flat(h, w, targets, softcap)`` returns fp32 (logprob,
 entropy) per row and is differentiable in ``h``. On the card it is a
 ``torch.autograd.Function`` over the hand-written CUDA kernels of
-``csrc/token_logprob.cu``: the forward kernel (plus a merge launch over the
-vocab slices) and the backward kernels for ``dh`` (bf16: two tiled
-tensor-core products per vocab chunk, as ``backward_plan`` cuts the work;
-fp32: one FMA kernel; either ends with a reduce launch). W is the frozen
+``csrc/token_logprob.cu``: the forward kernel (bf16: the logits product on
+the tensor cores with an online-softmax epilogue, over the vocab slices
+``forward_plan`` cuts; fp32: an FMA kernel), plus a merge launch over the
+slices, and the backward kernels for ``dh`` (bf16: two tiled tensor-core
+products per vocab chunk, as ``backward_plan`` cuts the work; fp32: one FMA
+kernel; either ends with a reduce launch). W is the frozen
 base: a ``w`` that requires grad raises on the card (``dW`` is not written
 yet). For tensors on the CPU it runs the plain version
 ``token_logprob_ref`` (``kernels/ref.py``) under torch autograd, which
@@ -19,6 +21,7 @@ wrappers (plain versions on the CPU).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -29,16 +32,18 @@ from .ref import (token_logprob_bwd_ref, token_logprob_ref,
 
 __all__ = ["token_logprob_flat", "token_logprob_fwd", "token_logprob_bwd",
            "token_logprob_ref", "token_logprob_bwd_ref", "backward_plan",
-           "FWD_LAUNCHES", "BWD_LAUNCHES", "FWD_CUDA_LAUNCHES",
-           "BWD_CUDA_LAUNCHES"]
+           "forward_plan", "FWD_LAUNCHES", "BWD_LAUNCHES",
+           "FWD_CUDA_LAUNCHES", "BWD_CUDA_LAUNCHES"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BM_FWD, _BM_F32_BWD, _BN = 64, 32, 64   # as in the .cu
-_FWD_TARGET_BLOCKS = 528     # about four forward blocks per SM of an H100
+# the fp32 kernels' row blocks and vocab tiles (as in the .cu)
+_BM_FWD, _BM_F32_BWD, _BN = 64, 32, 64
+_FWD_TARGET_BLOCKS = 528     # about four fp32 forward blocks per SM of an H100
 _F32_BWD_TARGET_BLOCKS = 264  # about two fp32 backward blocks per SM
-# the bf16 backward's products: 128 x 128 tiles, K-steps of 32, two blocks
-# of 80 KB shared memory per SM on 132 SMs (as in the .cu)
+# the bf16 products: 128 x 128 tiles, K-steps of 32, two blocks of 80 KB
+# shared memory per SM on 132 SMs (as in the .cu)
 _TILE, _TK, _MM_SLOTS = 128, 32, 2 * 132
+_MIN_SLICE_TILES = 4         # bf16 forward: vocab tiles a slice walks, at least
 # a few rows do not fill the card with any split (W's bytes bound them);
 # past 16 pieces more partials only lengthen the final sum
 _MAX_SPLITS = 16
@@ -55,13 +60,44 @@ BWD_CUDA_LAUNCHES = _build.LaunchCount()
 
 
 def vocab_split(R: int, V: int, bm: int, target_blocks: int):
-    """(slices, tiles per slice): the vocabulary's 64-column tiles cut into
-    enough slices that row blocks x slices covers the card."""
+    """(slices, tiles per slice) of the fp32 kernels: the vocabulary's
+    64-column tiles cut into enough slices that row blocks x slices covers
+    the card."""
     n_tiles = -(-V // _BN)
     row_blocks = max(1, -(-R // bm))
     want = max(1, min(n_tiles, -(-target_blocks // row_blocks)))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ForwardPlan(NamedTuple):
+    """How the bf16 forward cuts the vocabulary (see ``forward_plan``)."""
+    vsplit: int         # vocab slices, the grid's second dimension
+    slice_tiles: int    # 128-column tiles per slice (the last may have fewer)
+
+
+@functools.lru_cache(maxsize=64)
+def forward_plan(R: int, V: int) -> ForwardPlan:
+    """The bf16 forward's grid: 128-row tiles x ``vsplit`` slices of
+    ``slice_tiles`` 128-column vocab tiles, each block walking its slice.
+    Blocks run in waves of the card's block slots (two a SM), and a block's
+    time is about its slice's tiles, so a split costs about waves x
+    slice_tiles. The plan is the cheapest split, the fewest slices among
+    equals (fewer partials to merge), with at least _MIN_SLICE_TILES tiles
+    a slice where the vocabulary has them."""
+    n_tiles = _cdiv(V, _TILE)
+    row_tiles = max(1, _cdiv(R, _TILE))
+    best = None
+    for per in range(min(_MIN_SLICE_TILES, n_tiles), n_tiles + 1):
+        vsplit = _cdiv(n_tiles, per)
+        key = (_cdiv(row_tiles * vsplit, _MM_SLOTS) * per, vsplit)
+        if best is None or key < best[0]:
+            best = (key, ForwardPlan(vsplit, per))
+    return best[1]
 
 
 class BackwardPlan(NamedTuple):
@@ -70,10 +106,6 @@ class BackwardPlan(NamedTuple):
     splits: int         # K pieces of the dz @ W^T product per chunk
     piece: int          # columns per K piece, a multiple of the K-step
     scratch_bytes: int  # the [R, vc] bf16 dz chunk + [splits, R, d] fp32
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def backward_plan(R: int, d: int, V: int) -> BackwardPlan:
@@ -136,7 +168,10 @@ def token_logprob_fwd(h, w, targets, softcap: float = 0.0):
     _check(h, w, targets)
     R, d = h.shape
     V = w.shape[1]
-    vsplit, per = vocab_split(R, V, _BM_FWD, _FWD_TARGET_BLOCKS)
+    if h.dtype == torch.bfloat16:
+        vsplit, per = forward_plan(R, V)
+    else:
+        vsplit, per = vocab_split(R, V, _BM_FWD, _FWD_TARGET_BLOCKS)
     part = torch.empty((vsplit, R, 4), dtype=torch.float32, device=h.device)
     lp, ent, lse = (torch.empty((R,), dtype=torch.float32, device=h.device)
                     for _ in range(3))

@@ -137,18 +137,42 @@ def test_token_logprob_matches_plain(card, layout, softcap, dtype, tol, dh_tol):
     assert err <= dh_tol * want.float().abs().max(), err
 
 
-def _bf16_backward(card, R, d, V, layout, softcap):
-    """Two calls of the bf16 backward kernel and the plain version, on
-    W = a [V, d] table's transpose ('tied') or a [d, V] head ('untied')."""
+def _bf16_inputs(card, R, d, V, layout):
+    """h, W = a [V, d] table's transpose ('tied') or a [d, V] head
+    ('untied'), and targets, in bf16 on the card."""
     h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
     if layout == "tied":
         w = (torch.randn(V, d, generator=card, device="cuda") * 0.02).bfloat16().T
     else:
         w = (torch.randn(d, V, generator=card, device="cuda") * 0.02).bfloat16()
     t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    return h, w, t
+
+
+def _assert_bf16_forward(h, w, t, softcap):
+    """Two calls of the bf16 forward kernel against the plain version: lp,
+    entropy and lse within 1e-3 absolute (fp32 accumulation on both sides,
+    sum order only), the two calls bit-identical, 2 CUDA launches a call
+    (the kernel and the merge)."""
+    n0 = tlp.FWD_CUDA_LAUNCHES.n
+    got = tlp.token_logprob_fwd(h, w, t, softcap)
+    assert tlp.FWD_CUDA_LAUNCHES.n - n0 == 2
+    again = tlp.token_logprob_fwd(h, w, t, softcap)
+    want = ref.token_logprob_stats_ref(h, w, t, softcap)
+    for a, b, c in zip(got, again, want):
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-3)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return want
+
+
+def _bf16_forward_backward(card, R, d, V, layout, softcap):
+    """The forward checked (``_assert_bf16_forward``), then two calls of the
+    bf16 backward kernel and the plain backward on the plain forward's
+    statistics."""
+    h, w, t = _bf16_inputs(card, R, d, V, layout)
     g_lp = torch.randn(R, generator=card, device="cuda") / R
     g_ent = torch.randn(R, generator=card, device="cuda") / R
-    _, ent, lse = ref.token_logprob_stats_ref(h, w, t, softcap)
+    _, ent, lse = _assert_bf16_forward(h, w, t, softcap)
     dh = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, softcap)
     again = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, softcap)
     want = ref.token_logprob_bwd_ref(h, w, t, lse, ent, g_lp, g_ent, softcap)
@@ -167,18 +191,51 @@ def _assert_bf16_dh(dh, again, want):
 @pytest.mark.parametrize("V", [5003, 100])
 @pytest.mark.parametrize("R", [1, 127, 300])
 def test_token_logprob_bf16_backward_matches_plain(card, R, V, layout, softcap):
-    """The bf16 backward (two tiled tensor-core products per vocab chunk) at
-    d = 1024 against the plain version: ragged R, V = 5003 (with an untied
-    head its odd row stride takes the unvectorised loads) and V = 100 (less
-    than one 128-column tile). dh within 1e-2 of its largest element (dz
-    rounds to bf16 before dz @ W^T); two calls give the same bits."""
-    _assert_bf16_dh(*_bf16_backward(card, R, 1024, V, layout, softcap))
+    """The bf16 forward (the logits product with an online-softmax
+    epilogue) and backward (two tiled tensor-core products per vocab chunk)
+    at d = 1024 against the plain versions: ragged R, V = 5003 (with an
+    untied head its odd row stride takes the unvectorised loads) and V = 100
+    (less than one 128-column tile). lp, entropy and lse within 1e-3; dh
+    within 1e-2 of its largest element (dz rounds to bf16 before dz @ W^T);
+    two calls of each give the same bits."""
+    _assert_bf16_dh(*_bf16_forward_backward(card, R, 1024, V, layout, softcap))
 
 
 def test_token_logprob_bf16_backward_at_qwen3_width(card):
-    """qwen3-0.6b's training shape: 624 rows, V = 151936 (two vocab chunks
-    of the plan), the tied embedding's transpose as W."""
-    _assert_bf16_dh(*_bf16_backward(card, 624, 1024, 151936, "tied", 0.0))
+    """qwen3-0.6b's training shape: 624 rows, V = 151936 (one wave of
+    forward blocks; two vocab chunks of the backward's plan), the tied
+    embedding's transpose as W; forward and backward."""
+    _assert_bf16_dh(*_bf16_forward_backward(card, 624, 1024, 151936, "tied", 0.0))
+
+
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("V", [5003, 100])
+def test_token_logprob_bf16_forward_targets_at_the_edges(card, V, layout):
+    """Targets on the vocabulary's first and last columns (V - 1 lies in
+    the ragged last tile, beside the zero-filled columns the epilogue
+    leaves out)."""
+    h, w, _ = _bf16_inputs(card, 127, 1024, V, layout)
+    t = torch.tensor([0, V - 1] * 63 + [V - 1], dtype=torch.int32, device="cuda")
+    for softcap in (0.0, 30.0):
+        _assert_bf16_forward(h, w, t, softcap)
+
+
+@pytest.mark.parametrize("major", ["k", "v"])
+def test_token_logprob_bf16_forward_takes_any_strides(card, major):
+    """A W with neither stride 1 (a strided view of a larger table) takes
+    the forward's unvectorised loads; 'k': W's k stride is the smaller
+    (staged k-major), 'v': its v stride."""
+    R, d, V = 127, 1024, 5003
+    h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
+    if major == "k":
+        big = torch.randn(3 * V, 2 * d, generator=card, device="cuda") * 0.02
+        w = big.bfloat16()[::3, ::2].T
+    else:
+        big = torch.randn(2 * d, 3 * V, generator=card, device="cuda") * 0.02
+        w = big.bfloat16()[::2, ::3]
+    assert w.shape == (d, V) and 1 not in w.stride()
+    t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    _assert_bf16_forward(h, w, t, 0.0)
 
 
 def test_token_logprob_bf16_backward_scratch_at_production_rows(card):

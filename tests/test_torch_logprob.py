@@ -258,3 +258,113 @@ def test_two_product_decomposition_matches_plain_backward(dtype, plan):
         assert got.dtype == dtype
         scale = want.float().abs().max()
         assert (got.float() - want.float()).abs().max() <= rel * scale
+
+
+# The bf16 forward on the card: grid (128-row tiles, vocab slices from
+# forward_plan); a block walks its slice's 128-column tiles, folds each
+# tile's per-row (m, l, s, target logit) into its running state and writes
+# one partial per (slice, row); a merge launch combines the slices in order.
+
+@pytest.mark.parametrize("R,d,V", [(R, 1024, 151936) for R in (1, 624, 4096)]
+                         + [(R, 2048, 49155) for R in (1, 624, 4096)]
+                         + [(R, 1024, 129) for R in (1, 624, 4096)])
+def test_forward_plan_covers_the_vocabulary(R, d, V):
+    """At the backward plan's shapes: every 128-column vocab tile in exactly
+    one slice, no empty slice, at least a few tiles a slice where V has
+    them, and the blocks (row tiles x slices) in whole waves of the card's
+    264 slots or fewer than one."""
+    plan = ptl.forward_plan(R, V)
+    n_tiles = -(-V // 128)
+    cover = np.zeros(n_tiles, np.int64)
+    for s in range(plan.vsplit):
+        tiles = range(s * plan.slice_tiles,
+                      min(n_tiles, (s + 1) * plan.slice_tiles))
+        assert len(tiles) > 0
+        cover[tiles.start:tiles.stop] += 1
+    assert (cover == 1).all()
+    assert plan.slice_tiles >= min(4, n_tiles)
+    blocks = -(-R // 128) * plan.vsplit
+    assert blocks <= 264 or blocks % 264 == 0, (blocks, plan)
+
+
+_NEG = -1e30
+
+
+def _merge_stats(a, b):
+    """tlp_merge's fold of two (m, l, s, target logit) tuples of [R]."""
+    m = torch.maximum(a[0], b[0])
+    ea, eb = torch.exp(a[0] - m), torch.exp(b[0] - m)
+    return (m, a[1] * ea + b[1] * eb, a[2] * ea + b[2] * eb,
+            torch.maximum(a[3], b[3]))
+
+
+def _tiled_forward(h, w, t, softcap, plan, mask=True):
+    """The card's bf16 forward in plain PyTorch: W zero-filled to whole
+    128-column tiles, as the kernel's loads fill it; per tile each row's
+    (m, l, s, target logit) over the tile's columns, those past V left out
+    (unless mask is False); folded over each slice's tiles in order, the
+    slices merged in slice order. Returns (lp, ent, lse)."""
+    R, V = h.shape[0], w.shape[1]
+    n_tiles = -(-V // 128)
+    wpad = torch.nn.functional.pad(w.float(), (0, n_tiles * 128 - V))
+    empty = (torch.full((R,), _NEG), torch.zeros(R), torch.zeros(R),
+             torch.full((R,), _NEG))
+    parts = []
+    for s in range(plan.vsplit):
+        run = empty
+        for tile in range(s * plan.slice_tiles,
+                          min(n_tiles, (s + 1) * plan.slice_tiles)):
+            cols = torch.arange(tile * 128, (tile + 1) * 128)
+            z = h.float() @ wpad[:, cols]
+            if softcap:
+                z = torch.tanh(z / softcap) * softcap
+            keep = cols < V if mask else torch.ones(128, dtype=torch.bool)
+            zk = z[:, keep]
+            m = zk.max(1).values
+            p = torch.exp(zk - m[:, None])
+            tv = torch.where(cols[None, :] == t.long()[:, None], z,
+                             torch.tensor(_NEG)).max(1).values
+            run = _merge_stats(run, (m, p.sum(1), (p * zk).sum(1), tv))
+        parts.append(run)
+    M = torch.stack([p[0] for p in parts]).max(0).values
+    L, S, T = torch.zeros(R), torch.zeros(R), torch.full((R,), _NEG)
+    for m, l, s, tv in parts:
+        e = torch.exp(m - M)
+        L, S, T = L + l * e, S + s * e, torch.maximum(T, tv)
+    lse = M + torch.log(torch.clamp(L, min=1e-30))
+    return T - lse, lse - S / torch.clamp(L, min=1e-30), lse
+
+
+@pytest.mark.parametrize("plan", ["auto", "sliced"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_tiled_forward_matches_plain_and_pallas(softcap, plan):
+    """The bf16 forward's algorithm (the kernel itself is held to the plain
+    version by the card tests), in fp32, equals token_logprob_stats_ref and
+    the JAX package's Pallas kernel in interpret mode at 1e-5. V = 300 ends
+    in a ragged tile of 44 columns; 'auto' is forward_plan's one slice of 3
+    tiles, 'sliced' two slices of 2 tiles, the second ragged."""
+    R, d, V = 37, 48, 300
+    h, w, t, ph, pw, pt = _inputs(R, d, V, 9, "tied")
+    cut = (ptl.forward_plan(R, V) if plan == "auto"
+           else ptl.ForwardPlan(2, 2))
+    got = _tiled_forward(ph, pw, pt, softcap, cut)
+    want = pref.token_logprob_stats_ref(ph, pw, pt, softcap)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TIGHT)
+    k_lp, k_ent = pallas_flat(jnp.asarray(h), jnp.asarray(w), jnp.asarray(t),
+                              bm=8, bv=100, softcap=softcap)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(k_lp), **TIGHT)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(k_ent), **TIGHT)
+
+
+def test_unmasked_zero_fill_corrupts_the_lse():
+    """The trap the kernel's epilogue masks: the zero-filled columns past V
+    give logit 0, and counting them moves the lse and the entropy far past
+    the forward's 1e-3 tolerance."""
+    R, d, V = 37, 48, 300
+    _, _, _, ph, pw, pt = _inputs(R, d, V, 9, "tied")
+    plan = ptl.forward_plan(R, V)
+    _, ent, lse = pref.token_logprob_stats_ref(ph, pw, pt)
+    _, bad_ent, bad_lse = _tiled_forward(ph, pw, pt, 0.0, plan, mask=False)
+    assert float((bad_lse - lse).abs().min()) > 1e-3
+    assert float((bad_ent - ent).abs().max()) > 1e-3
