@@ -8,10 +8,15 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. device: requires a CUDA card and prints nvidia-smi's name and power limit;
  2. build: compiles every kernel of the serving and training paths from
-    csrc/ (sm_90a);
+    csrc/ (sm_90a) and prints registers and spills (token_logprob's kernels,
+    and the decode kernels' main-path variants: bf16 and fp32, hd 128, rep 2,
+    4 and 8 warps, with any variant that spills);
  3. kernels: holds each hand-written kernel against its plain PyTorch version
     at the serving and training paths' shapes, and times kernel, plain
-    version, one library call, and the card's bound for the same work;
+    version, one library call, and the card's bound for the same work; the
+    decode kernels also at long caches (gqa_decode S=1000 and 4096, paged
+    4096 tokens a row) and at their chunks' edges, with their plans, two
+    calls' bits and, at long caches, the plan's chunk beside half and twice;
  4. serve: RolloutEngine.generate at qwen3-0.6b's full size in bf16 (28
     layers, d=1024, V=151936) for 4 tenants x 4 gsm8k requests with
     random-b adapters; the kernels' launch counts must match the steps run;
@@ -139,10 +144,13 @@ def bound_ms(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|Lb([01])E|Li(\d+)E")
+
+
 def demangled(mangled):
-    """A kernel's name (and its one template argument) out of its mangled
-    form: _Z<n><name>..., or _ZN<n><namespace><n><name>E...; as it is
-    otherwise."""
+    """A kernel's name and its template arguments (float, bf16, bool and int
+    ones) out of its mangled form: _Z<n><name>I...E..., or
+    _ZN<n><namespace><n><name>I...E...; as it is otherwise."""
     m = re.match(r"_ZN?(\d+)", mangled)
     if not m:
         return mangled
@@ -153,10 +161,16 @@ def demangled(mangled):
         if k:
             name, tail = tail[k.end():k.end() + int(k.group(1))], \
                 tail[k.end() + int(k.group(1)):]
-    for code, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("IfE", "<float>"),
-                      ("I13__nv_bfloat16E", "<bf16>")):
-        if tail.startswith(code):
-            name += arg
+    if tail.startswith("I"):
+        args, at = [], 1
+        while (a := _TEMPLATE_ARG.match(tail, at)) and not tail.startswith("E", at):
+            text = a.group(0)
+            args.append("float" if text == "f" else "bf16" if "bfloat16" in text
+                        else ("true" if a.group(1) == "1" else "false")
+                        if a.group(1) is not None else a.group(2))
+            at = a.end()
+        if args and tail.startswith("E", at):
+            name += "<" + ", ".join(args) + ">"
     return name
 
 
@@ -186,10 +200,73 @@ def nvidia_smi_line():
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def same_bits(torch, a, b):
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def plan_record(plan):
+    return dict(chunk=plan.chunk, splits=plan.splits,
+                blocks=plan.splits * plan.grid[1] * plan.grid[2], warps=plan.warps)
+
+
+def decode_call(mod, fn, *args, **kw):
+    """fn(*args, **kw) twice: (output, CUDA kernels the first call launched,
+    whether the two calls gave the same bits)."""
+    import torch
+    n = mod.CUDA_LAUNCHES.n
+    out = fn(*args, **kw)
+    n = mod.CUDA_LAUNCHES.n - n
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, n, same_bits(torch, out, again)
+
+
+def decode_rates(rec, nbytes, flops, dtype):
+    """The case's bound, achieved GB/s and share of the bound (from its
+    measured kernel ms)."""
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
+    rec["gb_s"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def chunk_sweep(gqa, mod, plan, capacity, page, B, H, hd, kern, sets):
+    """Device ms of a decode kernel at its plan's chunk and at half and twice
+    it, each patched in for the wrapper module's decode_plan in turn."""
+    plan_fn = mod.decode_plan
+    half = max(page, plan.chunk // 2 // page * page)
+    out = []
+    for chunk in sorted({half, plan.chunk, 2 * plan.chunk}):
+        splits = -(-capacity // chunk)
+        c = gqa.DecodePlan(chunk, splits, (splits,) + tuple(plan.grid[1:]),
+                           B * H * splits * (hd + 2) * 4 if splits > 1 else 0,
+                           plan.warps)
+        mod.decode_plan = lambda *a, c=c, **k: c
+        try:
+            ms = device_ms(kern, sets)
+        finally:
+            mod.decode_plan = plan_fn
+        out.append(dict(plan_record(c), ms=ms, plan=chunk == plan.chunk))
+    return out
+
+
+def _sweep_line(sweep):
+    return "    at other chunks (chunk/splits: ms): " + ", ".join(
+        f"{c['chunk']}/{c['splits']}: {c['ms']:.4f}" + (" (plan)" if c["plan"] else "")
+        for c in sweep)
+
+
 def check_gqa_decode(torch, gqa, ref, g, serve_pos_hi):
+    """gqa_decode against its plain version at B=16 H=16 KVH=8 hd=128: the
+    serving shape (cache 256, pos up to the serving length) and long caches
+    (S=1000 and 4096, pos 1 to S), bf16 and fp32, softcap 50 and window 24
+    beside the plain case. Every case: two calls give the same bits and a
+    call launches one CUDA kernel; each is timed (kernel, plain, SDPA where
+    no softcap, eager call) with its plan, GB/s and share of the bound; the
+    bf16 long caches also at half and twice the plan's chunk."""
     B, H, KVH, hd = 16, 16, 8, 128
     cases = []
-    for S in (256, 1000):
+    for S in (256, 1000, 4096):
         for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
             for cap, win in ((0.0, 0), (50.0, 0), (0.0, 24)):
                 main = S == 256 and dt == torch.bfloat16 and not cap and not win
@@ -204,14 +281,16 @@ def check_gqa_decode(torch, gqa, ref, g, serve_pos_hi):
                            torch.randn(B, S, KVH, hd, generator=g, device="cuda").to(dt))
                           for _ in range(n_copy)]
                 ck, cv = caches[0]
-                got = gqa.gqa_decode(q, ck, cv, pos, softcap=cap, window=win)
+                got, n_cuda, same = decode_call(gqa, gqa.gqa_decode, q, ck, cv, pos,
+                                                softcap=cap, window=win)
                 want = ref.gqa_decode_ref(q, ck, cv, pos, softcap=cap, window=win)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs()
                 ok = bool((err <= tol + tol * want.float().abs()).all())
-                if not ok:
+                if not ok or not same or n_cuda != 1:
                     raise AssertionError(f"gqa_decode S={S} {dt} cap={cap} win={win}: "
-                                         f"max err {err.max().item():.3e} > tol {tol}")
+                                         f"max err {err.max().item():.3e} (tol {tol}), "
+                                         f"same bits {same}, CUDA launches {n_cuda}")
                 sets = [(q, k, v, pos) for k, v in caches]
 
                 def kern(q, k, v, p):
@@ -219,7 +298,8 @@ def check_gqa_decode(torch, gqa, ref, g, serve_pos_hi):
 
                 def plain(q, k, v, p):
                     return ref.gqa_decode_ref(q, k, v, p, softcap=cap, window=win)
-                k_ms, p_ms = device_ms(kern, sets), device_ms(plain, sets)
+                k_ms = device_ms(kern, sets)
+                p_ms = device_ms(plain, sets, 40 if S < 4096 else 10)
                 call_ms = bench_ms(kern, sets)
                 lib_ms = None
                 if not cap:
@@ -239,18 +319,78 @@ def check_gqa_decode(torch, gqa, ref, g, serve_pos_hi):
                 keys = int((pos.long().clamp(max=S) - lo).sum())
                 nbytes = (2 * q.numel() * elt + 2 * keys * KVH * hd * elt + 4 * B)
                 flops = 4 * keys * (H // KVH) * KVH * hd
-                b_ms, b_by = bound_ms(nbytes, flops, str(dt).split(".")[1])
-                cases.append(dict(S=S, dtype=str(dt).split(".")[1], softcap=cap,
-                                  window=win, pos_max=hi, main=main,
-                                  max_abs_err=float(err.max()), tol=tol,
-                                  ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                                  bound_ms=b_ms, bound_by=b_by, call_ms=call_ms))
-                log(f"  gqa_decode S={S:4d} {cases[-1]['dtype']:8s} cap={cap:4.0f} "
-                    f"win={win:2d}: err {cases[-1]['max_abs_err']:.2e} (tol {tol}) "
-                    f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-                    f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
-                    f"bound {b_ms:.4f} ms ({b_by}); eager call {call_ms:.4f} ms")
+                dname = str(dt).split(".")[1]
+                plan = gqa.decode_plan(B, KVH, S, 1, H=H, hd=hd, window=win)
+                rec = dict(S=S, dtype=dname, softcap=cap, window=win, pos_max=hi,
+                           main=main, max_abs_err=float(err.max()), tol=tol,
+                           ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, call_ms=call_ms,
+                           cuda_launches_per_call=n_cuda, plan=plan_record(plan))
+                decode_rates(rec, nbytes, flops, dname)
+                line = (f"  gqa_decode S={S:4d} {dname:8s} cap={cap:4.0f} win={win:2d}: "
+                        f"err {rec['max_abs_err']:.2e} (tol {tol}), same bits, "
+                        f"{n_cuda} CUDA launch; plan {rec['plan']}; kernel {k_ms:.4f} ms "
+                        f"plain {p_ms:.4f} ms library "
+                        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms bound "
+                        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                        f"{rec['gb_s']:.0f} GB/s = {rec['bound_share']:.2f} of the bound; "
+                        f"eager call {call_ms:.4f} ms")
+                if S > 256 and dt == torch.bfloat16 and not cap and not win:
+                    rec["split_ms"] = chunk_sweep(gqa, gqa, plan, S, 1, B, H, hd,
+                                                  kern, sets)
+                    line += "\n" + _sweep_line(rec["split_ms"])
+                cases.append(rec)
+                log(line)
     return cases
+
+
+def check_decode_edges(torch, gqa, paged, ref, g):
+    """Both decode kernels at qwen3's widths over a 2048-key cache (page 16)
+    holding the same values, as a contiguous cache and as a shuffled pool:
+    rows at pos 1, chunk-1, chunk, chunk+1 and the capacity; no softcap,
+    softcap 50, windows of 24 (one chunk a row), 200 (two chunks, across an
+    edge) and 5 (smaller than a page); bf16 and fp32. Each against its plain version, two
+    calls with the same bits."""
+    B, H, KVH, hd, cap, page = 6, 16, 8, 128, 2048, 16
+    n_pg = cap // page
+    chunk = gqa.decode_plan(B, KVH, cap, page, H=H, hd=hd).chunk
+    pos = torch.tensor([1, chunk - 1, chunk, chunk + 1, 3 * chunk + 5, cap],
+                       dtype=torch.int32, device="cuda")
+    out = []
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        ck = torch.randn(B, cap, KVH, hd, generator=g, device="cuda").to(dt)
+        cv = torch.randn(B, cap, KVH, hd, generator=g, device="cuda").to(dt)
+        perm = torch.randperm(B * n_pg, generator=g, device="cuda")
+        kp = torch.full((B * n_pg + 1, page, KVH, hd), 7.0, device="cuda", dtype=dt)
+        vp = torch.full_like(kp, -7.0)
+        kp[perm] = ck.reshape(-1, page, KVH, hd)
+        vp[perm] = cv.reshape(-1, page, KVH, hd)
+        tbl = perm.reshape(B, n_pg).to(torch.int32)
+        live = (pos.long() + page - 1) // page
+        tbl[torch.arange(n_pg, device="cuda")[None, :] >= live[:, None]] = B * n_pg
+        dname = str(dt).split(".")[1]
+        worst = 0.0
+        for sc, win in ((0.0, 0), (50.0, 0), (0.0, 24), (0.0, 200), (0.0, 5)):
+            for name, mod, fn, args, plain in (
+                    ("gqa_decode", gqa, gqa.gqa_decode, (q, ck, cv, pos),
+                     ref.gqa_decode_ref),
+                    ("paged_gqa_decode", paged, paged.paged_gqa_decode,
+                     (q, kp, vp, tbl, pos), ref.paged_gqa_decode_ref)):
+                got, _, same = decode_call(mod, fn, *args, softcap=sc, window=win)
+                want = plain(*args, softcap=sc, window=win)
+                err = (got.float() - want.float()).abs()
+                if not bool((err <= tol + tol * want.float().abs()).all()) or not same:
+                    raise AssertionError(f"{name} edges {dname} cap={sc} win={win}: "
+                                         f"max err {err.max().item():.3e} (tol {tol}), "
+                                         f"same bits {same}")
+                worst = max(worst, float(err.max()))
+                out.append(dict(kernel=name, case="edges", dtype=dname, softcap=sc,
+                                window=win, main=False, max_abs_err=float(err.max()),
+                                tol=tol))
+        log(f"  decode edges {dname}: pos {pos.tolist()} (chunk {chunk}), cap 0/50, "
+            f"window 0/24/200/5, both kernels: max err {worst:.2e} (tol {tol}), "
+            f"same bits")
+    return out
 
 
 def check_sgmv(torch, sgmv, ref, g, S_p):
@@ -526,7 +666,10 @@ def check_paged_decode(torch, paged, gqa, ref, g):
     pos 20-110; (b) long caches, 256 pages a row (4096 tokens), pos up to
     4096; (c) tables that alias shared prompt pages across rows; (d) an
     identity table, against the gqa_decode kernel on the same values; (e)
-    softcap 50 and window 64. bf16 and fp32 each; (a) and (b) timed."""
+    softcap 50 and window 64. bf16 and fp32 each; two calls give the same
+    bits and a call launches one CUDA kernel; (a) and (b) timed with their
+    plans, GB/s and share of the bound, bf16 (b) also at half and twice the
+    plan's chunk."""
     B, H, KVH, hd, page = 16, 16, 8, 128, 16
     cases = []
     specs = []
@@ -548,22 +691,28 @@ def check_paged_decode(torch, paged, gqa, ref, g):
                   torch.randn(n_pool + 1, page, KVH, hd, generator=g,
                               device="cuda").to(dt)) for _ in range(n_copy)]
         kp, vp = pools[0]
-        got = paged.paged_gqa_decode(q, kp, vp, tbl, pos, softcap=cap, window=win)
+        got, n_cuda, same = decode_call(paged, paged.paged_gqa_decode, q, kp, vp,
+                                        tbl, pos, softcap=cap, window=win)
         want = ref.paged_gqa_decode_ref(q, kp, vp, tbl, pos, softcap=cap, window=win)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         dname = str(dt).split(".")[1]
-        if not bool((err <= tol + tol * want.float().abs()).all()):
+        if not bool((err <= tol + tol * want.float().abs()).all()) or not same \
+                or n_cuda != 1:
             raise AssertionError(f"paged_gqa_decode ({name}) {dname}: max err "
-                                 f"{err.max().item():.3e} > tol {tol}")
+                                 f"{err.max().item():.3e} (tol {tol}), same bits "
+                                 f"{same}, CUDA launches {n_cuda}")
+        plan = gqa.decode_plan(B, KVH, max_pg * page, page, H=H, hd=hd, window=win)
         rec = dict(case=name, B=B, H=H, KVH=KVH, hd=hd, page=page,
                    max_pages=max_pg, pool_pages=n_pool, pos_min=lo, pos_max=hi,
                    dtype=dname, softcap=cap, window=win, aliased_pages=alias,
                    main=name == "a" and dt == torch.bfloat16,
-                   max_abs_err=float(err.max()), tol=tol)
+                   max_abs_err=float(err.max()), tol=tol,
+                   cuda_launches_per_call=n_cuda, plan=plan_record(plan))
         line = f"  paged_gqa_decode ({name}) {dname:8s} pages/row {max_pg:3d} pos " \
                f"{lo}-{hi} cap {cap:.0f} win {win} alias {alias}: err " \
-               f"{rec['max_abs_err']:.2e} (tol {tol})"
+               f"{rec['max_abs_err']:.2e} (tol {tol}), same bits, {n_cuda} CUDA " \
+               f"launch; plan {rec['plan']}"
         if timed:
             sets = [(q, k, v, tbl, pos) for k, v in pools]
 
@@ -589,12 +738,16 @@ def check_paged_decode(torch, paged, gqa, ref, g):
             pages_read = int(((pos.long() + page - 1) // page).sum())
             nbytes = (2 * q.numel() * elt + 2 * keys * KVH * hd * elt
                       + 4 * pages_read + 4 * B)
-            rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * keys * H * hd,
-                                                        dname)
-            line += (f" kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
+            decode_rates(rec, nbytes, 4 * keys * H * hd, dname)
+            line += (f"; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
                      f"gather+SDPA {rec['library_ms']:.4f} ms bound "
-                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager call "
-                     f"{rec['call_ms']:.4f} ms")
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                     f"{rec['gb_s']:.0f} GB/s = {rec['bound_share']:.2f} of the bound; "
+                     f"eager call {rec['call_ms']:.4f} ms")
+            if name == "b" and dt == torch.bfloat16:
+                rec["split_ms"] = chunk_sweep(gqa, paged, plan, max_pg * page, page,
+                                              B, H, hd, kern, sets)
+                line += "\n" + _sweep_line(rec["split_ms"])
         cases.append(rec)
         log(line)
     # (d) identity table: the paged kernel reads what gqa_decode reads
@@ -636,7 +789,8 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
                                     "bound_by", "max_abs_err", "tol", "main",
                                     "call_ms", "library_fwd_bwd_ms", "tflops",
                                     "scratch_bytes", "plan", "split_ms",
-                                    "cuda_launches_per_call")},
+                                    "cuda_launches_per_call", "gb_s",
+                                    "bound_share")},
                 **extra, cases=cases)
 
 
@@ -1280,6 +1434,10 @@ def main(argv):
         if name == "token_logprob":
             log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
                                    for k in kernels))
+        if name in ("gqa_decode", "paged_decode"):   # the main path: hd 128, rep 2
+            shown = [k for k in kernels if ", 128, 2, " in k[0] or k[2]]
+            log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
+                                   for k in shown))
 
     reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=MAX_NEW, seed=0)
     S_p = _bucket_len(max(len(r.prompt) for r in reqs))
@@ -1291,6 +1449,9 @@ def main(argv):
     train_rows = GROUPS * GROUP_SIZE * (-(-(S_p + MAX_NEW) // 8) * 8 - 1)
     tlp_fwd_cases, tlp_bwd_cases = check_token_logprob(torch, tlp, ref, g, train_rows)
     paged_cases = check_paged_decode(torch, paged, gqa, ref, g)
+    edges = check_decode_edges(torch, gqa, paged, ref, g)
+    gqa_cases += [c for c in edges if c["kernel"] == "gqa_decode"]
+    paged_cases += [c for c in edges if c["kernel"] == "paged_gqa_decode"]
 
     # -- phase 4: serve ---------------------------------------------------
     cfg = serve_config(ARCH, reduce=False)
@@ -1384,11 +1545,15 @@ def main(argv):
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"continuous": cont}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
+    gqa_main = next(c for c in gqa_cases if c["main"])
+    paged_main = next(c for c in paged_cases if c["main"])
     bwd_main = next(c for c in tlp_bwd_cases if c["main"])
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
-                     dict(launches_per_decode_step=cfg.num_layers)),
+                     dict(launches_per_decode_step=cfg.num_layers,
+                          cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
+                          plan=gqa_main["plan"])),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases, n_sgmv,
                      dict(launches_per_decode_step=6 * cfg.num_layers)),
@@ -1409,6 +1574,8 @@ def main(argv):
                      "src/repro/kernels/paged_decode.py:85", paged_cases,
                      cont["launches"]["paged_gqa_decode"],
                      dict(launches_per_decode_step=cfg.num_layers,
+                          cuda_launches_per_call=paged_main["cuda_launches_per_call"],
+                          plan=paged_main["plan"],
                           launches_phase="continuous serve (phase 8)")),
     ]}), flush=True)
     print(card, flush=True)

@@ -26,19 +26,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C signatures of the exported launchers: name -> argtypes. Every launcher
-# returns the cudaError_t of its launch as an int; token_logprob's also add
-# the number of kernels they launched to a host int (`launched`).
+# returns the cudaError_t of its launch as an int and adds the number of
+# kernels it launched to a host int (`launched`).
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gqa_decode": {
-        # q, k, v, pos, out, B, S, KVH, H, hd, dtype, softcap, window, stream
-        "gqa_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _P],
+        # q, k, v, pos, out, part, tickets, B, S, KVH, H, hd, dtype, softcap,
+        # window, chunk, splits, warps, stream, launched
+        "gqa_decode_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _I, _P,
+                                                    _P],
     },
     "paged_decode": {
-        # q, kp, vp, tbl, pos, out, B, n_total, page, max_pages, KVH, H, hd,
-        # dtype, softcap, window, stream
-        "paged_decode_launch": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+        # q, kp, vp, tbl, pos, out, part, tickets, B, n_total, page,
+        # max_pages, KVH, H, hd, dtype, softcap, window, chunk, splits,
+        # warps, stream, launched
+        "paged_decode_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _I,
+                                                      _P, _P],
     },
     "sgmv": {
         # x, a, b, ids, h_part, y, R, d, r, dout, ksplit, x_dtype, stream

@@ -10,26 +10,22 @@
 // What bounds it on an H100: device-memory bytes. Every valid key and value
 // row is read once and does 4*hd flops per query head, far below the ~295
 // flops/byte at which the tensor cores become the limit. Decode batches are
-// small, so there are few (row, kv head) pairs to spread over 132 SMs.
+// small, so one block per (row, kv head) leaves most of the card idle and
+// lets the longest row set the time.
 //
-// Design: one block per (row, kv head); the rep query heads of the group
-// share each K/V row the block reads, so the cache is read once and not rep
-// times. Each warp walks its own keys (warp w takes keys lo+w, lo+w+8, ...),
-// one key per warp step with every lane holding ceil(hd/32) contiguous elements,
-// and keeps its own fp32 online softmax (running max, sum and weighted
-// accumulator) in registers. Four keys per warp step are loaded before any
-// is used, so each warp keeps several loads in flight. The block skips keys
-// outside [max(0, pos-window), min(pos, S)), which gives the TPU kernel's
-// result for pos >= 1 (decode always has pos >= 1). At the end the warps'
-// partial softmaxes are merged through shared memory in a fixed order, so
-// the result does not depend on scheduling. The body is decode_common.cuh's,
-// shared with paged_decode.cu. Split-K across blocks, TMA and wgmma are left
-// for later work.
+// Design (decode_common.cuh): a grid of (split, kv head, row); block s takes
+// the s-th chunk of the row's keys [max(0, pos-window), min(pos, S)), and a
+// block past the last exits at once, which gives the TPU kernel's result
+// for pos >= 1 (decode always has pos >= 1). The rep query heads of
+// the group share each K/V row the block reads, with 16-byte loads and
+// several keys in flight per warp; the splits' fp32 partial softmaxes merge
+// in split order in the block that finishes last, so the result does not
+// depend on scheduling. The wrapper's decode_plan picks the chunk. Loads go
+// straight to registers: no shared-memory ring, TMA or tensor cores, since
+// each row is used by rep heads only once.
 #include "decode_common.cuh"
 
 namespace {
-
-using decode::kWarps;
 
 // Key idx of row b sits at row b*S + idx of the [B, S, KVH, HD] cache.
 struct ContiguousRows {
@@ -39,75 +35,100 @@ struct ContiguousRows {
   }
 };
 
-template <typename T, int HD, int REP>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, int HD, int REP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                   const T* __restrict__ cv, const int* __restrict__ pos,
-                  T* __restrict__ out, int S, int KVH, float scale,
-                  float softcap, int window) {
-  const int b = blockIdx.y;
-  const int p = pos[b];
-  const int hi = min(p, S);
-  const int lo = window > 0 ? max(0, p - window) : 0;
+                  T* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+                  int S, int KVH, int chunk, int splits, float qscale, float capmul,
+                  int window) {
+  const int b = blockIdx.z;
+  const decode::Span sp = decode::span(pos[b], S, window, chunk, 1, blockIdx.x);
+  if (sp.dead) return;
   const ContiguousRows rows{(size_t)b * S, (size_t)KVH * HD};
-  decode::attend<T, HD, REP>(q, ck, cv, out, KVH, lo, hi, rows, scale, softcap);
+  decode::attend<T, HD, REP, WARPS>(q, ck, cv, out, part, tickets, KVH, splits, sp, rows,
+                             qscale, capmul);
 }
 
-template <typename T, int HD, int REP>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const int* pos,
-                     void* out, int B, int S, int KVH, float scale, float softcap,
-                     int window, cudaStream_t stream) {
-  dim3 grid(KVH, B);
-  gqa_decode_kernel<T, HD, REP><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, static_cast<T*>(out), S, KVH, scale, softcap, window);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* pos;
+  void* out;
+  float* part;
+  int* tickets;
+  int B, S, KVH, chunk, splits;
+  float qscale, capmul;
+  int window, warps;
+};
+
+template <typename T, int HD, int REP, int WARPS>
+cudaError_t launch_w(const Args& a, cudaStream_t stream) {
+  dim3 grid(a.splits, a.KVH, a.B);
+  gqa_decode_kernel<T, HD, REP, WARPS><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.pos, static_cast<T*>(a.out), a.part, a.tickets, a.S, a.KVH, a.chunk, a.splits,
+      a.qscale, a.capmul, a.window);
   return cudaGetLastError();
 }
 
+template <typename T, int HD, int REP>
+cudaError_t launch_t(const Args& a, cudaStream_t stream) {
+  if (a.warps == 4) return launch_w<T, HD, REP, 4>(a, stream);
+  if constexpr (decode::warps_fit(8, REP, HD))
+    if (a.warps == 8) return launch_w<T, HD, REP, 8>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int HD>
-cudaError_t launch_rep(int rep, const void* q, const void* k, const void* v,
-                       const int* pos, void* out, int B, int S, int KVH, float scale,
-                       float softcap, int window, cudaStream_t s) {
+cudaError_t launch_rep(int rep, const Args& a, cudaStream_t s) {
   switch (rep) {
-    case 1: return launch_t<T, HD, 1>(q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 2: return launch_t<T, HD, 2>(q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 4: return launch_t<T, HD, 4>(q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 8: return launch_t<T, HD, 8>(q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
+    case 1: return launch_t<T, HD, 1>(a, s);
+    case 2: return launch_t<T, HD, 2>(a, s);
+    case 4: return launch_t<T, HD, 4>(a, s);
+    case 8: return launch_t<T, HD, 8>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, int rep, const void* q, const void* k, const void* v,
-                      const int* pos, void* out, int B, int S, int KVH, float scale,
-                      float softcap, int window, cudaStream_t s) {
+cudaError_t launch_hd(int hd, int rep, const Args& a, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_rep<T, 16>(rep, q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 32: return launch_rep<T, 32>(rep, q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 64: return launch_rep<T, 64>(rep, q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 128: return launch_rep<T, 128>(rep, q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
-    case 256: return launch_rep<T, 256>(rep, q, k, v, pos, out, B, S, KVH, scale, softcap, window, s);
+    case 16: return launch_rep<T, 16>(rep, a, s);
+    case 32: return launch_rep<T, 32>(rep, a, s);
+    case 64: return launch_rep<T, 64>(rep, a, s);
+    case 128: return launch_rep<T, 128>(rep, a, s);
+    case 256: return launch_rep<T, 256>(rep, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it). part and
+// tickets may be null when splits == 1. warps: 4, or 8 where rep * hd <=
+// 1024 (decode::warps_fit). Adds the CUDA kernels it launched
+// to *launched.
 extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
-                                 const void* pos, void* out, int B, int S, int KVH,
-                                 int H, int hd, int dtype, float softcap, int window,
-                                 void* stream) {
-  if (KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+                                 const void* pos, void* out, void* part, void* tickets,
+                                 int B, int S, int KVH, int H, int hd, int dtype,
+                                 float softcap, int window, int chunk, int splits,
+                                 int warps, void* stream, int* launched) {
+  if (KVH <= 0 || H % KVH != 0 || B > 65535 || KVH > 65535 || chunk <= 0 || splits <= 0 ||
+      splits < decode::splits_needed(S, window, chunk, 1) || (splits > 1 && (!part || !tickets)))
+    return (int)cudaErrorInvalidValue;
   const int rep = H / KVH;
   // the score scale rounds like the TPU kernel's 1/(hd ** 0.5) taken in fp32
   const float scale = 1.0f / sqrtf((float)hd);
+  Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
+         static_cast<int*>(tickets), B, S, KVH, chunk, splits,
+         softcap > 0.f ? scale / softcap : scale * decode::kLog2e,
+         softcap > 0.f ? softcap * decode::kLog2e : 0.f, window, warps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  if (dtype == 0)
-    return (int)launch_hd<float>(hd, rep, q, k, v, p, out, B, S, KVH, scale, softcap, window, s);
-  if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, rep, q, k, v, p, out, B, S, KVH, scale, softcap,
-                                         window, s);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) err = launch_hd<float>(hd, rep, a, s);
+  if (dtype == 1) err = launch_hd<__nv_bfloat16>(hd, rep, a, s);
+  if (err == cudaSuccess) *launched += 1;
+  return (int)err;
 }

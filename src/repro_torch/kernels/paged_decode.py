@@ -3,26 +3,33 @@ pool, read through per-row block tables (port of
 ``repro.kernels.paged_decode``).
 
 On the card, ``paged_gqa_decode`` launches the hand-written CUDA kernel
-``csrc/paged_decode.cu``; for tensors on the CPU it runs the plain version
-``paged_gqa_decode_ref`` (``kernels/ref.py``: gather the pages, then dense
-attention). There is no other route: a CUDA tensor the kernel does not take
-raises.
+``csrc/paged_decode.cu``, which splits each row's pages over blocks as
+``gqa_decode.decode_plan`` cuts them; for tensors on the CPU it runs the
+plain version ``paged_gqa_decode_ref`` (``kernels/ref.py``: gather the
+pages, then dense attention). There is no other route: a CUDA tensor the
+kernel does not take raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
+from .gqa_decode import _ptr, decode_plan, merge_scratch
 from .ref import paged_gqa_decode_ref
 
-__all__ = ["paged_gqa_decode", "paged_gqa_decode_ref", "LAUNCHES"]
+__all__ = ["paged_gqa_decode", "paged_gqa_decode_ref", "LAUNCHES",
+           "CUDA_LAUNCHES"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 _REPS = (1, 2, 4, 8)
-_MAX_TABLE = 8192        # table entries a block stages in shared memory
 
+# calls that launched the kernel, and the CUDA kernels those calls launched
+# (as the C launcher counts them: one a call)
 LAUNCHES = _build.LaunchCount()
+CUDA_LAUNCHES = _build.LaunchCount()
 
 
 def _check(q, kp, vp, tbl, pos):
@@ -50,9 +57,10 @@ def _check(q, kp, vp, tbl, pos):
         raise ValueError(f"paged_gqa_decode: head_dim {hd} (takes "
                          f"{_HEAD_DIMS}) and H/KVH = {H}/{KVH} (takes ratios "
                          f"{_REPS})")
-    if not 0 < tbl.shape[1] <= _MAX_TABLE:
-        raise ValueError(f"paged_gqa_decode: {tbl.shape[1]} pages per row; "
-                         f"the kernel takes 1 to {_MAX_TABLE}")
+    if not 0 < tbl.shape[1] * kp.shape[1] < 2 ** 31:    # int32 key indices
+        raise ValueError(f"paged_gqa_decode: {tbl.shape[1]} pages of "
+                         f"{kp.shape[1]} a row; the kernel takes 1 to 2**31 - 1 "
+                         f"keys a row")
     for name, t in (("q", q), ("kp", kp), ("vp", vp), ("tbl", tbl),
                     ("pos", pos)):
         if not t.is_contiguous():
@@ -76,13 +84,20 @@ def paged_gqa_decode(q, kp, vp, tbl, pos, *, softcap: float = 0.0,
     _check(q, kp, vp, tbl, pos)
     B, H, hd = q.shape
     n_total, page, KVH = kp.shape[0], kp.shape[1], kp.shape[2]
+    max_pages = tbl.shape[1]
+    plan = decode_plan(B, KVH, max_pages * page, page, H=H, hd=hd,
+                       window=int(window))
+    part, tickets = merge_scratch(plan, q)
     out = torch.empty_like(q)
-    lib = _build.library("paged_decode")
-    err = lib.paged_decode_launch(
+    launched = ctypes.c_int(0)
+    err = _build.library("paged_decode").paged_decode_launch(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, n_total, page, tbl.shape[1], KVH,
-        H, hd, _DTYPE_CODE[q.dtype], float(softcap), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), out.data_ptr(), _ptr(part), _ptr(tickets), B, n_total,
+        page, max_pages, KVH, H, hd, _DTYPE_CODE[q.dtype], float(softcap),
+        int(window), plan.chunk, plan.splits, plan.warps,
+        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.addressof(launched))
+    CUDA_LAUNCHES.n += launched.value
     _build.check(err, "paged_gqa_decode")
     LAUNCHES.n += 1
     return out

@@ -364,6 +364,98 @@ def test_paged_gqa_decode_identity_table_equals_gqa_decode(card):
                                atol=2e-5)
 
 
+def _split_case(card, B, H, KVH, hd, cap, page, dtype, pos):
+    """One set of values as a contiguous cache and as a shuffled pool with
+    sentinel entries past each row's live pages: (q, ck, cv, kp, vp, tbl,
+    pos)."""
+    n_pg = cap // page
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    ck = torch.randn(B, cap, KVH, hd, generator=card, device="cuda").to(dtype)
+    cv = torch.randn(B, cap, KVH, hd, generator=card, device="cuda").to(dtype)
+    P = B * n_pg
+    perm = torch.randperm(P, generator=card, device="cuda")
+    kp = torch.empty(P + 1, page, KVH, hd, device="cuda", dtype=dtype)
+    vp = torch.empty_like(kp)
+    kp[perm] = ck.reshape(P, page, KVH, hd)
+    vp[perm] = cv.reshape(P, page, KVH, hd)
+    kp[P], vp[P] = 7.0, -7.0                      # the scratch page
+    tbl = perm.reshape(B, n_pg).to(torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    live = (pos.long() + page - 1) // page
+    tbl[torch.arange(n_pg, device="cuda")[None, :] >= live[:, None]] = P
+    return q, ck, cv, kp, vp, tbl, pos
+
+
+def _both_kernels(case, cap, win):
+    q, ck, cv, kp, vp, tbl, pos = case
+    return {"gqa": (gqa.gqa_decode(q, ck, cv, pos, softcap=cap, window=win),
+                    ref.gqa_decode_ref(q, ck, cv, pos, softcap=cap, window=win)),
+            "paged": (paged.paged_gqa_decode(q, kp, vp, tbl, pos, softcap=cap,
+                                             window=win),
+                      ref.paged_gqa_decode_ref(q, kp, vp, tbl, pos,
+                                               softcap=cap, window=win))}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_split_decode_at_the_chunk_edges(card, dtype, tol):
+    """Both kernels at qwen3's widths over a 2048-key cache (page 16): rows
+    at pos 1, chunk-1, chunk, chunk+1 and the capacity; softcap 50;
+    windows of 24 (one chunk a row, the rest of the grid empty), 200 (two
+    chunks, across an edge) and 5 (smaller than a page). Two calls give the
+    same bits."""
+    B, H, KVH, hd, cap, page = 6, 16, 8, 128, 2048, 16
+    c = gqa.decode_plan(B, KVH, cap, page, H=H, hd=hd).chunk
+    assert c == gqa.decode_plan(B, KVH, cap, 1, H=H, hd=hd).chunk
+    case = _split_case(card, B, H, KVH, hd, cap, page, dtype,
+                       [1, c - 1, c, c + 1, 3 * c + 5, cap])
+    for softcap, win in ((0.0, 0), (50.0, 0), (0.0, 24), (0.0, 200), (0.0, 5)):
+        first = _both_kernels(case, softcap, win)
+        again = _both_kernels(case, softcap, win)
+        for name, (got, want) in first.items():
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol, msg=f"{name} {softcap} {win}")
+            assert torch.equal(got, again[name][0]), name
+
+
+@pytest.mark.parametrize("kernel", ["gqa", "paged"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_split_decode_every_variant(card, kernel, rep, hd, dtype, tol):
+    """Every (hd, rep) the wrappers take, in both dtypes, at a cache of
+    2048 keys split over blocks, against the plain versions."""
+    B, KVH, cap, page = 3, 2, 2048, 16
+    case = _split_case(card, B, KVH * rep, KVH, hd, cap, page, dtype,
+                       [cap, 1000, 77])
+    got, want = _both_kernels(case, 0.0, 0)[kernel]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_graph_replay_gives_eager_bits(card, dtype):
+    """Both kernels captured in a CUDA graph: two replays give the eager
+    call's bits (the merge tickets are back at 0 after every launch)."""
+    B, H, KVH, hd, cap, page = 4, 16, 8, 128, 2048, 16
+    q, ck, cv, kp, vp, tbl, pos = _split_case(card, B, H, KVH, hd, cap, page,
+                                              dtype, [2048, 1500, 300, 40])
+    eager = (gqa.gqa_decode(q, ck, cv, pos),
+             paged.paged_gqa_decode(q, kp, vp, tbl, pos))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (gqa.gqa_decode(q, ck, cv, pos),
+                paged.paged_gqa_decode(q, kp, vp, tbl, pos))
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
 def test_paged_wrapper_refuses_what_the_kernel_does_not_take(card):
     q = torch.zeros(2, 4, 32, device="cuda")
     pool = torch.zeros(5, 8, 2, 32, device="cuda")
