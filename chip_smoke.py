@@ -4,22 +4,31 @@
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --profile DIR   # also profile one served round, one
                                           # train step and a continuous run
+    python3 chip_smoke.py --launches-of DIR/serve_profile.txt
+                                          # device launches a forward in such a
+                                          # profile (no card needed)
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. device: requires a CUDA card and prints nvidia-smi's name and power limit;
  2. build: compiles every kernel of the serving and training paths from
-    csrc/ (sm_90a) and prints registers and spills (token_logprob's kernels,
-    and the decode kernels' main-path variants: bf16 and fp32, hd 128, rep 2,
-    4 and 8 warps, with any variant that spills);
+    csrc/ (sm_90a) and prints registers and spills (token_logprob's and
+    sgmv's kernels, and the decode kernels' main-path variants: bf16 and
+    fp32, hd 128, rep 2, 4 and 8 warps, with any variant that spills);
  3. kernels: holds each hand-written kernel against its plain PyTorch version
     at the serving and training paths' shapes, and times kernel, plain
     version, one library call, and the card's bound for the same work; the
     decode kernels also at long caches (gqa_decode S=1000 and 4096, paged
     4096 tokens a row) and at their chunks' edges, with their plans, two
     calls' bits and, at long caches, the plan's chunk beside half and twice;
+    sgmv's two epilogues (the fp32 product, and the delta added into y in
+    place as the serving path runs it) at every projection's shape in decode
+    and prefill, one row a slot and 2048 rows, each with its plan, its CUDA
+    launches a call (must be 1), two calls' bits and the in-place epilogue
+    bit-equal to the product followed by torch's scale, cast and add;
  4. serve: RolloutEngine.generate at qwen3-0.6b's full size in bf16 (28
     layers, d=1024, V=151936) for 4 tenants x 4 gsm8k requests with
-    random-b adapters; the kernels' launch counts must match the steps run;
+    random-b adapters; the kernels' launch counts must match the steps run
+    (sgmv: 168 calls and 168 CUDA launches a forward);
  5. check: teacher-forces 4 served rows through forward_seq in fp32 on the
     card (kernels) and on the CPU (plain versions) and compares the logprobs;
  6. train: three GRPO iterations at the same full size — generate 4 groups x
@@ -393,55 +402,191 @@ def check_decode_edges(torch, gqa, paged, ref, g):
     return out
 
 
-def check_sgmv(torch, sgmv, ref, g, S_p):
-    T, r = 4, 16
-    pairs = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
-             (1024, 6144), (3072, 1024)]        # q, k, v, o, mlp_in, mlp_out
-    cases = []
-    for R in (TENANTS * PER_TENANT, TENANTS * PER_TENANT * S_p):
-        per_tenant_rows = R // T
-        ids = torch.arange(T, device="cuda", dtype=torch.int32).repeat_interleave(
-            per_tenant_rows)
-        for (d, dout), xdt in [(p, torch.bfloat16) for p in pairs] + \
-                [((1024, 6144), torch.float32)]:
-            x = torch.randn(R, d, generator=g, device="cuda").to(xdt)
-            n_copy = copies_for(4 * T * r * (d + dout))
-            ads = [(torch.randn(T, d, r, generator=g, device="cuda") / d ** 0.5,
-                    torch.randn(T, r, dout, generator=g, device="cuda") * 0.1)
-                   for _ in range(n_copy)]
-            a, b = ads[0]
-            got = sgmv.sgmv(x, a, b, ids)
-            want = ref.sgmv_ref(x, a, b, ids)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            tol_a, tol_r = 1e-4, 1e-5
-            if not bool((err <= tol_a + tol_r * want.abs()).all()):
-                raise AssertionError(f"sgmv R={R} d={d} dout={dout} {xdt}: max err "
-                                     f"{err.max().item():.3e}")
-            sets = [(x, a_, b_, ids) for a_, b_ in ads]
-            k_ms, p_ms = device_ms(sgmv.sgmv, sets), device_ms(ref.sgmv_ref, sets)
-            call_ms = bench_ms(sgmv.sgmv, sets)
+SGMV_PAIRS = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
+              (1024, 6144), (3072, 1024)]   # q, k, v, o, mlp_in, mlp_out
+SGMV_SCALE = 2.0        # qwen3-0.6b's LoRA scaling (alpha 32 / rank 16)
 
-            def gathered_bmm(x, a, b, ids):
-                il = ids.long()
-                return torch.bmm(torch.bmm(x.float()[:, None, :], a[il]), b[il])[:, 0]
-            lib_ms = device_ms(gathered_bmm, sets)
-            n_t = int(torch.unique(ids).numel())
-            nbytes = (x.numel() * x.element_size() + n_t * (d * r + r * dout) * 4
-                      + 4 * R + 4 * R * dout)
-            flops = 2 * R * (d * r + r * dout)
-            b_ms, b_by = bound_ms(nbytes, flops, "float32")
-            main = R == TENANTS * PER_TENANT and (d, dout) == (1024, 6144) \
-                and xdt == torch.bfloat16
-            cases.append(dict(R=R, d=d, dout=dout, r=r, T=T,
-                              x_dtype=str(xdt).split(".")[1], main=main,
-                              max_abs_err=float(err.max()), tol=tol_a,
-                              ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                              bound_ms=b_ms, bound_by=b_by, call_ms=call_ms))
-            log(f"  sgmv R={R:4d} {d:4d}->{dout:4d} x {cases[-1]['x_dtype']:8s}: "
-                f"err {cases[-1]['max_abs_err']:.2e} kernel {k_ms:.4f} ms plain "
-                f"{p_ms:.4f} ms library {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
-                f"eager call {call_ms:.4f} ms")
+
+def sgmv_bytes(R, T_live, d, dout, r, x_bytes, add):
+    """Bytes an sgmv call must move: the rows, each live adapter's A and B,
+    the segment table, and the output: the fp32 product written (sgmv), or
+    y read and written in the rows' dtype (sgmv_add_)."""
+    out = 2 * R * dout * x_bytes if add else 4 * R * dout
+    return R * d * x_bytes + T_live * (d * r + r * dout) * 4 + 4 * R + out
+
+
+def _add_close(got, want, delta):
+    """sgmv_add_ against its plain version: fp32 rows at rtol 1e-5, atol
+    1e-4; bf16 rows may also differ by one bf16 step (2^-7 of the value) of
+    the delta's and the sum's rounding, where the two fp32 products differ
+    in their last bits and round the other way. Returns the max abs
+    difference, or raises."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    tol = 1e-4 + 1e-5 * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        top = torch.maximum(got.float().abs(), want.float().abs())
+        tol = tol + 2.0 ** -7 * (top + delta.abs())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"sgmv_add_: max err {err.max().item():.3e}")
+    return float(err.max())
+
+
+def sgmv_plan_sweep(sgmv, plan, d, dout, fn, sets):
+    """Device ms of sgmv_add_ at its plan and with the column tile halved and
+    doubled (the cluster from the tiles as the plan sets it), and with
+    clusters of 4, each patched in for the wrapper module's plan in turn."""
+    plan_fn = sgmv.sgmv_plan
+    out = []
+    for bn in sorted({max(64, plan.bn // 2), plan.bn, min(1024, plan.bn * 2)}):
+        tiles_n = -(-dout // bn)
+        for c in sorted({sgmv.cluster_for(tiles_n), 4}):
+            groups = -(-tiles_n // c)
+            kc = sgmv._stage(plan.bm, bn, 16, 2, c, sgmv.slice_of(d, c))
+            p = plan._replace(bn=bn, kc=kc, cluster=c, col_groups=groups,
+                              grid=(groups * c, plan.row_tiles))
+            sgmv.sgmv_plan = lambda *a, p=p, **k: p
+            sgmv._plan_args.cache_clear()
+            try:
+                ms = device_ms(fn, sets)
+            finally:
+                sgmv.sgmv_plan = plan_fn
+                sgmv._plan_args.cache_clear()
+            out.append(dict(bn=bn, cluster=c, kc=kc, ms=ms,
+                            plan=(bn, c) == (plan.bn, plan.cluster)))
+    return out
+
+
+def check_sgmv(torch, sgmv, ref, g, S_p):
+    """Both epilogues of the sgmv kernel against their plain versions: sgmv
+    (the fp32 product) and sgmv_add_ (the scaled delta added into y in place,
+    as the serving path calls it). Cases: the six projections at decode
+    (R=16, 4 rows of each of 4 adapters) and at the served prefill (R=16 x
+    the prompt bucket), mlp_in with fp32 rows, one row a slot (R=16, T=16)
+    and a continuous-prefill size (R=2048, T=4). Each case: the plan, one
+    CUDA launch a call, two calls' bits, sgmv_add_ bit-equal to sgmv
+    followed by the torch composition, and the times of both epilogues,
+    their plain versions, the library yardstick (a gather and two bmm; for
+    sgmv_add_ also the scale and the add), the eager call (sgmv_add_ as the
+    batched LoraCtx calls it: adapters checked once a forward, autograd
+    off; sgmv as a user calls it, with its checks) and the bound."""
+    r = 16
+    bf16 = torch.bfloat16
+    specs = [(16, 4, d, dout, bf16, "decode") for d, dout in SGMV_PAIRS]
+    specs += [(16 * S_p, 4, d, dout, bf16, "prefill") for d, dout in SGMV_PAIRS]
+    specs += [(16, 4, 1024, 6144, torch.float32, "decode fp32"),
+              (16, 16, 1024, 6144, bf16, "one row a slot"),
+              (2048, 4, 1024, 6144, bf16, "continuous prefill")]
+
+    def gathered_bmm(x, a, b, ids):
+        il = ids.long()
+        return torch.bmm(torch.bmm(x.float()[:, None, :], a[il]), b[il])[:, 0]
+
+    def lib_add(y, x, a, b, ids):
+        return y.add_((gathered_bmm(x, a, b, ids) * SGMV_SCALE).to(x.dtype))
+
+    def plain_add(y, x, a, b, ids):
+        return ref.sgmv_add_ref(y, x, a, b, ids, SGMV_SCALE)
+
+    def kern_a(x, a, b, ids, table):
+        return sgmv.sgmv(x, a, b, ids, table=table)
+
+    def kern_b(y, x, a, b, table):
+        return sgmv.sgmv_add_(y, x, a, b, table, SGMV_SCALE)
+
+    def path_b(y, x, a, b, table):
+        # as the batched LoraCtx calls it: adapters checked once a forward,
+        # autograd off (the engines serve under no_grad or inference_mode)
+        with torch.no_grad():
+            return sgmv.sgmv_add_(y, x, a, b, table, SGMV_SCALE, checked=True)
+
+    cases = []
+    for R, T, d, dout, xdt, label in specs:
+        ids = torch.arange(T, device="cuda", dtype=torch.int32).repeat_interleave(R // T)
+        x = torch.randn(R, d, generator=g, device="cuda").to(xdt)
+        y0 = torch.randn(R, dout, generator=g, device="cuda").to(xdt)
+        n_copy = copies_for(4 * T * r * (d + dout))
+        ads = [(torch.randn(T, d, r, generator=g, device="cuda") / d ** 0.5,
+                torch.randn(T, r, dout, generator=g, device="cuda") * 0.1)
+               for _ in range(n_copy)]
+        a, b = ads[0]
+        table = sgmv.sgmv_table(ids, T)
+        n0 = sgmv.CUDA_LAUNCHES.n
+        got = kern_a(x, a, b, ids, table)
+        launches_a = sgmv.CUDA_LAUNCHES.n - n0
+        again = kern_a(x, a, b, ids, table)
+        y = y0.clone()
+        n0 = sgmv.CUDA_LAUNCHES.n
+        kern_b(y, x, a, b, table)
+        launches_b = sgmv.CUDA_LAUNCHES.n - n0
+        y_again = kern_b(y0.clone(), x, a, b, table)
+        want = ref.sgmv_ref(x, a, b, ids)
+        want_b = plain_add(y0.clone(), x, a, b, ids)
+        composed = y0 + (got * SGMV_SCALE).to(xdt)
+        torch.cuda.synchronize()
+        name = f"sgmv R={R} T={T} {d}->{dout} {str(xdt).split('.')[1]}"
+        if (launches_a, launches_b) != (1, 1):
+            raise AssertionError(f"{name}: {launches_a} and {launches_b} CUDA "
+                                 f"launches a call, want 1")
+        if not (same_bits(torch, got, again) and same_bits(torch, y, y_again)):
+            raise AssertionError(f"{name}: two calls gave other bits")
+        if not same_bits(torch, y, composed):
+            raise AssertionError(f"{name}: sgmv_add_ is not sgmv followed by "
+                                 f"y + (s * d).to(x.dtype)")
+        err = (got - want).abs()
+        if not bool((err <= 1e-4 + 1e-5 * want.abs()).all()):
+            raise AssertionError(f"{name}: max err {err.max().item():.3e}")
+        err_b = _add_close(y, want_b, want * SGMV_SCALE)
+
+        sets_a = [(x, a_, b_, ids, table) for a_, b_ in ads]
+        sets_b = [(y, x, a_, b_, table) for a_, b_ in ads]
+        sets_p = [(y, x, a_, b_, ids) for a_, b_ in ads]
+        plain_iters = 10 if R > 256 else 40
+        rec = dict(label=label, R=R, T=T, d=d, dout=dout, r=r,
+                   x_dtype=str(xdt).split(".")[1],
+                   main=(label, d, dout) == ("decode", 1024, 6144),
+                   plan=sgmv.sgmv_plan(R, T, d, dout, r=r,
+                                       x_bytes=x.element_size())._asdict(),
+                   cuda_launches_per_call=launches_b, same_bits=True,
+                   add_equals_composition=True,
+                   max_abs_err=float(err.max()), tol=1e-4, add_max_abs_err=err_b,
+                   ms=device_ms(kern_b, sets_b),
+                   plain_ms=device_ms(plain_add, sets_p, iters=plain_iters),
+                   library_ms=device_ms(lib_add, sets_p, iters=plain_iters),
+                   call_ms=bench_ms(path_b, sets_b),
+                   a_ms=device_ms(kern_a, sets_a),
+                   a_plain_ms=device_ms(ref.sgmv_ref, [t[1:] for t in sets_p],
+                                        iters=plain_iters),
+                   a_library_ms=device_ms(gathered_bmm, [t[1:] for t in sets_p],
+                                          iters=plain_iters),
+                   a_call_ms=bench_ms(kern_a, sets_a))
+        flops = 2 * R * (d * r + r * dout)
+        for key, add in (("", True), ("a_", False)):
+            nb = sgmv_bytes(R, T, d, dout, r, x.element_size(), add)
+            b_ms, b_by = bound_ms(nb, flops, "float32")
+            rec[key + "bound_ms"], rec[key + "bound_by"] = b_ms, b_by
+            rec[key + "bytes"] = nb
+            rec[key + "gb_s"] = nb / (rec[key + "ms"] * 1e-3) / 1e9
+            rec[key + "bound_share"] = b_ms / rec[key + "ms"]
+        if rec["main"] or label == "continuous prefill":
+            rec["plan_sweep"] = sgmv_plan_sweep(
+                sgmv, sgmv.sgmv_plan(R, T, d, dout), d, dout, kern_b, sets_b)
+        cases.append(rec)
+        p = rec["plan"]
+        log(f"  {name} ({label}): plan bm {p['bm']} bn {p['bn']} cluster "
+            f"{p['cluster']} grid {p['grid']}; err {rec['max_abs_err']:.2e}, add "
+            f"{err_b:.2e}; 1 CUDA launch a call, same bits\n"
+            f"    sgmv_add_ {rec['ms'] * 1e3:.2f} us (eager {rec['call_ms'] * 1e3:.1f} "
+            f"us) plain {rec['plain_ms'] * 1e3:.1f} library {rec['library_ms'] * 1e3:.1f} "
+            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_share']:.2f}); "
+            f"sgmv {rec['a_ms'] * 1e3:.2f} us (eager {rec['a_call_ms'] * 1e3:.1f} us) "
+            f"plain {rec['a_plain_ms'] * 1e3:.1f} library {rec['a_library_ms'] * 1e3:.1f} "
+            f"bound {rec['a_bound_ms'] * 1e3:.2f} us ({rec['a_bound_share']:.2f})")
+        if "plan_sweep" in rec:
+            log("    sgmv_add_ at other column tiles and clusters (bn/cluster: us): "
+                + ", ".join(f"{c['bn']}/{c['cluster']}: {c['ms'] * 1e3:.2f}"
+                            + (" (plan)" if c["plan"] else "")
+                            for c in rec["plan_sweep"]))
     return cases
 
 
@@ -790,7 +935,10 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
                                     "call_ms", "library_fwd_bwd_ms", "tflops",
                                     "scratch_bytes", "plan", "split_ms",
                                     "cuda_launches_per_call", "gb_s",
-                                    "bound_share")},
+                                    "bound_share", "label", "same_bits",
+                                    "add_equals_composition", "add_max_abs_err",
+                                    "bytes", "plan_sweep")
+                       and not k.startswith("a_")},
                 **extra, cases=cases)
 
 
@@ -858,6 +1006,20 @@ def _profile_report(prof, wall_s):
     return busy_s, groups, lines, text
 
 
+def profile_launches(text):
+    """(device launches, of them sgmv's) in a profile table written by
+    _profile_report: the call counts of its "device time by kernel"
+    section (memory copies and sets included)."""
+    section = text.split("-- device time by kernel\n")[1].split("\n\n")[0]
+    total = sgmv_n = 0
+    for line in section.splitlines():
+        m = re.match(r"\s*[\d.]+ ms\s+(\d+) calls  (.*)", line)
+        if m:
+            total += int(m.group(1))
+            sgmv_n += int(m.group(1)) if _kernel_group(m.group(2)) == "sgmv" else 0
+    return total, sgmv_n
+
+
 def _groups_line(groups):
     return ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(),
                                                        key=lambda kv: -kv[1]))
@@ -879,9 +1041,13 @@ def profile_serve(torch, cfg, params, adapters, out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "serve_profile.txt").write_text(
         f"decode steps {st.decode_steps}, " + text)
+    total, n_sgmv = profile_launches(text)
+    forwards = st.decode_steps + 1
     log(f"[4b profile] {st.decode_steps} decode steps, wall {st.wall_seconds:.4f} s "
         f"(under the profiler), device busy {busy_s:.4f} s = "
-        f"{100 * busy_s / st.wall_seconds:.1f}%; device ms by group: "
+        f"{100 * busy_s / st.wall_seconds:.1f}%; {total} device launches = "
+        f"{total / forwards:.1f} a forward ({forwards} forwards; sgmv {n_sgmv} = "
+        f"{n_sgmv / forwards:.1f} a forward); device ms by group: "
         + _groups_line(groups))
     for line in lines[:12]:
         log("  " + line[:150])
@@ -1264,8 +1430,9 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
                              f"{st.restores} replays {st.replays}")
     if pages["kv_pages_peak"] > POOL_PAGES or pages["kv_pages_used"] != 0:
         raise AssertionError(f"phase 8: pages {pages}")
+    n_sgmv = 6 * cfg.num_layers * (st.decode_steps + forwards["n"])
     want = {"paged_gqa_decode": cfg.num_layers * st.decode_steps, "gqa_decode": 0,
-            "sgmv": 6 * cfg.num_layers * (st.decode_steps + forwards["n"])}
+            "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"phase 8: launches {got}, want {want}")
@@ -1313,6 +1480,7 @@ def paged_check(torch, M, cfg, params, adapters, comps):
     cross a page boundary. On the CPU the same on a dense cache with the
     plain versions. The logprobs must agree within TF_TOL."""
     from repro_torch.kernels import paged_decode as paged
+    from repro_torch.kernels import sgmv
     from repro_torch.lora.adapters import batched_ctx, stack_adapters
     from repro_torch.rollout.prefill import _bucket_len
 
@@ -1342,7 +1510,7 @@ def paged_check(torch, M, cfg, params, adapters, comps):
         p32 = fp32(params)
         lora = batched_ctx(stack_adapters([fp32(a) for a in adapters]),
                            ids.to(dev), cfg)
-        n0 = paged.LAUNCHES.n
+        n0, s0 = paged.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n
         with torch.inference_mode():
             scratch = M.init_cache(cfg, n, S_c, dtype=torch.float32, device=dev)
             _, scratch, _ = M.forward_seq(p32, tokens.to(dev), cfg, lora, scratch)
@@ -1377,6 +1545,9 @@ def paged_check(torch, M, cfg, params, adapters, comps):
         launched = paged.LAUNCHES.n - n0
         if launched != (cfg.num_layers * T if dev == "cuda" else 0):
             raise AssertionError(f"phase 9 on {dev}: {launched} paged launches")
+        launched = sgmv.CUDA_LAUNCHES.n - s0
+        if launched != (6 * cfg.num_layers * (T + 1) if dev == "cuda" else 0):
+            raise AssertionError(f"phase 9 on {dev}: {launched} sgmv launches")
         out[dev] = torch.stack(lps, dim=1).double()
         del p32, lora, scratch, cache
     err = float((out["cuda"] - out["cpu"]).abs().max())
@@ -1393,6 +1564,16 @@ def paged_check(torch, M, cfg, params, adapters, comps):
 
 
 def main(argv):
+    if "--launches-of" in argv:
+        # the launches a forward in a served round's profile table, as
+        # --profile writes it (serve_profile.txt, of this or an older tree)
+        text = Path(argv[argv.index("--launches-of") + 1]).read_text()
+        forwards = int(re.match(r"decode steps (\d+)", text).group(1)) + 1
+        total, n_sgmv = profile_launches(text)
+        print(json.dumps(dict(forwards=forwards, launches=total, sgmv=n_sgmv,
+                              per_forward=total / forwards,
+                              sgmv_per_forward=n_sgmv / forwards)))
+        return 0
     profile_dir = (Path(argv[argv.index("--profile") + 1])
                    if "--profile" in argv else None)
     import torch
@@ -1431,7 +1612,7 @@ def main(argv):
         regs = [k[1] for k in kernels]
         log(f"  {name}: {len(kernels)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores {sum(k[2] for k in kernels)} bytes in all")
-        if name == "token_logprob":
+        if name in ("token_logprob", "sgmv"):
             log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
                                    for k in kernels))
         if name in ("gqa_decode", "paged_decode"):   # the main path: hd 128, rep 2
@@ -1464,16 +1645,17 @@ def main(argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gqa.LAUNCHES.n = 0
-    sgmv.LAUNCHES.n = 0
+    sgmv.LAUNCHES.n = sgmv.CUDA_LAUNCHES.n = 0
     results, stats = engine.generate(reqs, adapters)
-    n_gqa, n_sgmv = gqa.LAUNCHES.n, sgmv.LAUNCHES.n
+    n_gqa, n_sgmv, n_sgmv_cuda = gqa.LAUNCHES.n, sgmv.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = stats.decode_steps
     want_gqa = cfg.num_layers * steps
     want_sgmv = 6 * cfg.num_layers * (steps + 1)
-    if (n_gqa, n_sgmv) != (want_gqa, want_sgmv):
+    if (n_gqa, n_sgmv, n_sgmv_cuda) != (want_gqa, want_sgmv, want_sgmv):
         raise AssertionError(f"launch counts gqa_decode {n_gqa} (want {want_gqa}), "
-                             f"sgmv {n_sgmv} (want {want_sgmv})")
+                             f"sgmv {n_sgmv} calls and {n_sgmv_cuda} CUDA launches "
+                             f"(want {want_sgmv})")
     B = len(reqs)
     for r, q in zip(results, reqs):
         gen_toks = r["tokens"][r["prompt_len"]:]
@@ -1491,8 +1673,8 @@ def main(argv):
         f"{decode_tokens} decode tokens in {stats.decode_seconds:.3f} s = "
         f"{tok_s:.1f} tok/s ({1e3 * stats.decode_seconds / steps:.2f} ms/step), "
         f"prefill {stats.prefill_seconds:.4f} s, peak memory {peak_gib:.2f} GiB, "
-        f"launches gqa_decode {n_gqa} sgmv {n_sgmv} (= {cfg.num_layers} x {steps}, "
-        f"6 x {cfg.num_layers} x {steps + 1}) on {card}")
+        f"launches gqa_decode {n_gqa} sgmv {n_sgmv} calls, {n_sgmv_cuda} CUDA launches "
+        f"(= {cfg.num_layers} x {steps}, 6 x {cfg.num_layers} x {steps + 1}) on {card}")
 
     if profile_dir is not None:
         profile_serve(torch, cfg, params, adapters, profile_dir)
@@ -1500,10 +1682,12 @@ def main(argv):
     # -- phase 5: teacher-forced fp32, card (kernels) vs CPU (plain) --------
     rows = [(results[i], reqs[i].adapter_index)
             for i in range(0, B, B // TF_ROWS)][:TF_ROWS]
-    n_sgmv0 = sgmv.LAUNCHES.n
+    n_sgmv0, n_cuda0 = sgmv.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n
     on_card = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cuda")
-    if sgmv.LAUNCHES.n - n_sgmv0 != 6 * cfg.num_layers:
-        raise AssertionError("the fp32 card forward did not run the sgmv kernel")
+    if (sgmv.LAUNCHES.n - n_sgmv0, sgmv.CUDA_LAUNCHES.n - n_cuda0) \
+            != (6 * cfg.num_layers,) * 2:
+        raise AssertionError("the fp32 card forward did not run the sgmv kernel "
+                             "once a projection")
     on_cpu = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cpu")
     tf_err = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
     served = [torch.tensor(r["gen_logprobs"], dtype=torch.float64) for r, _ in rows]
@@ -1517,6 +1701,7 @@ def main(argv):
 
     # -- phases 6 and 7: GRPO training, then fp32 card vs CPU ---------------
     counters = {"gqa_decode": gqa.LAUNCHES, "sgmv": sgmv.LAUNCHES,
+                "sgmv_cuda": sgmv.CUDA_LAUNCHES,
                 "paged_gqa_decode": paged.LAUNCHES,
                 "token_logprob_fwd": tlp.FWD_LAUNCHES,
                 "token_logprob_bwd": tlp.BWD_LAUNCHES}
@@ -1548,6 +1733,7 @@ def main(argv):
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
     bwd_main = next(c for c in tlp_bwd_cases if c["main"])
+    sgmv_main = next(c for c in sgmv_cases if c["main"])
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
@@ -1556,7 +1742,12 @@ def main(argv):
                           plan=gqa_main["plan"])),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases, n_sgmv,
-                     dict(launches_per_decode_step=6 * cfg.num_layers)),
+                     dict(launches_per_decode_step=6 * cfg.num_layers,
+                          cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
+                          plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
+                          sgmv_ms=sgmv_main["a_ms"],
+                          sgmv_bound_ms=sgmv_main["a_bound_ms"],
+                          sgmv_library_ms=sgmv_main["a_library_ms"])),
         kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases, n_fwd,
                      dict(launches_per_train_step=2,

@@ -44,8 +44,9 @@ SIGNATURES = {
                                                       _P, _P],
     },
     "sgmv": {
-        # x, a, b, ids, h_part, y, R, d, r, dout, ksplit, x_dtype, stream
-        "sgmv_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, a, b, tmap, out, R, d, r, dout, x_dtype, add, scaling, bm, bn,
+        # kc, cluster, row_tiles, stream, launched
+        "sgmv_launch": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P, _P],
     },
     "token_logprob": {
         # h, w, tgt, part, lp, ent, lse, R, d, V, ws_k, ws_v, vsplit,

@@ -22,6 +22,14 @@ def sgmv_ref(rows, a, b, ids):
     return out
 
 
+def sgmv_add_ref(y, rows, a, b, ids, scaling: float):
+    """y += (scaling * sgmv_ref(rows, a, b, ids)).to(rows.dtype), in place,
+    rounded as ``y + d.to(y.dtype)`` rounds; rows [..., d] and y [...,
+    dout] hold the R rows of ids [R]. Returns y."""
+    d = sgmv_ref(rows.reshape(-1, rows.shape[-1]), a, b, ids)
+    return y.add_((d * scaling).to(rows.dtype).reshape(y.shape))
+
+
 def _logits_ref(h, w, softcap):
     """Softcapped fp32 logits of h [..., d] against w [d, V]."""
     z = h.float() @ w.float()

@@ -5,16 +5,18 @@ belonging to *different* tenants, each with its own adapter (port of
 `multi_lora_delta` computes   y[i] += s · (x[i] @ A[g_i]) @ B[g_i]
 for per-row task ids g. Two code paths, chosen by where the tensors lie:
 
-- on the card: the hand-written SGMV kernel (kernels/sgmv), each row
-  gathering its own adapter;
+- on the card: the hand-written SGMV kernel (kernels/sgmv), rows grouped
+  by adapter through a segment table;
 - on the CPU: ``multi_lora_delta_ref``, masked accumulation over tasks —
   O(T) dense matmuls, exact, the oracle the tests hold the port to.
+
+The model's projections do not call it on the card: the batched
+``LoraCtx`` adds the delta into the projection's output in place
+(``kernels.sgmv.sgmv_add_``), one launch a projection.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels.ops import sgmv
+from repro_torch.kernels.sgmv import sgmv, sgmv_table
 
 
 def multi_lora_delta(x, a, b, row_task_ids, scaling: float):
@@ -23,11 +25,9 @@ def multi_lora_delta(x, a, b, row_task_ids, scaling: float):
         return multi_lora_delta_ref(x, a, b, row_task_ids, scaling)
     x3 = x[:, None, :] if x.dim() == 2 else x
     B, S, d = x3.shape
-    rows = x3.reshape(B * S, d)
-    ids = row_task_ids.to(torch.int32)
-    if S > 1:
-        ids = torch.repeat_interleave(ids, S)
-    out = sgmv(rows.contiguous(), a, b, ids)
+    table = sgmv_table(row_task_ids, a.shape[0], S)
+    out = sgmv(x3.reshape(B * S, d).contiguous(), a, b, table.ids,
+               table=table)
     out = out.reshape(B, S, -1) * scaling
     return (out[:, 0] if x.dim() == 2 else out).to(x.dtype)
 

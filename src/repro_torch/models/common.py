@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.sgmv import check_adapters, sgmv_add_, sgmv_table
 from repro_torch.lora.multilora import multi_lora_delta
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -122,18 +123,28 @@ class LoraCtx:
 
     Unlike the JAX package there is no ``use_kernel`` switch: the batched
     delta launches the SGMV kernel whenever its tensors lie on the card.
+    A batched ctx on the card checks its adapters once, when it is built,
+    and builds the rows' segment table once a forward (per rows-per-sequence
+    S) on first use; the layer ctxs of ``at_layer`` share both.
     """
 
     def __init__(self, mode: str, tree=None, row_task_ids=None,
-                 scaling: float = 1.0):
+                 scaling: float = 1.0, *, _tables=None):
         self.mode = mode
         self.tree = tree            # {target: {"a": ..., "b": ...}} (stacked L)
         self.row_task_ids = row_task_ids
         self.scaling = scaling
+        self._tables = _tables      # S -> SgmvTable, shared with layer ctxs
+        if mode == "batched" and _tables is None:
+            self._tables = {}
+            for pair in _adapter_pairs(tree):
+                if pair["a"].is_cuda:
+                    check_adapters(pair["a"], pair["b"])
 
     def at_layer(self, layer_tree):
         """Return a shallow ctx bound to one layer's adapter slices."""
-        return LoraCtx(self.mode, layer_tree, self.row_task_ids, self.scaling)
+        return LoraCtx(self.mode, layer_tree, self.row_task_ids, self.scaling,
+                       _tables=self._tables)
 
     def delta(self, x, name: str):
         """LoRA contribution for projection `name`, or None."""
@@ -147,6 +158,34 @@ class LoraCtx:
         # batched multi-LoRA: a [T, d, r], b [T, r, dout]; rows carry task ids
         return multi_lora_delta(x, a, b, self.row_task_ids, self.scaling)
 
+    def add_delta(self, y, x, name: str):
+        """y plus the LoRA contribution for projection `name`. A batched ctx
+        on the card adds it into y in place, in one SGMV launch
+        (``sgmv_add_``: what ``y + delta(x).to(y.dtype)`` gives, to the
+        bit); every other case returns ``y + delta(x).to(y.dtype)``."""
+        if self.mode == "off" or self.tree is None or name not in self.tree:
+            return y
+        if self.mode == "batched" and x.is_cuda:
+            a, b = self.tree[name]["a"], self.tree[name]["b"]
+            S = x.shape[1] if x.dim() == 3 else 1
+            table = self._tables.get(S)
+            if table is None:
+                table = self._tables[S] = sgmv_table(self.row_task_ids,
+                                                     a.shape[0], S)
+            sgmv_add_(y, x.contiguous(), a, b, table, self.scaling,
+                      checked=True)
+            return y
+        return y + self.delta(x, name).to(y.dtype)
+
+
+def _adapter_pairs(tree):
+    """Every {"a", "b"} node of an adapter tree."""
+    if not isinstance(tree, dict):
+        return []
+    if "a" in tree and "b" in tree:
+        return [tree]
+    return [p for v in tree.values() for p in _adapter_pairs(v)]
+
 
 def proj(x, w, b=None, *, lora: Optional[LoraCtx] = None, name: str = ""):
     """y = x @ w (+ b) (+ lora delta). x: [..., d_in], w: [d_in, d_out]."""
@@ -154,9 +193,7 @@ def proj(x, w, b=None, *, lora: Optional[LoraCtx] = None, name: str = ""):
     if b is not None:
         y = y + b.to(y.dtype)
     if lora is not None:
-        d = lora.delta(x, name)
-        if d is not None:
-            y = y + d.to(y.dtype)
+        y = lora.add_delta(y, x, name)
     return y
 
 

@@ -65,6 +65,163 @@ def test_sgmv_matches_plain_with_empty_groups(card, xdt):
                                ref.sgmv_ref(x, a, b, ids), rtol=1e-5, atol=1e-4)
 
 
+def _sgmv_case(card, R, T, d, r, dout, xdt, kind):
+    """Rows, adapters (fp32) and slot ids: `kind` "empty" leaves slots 1
+    and 2 without rows, "each" gives every row its own slot (T = R)."""
+    x = torch.randn(R, d, generator=card, device="cuda").to(xdt)
+    a = torch.randn(T, d, r, generator=card, device="cuda") / d ** 0.5
+    b = torch.randn(T, r, dout, generator=card, device="cuda") * 0.1
+    if kind == "each":
+        ids = torch.randperm(T, generator=card, device="cuda")[:R]
+    elif kind == "empty":
+        ids = torch.tensor([0, 3], device="cuda")[
+            torch.randint(0, 2, (R,), generator=card, device="cuda")]
+    else:
+        ids = torch.randint(0, T, (R,), generator=card, device="cuda")
+    return x, a, b, ids.to(torch.int32)
+
+
+def _assert_add_close(got, want, y0, delta):
+    """Epilogue b against its plain version: fp32 rows at rtol 1e-5, atol
+    1e-4; bf16 rows may also differ by one bf16 step (2^-7 of the value) of
+    the delta's and the sum's rounding, where the two fp32 products differ
+    in their last bits and round the other way."""
+    err = (got.float() - want.float()).abs()
+    tol = 1e-4 + 1e-5 * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        top = torch.maximum(got.float().abs(), want.float().abs())
+        tol = tol + 2.0 ** -7 * (top + delta.abs())
+    assert bool((err <= tol).all()), float(err.max())
+
+
+SGMV_CASES = [  # R, T, d, r, dout, kind
+    (16, 4, 1024, 16, 6144, "uniform"),     # decode, mlp_in
+    (16, 4, 3072, 16, 1024, "empty"),       # decode, mlp_out, empty slots
+    (16, 16, 1024, 16, 2048, "each"),       # one row a slot
+    (40, 4, 1024, 16, 1000, "empty"),       # ragged dout
+    (37, 5, 72, 4, 100, "uniform"),         # ragged d slices, rank 4
+    (128, 4, 2048, 8, 1028, "uniform"),     # prefill rows, rank 8
+    (300, 16, 1024, 32, 512, "uniform"),    # several tiles a slot, rank 32
+    (2048, 4, 1024, 16, 6144, "uniform"),   # a continuous-prefill size
+]
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,T,d,r,dout,kind", SGMV_CASES)
+def test_sgmv_both_epilogues_match_plain(card, R, T, d, r, dout, kind, xdt):
+    """sgmv (epilogue a) against sgmv_ref at fp32 1e-5 / 1e-4; sgmv_add_
+    (epilogue b) bit-equal to a's output followed by the torch composition
+    and close to sgmv_add_ref; one CUDA launch a call; two calls the same
+    bits."""
+    x, a, b, ids = _sgmv_case(card, R, T, d, r, dout, xdt, kind)
+    table = sgmv.sgmv_table(ids, T)
+    n = sgmv.CUDA_LAUNCHES.n
+    got = sgmv.sgmv(x, a, b, ids, table=table)
+    assert sgmv.CUDA_LAUNCHES.n - n == 1
+    want = ref.sgmv_ref(x, a, b, ids)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(sgmv.sgmv(x, a, b, ids, table=table), got)
+    assert torch.equal(sgmv.sgmv(x, a, b, ids), got)   # a table built per call
+    s = 0.37
+    y0 = torch.randn(R, dout, generator=card, device="cuda").to(xdt)
+    y = y0.clone()
+    n = sgmv.CUDA_LAUNCHES.n
+    assert sgmv.sgmv_add_(y, x, a, b, table, s) is y
+    assert sgmv.CUDA_LAUNCHES.n - n == 1
+    assert torch.equal(y, y0 + (got * s).to(xdt))
+    again = sgmv.sgmv_add_(y0.clone(), x, a, b, table, s)
+    assert torch.equal(again, y)
+    _assert_add_close(y, ref.sgmv_add_ref(y0.clone(), x, a, b, ids, s), y0,
+                      want * s)
+
+
+@pytest.mark.parametrize("S", [1, 8])
+def test_sgmv_add_over_sequences_matches_the_delta(card, S):
+    """A table of per-sequence ids with S rows each: sgmv_add_ equals y
+    plus multi_lora_delta's [B, S, dout] delta to the bit."""
+    B, T, d, r, dout = 16, 4, 1024, 16, 2048
+    x = torch.randn(B, S, d, generator=card, device="cuda").to(torch.bfloat16)
+    a = torch.randn(T, d, r, generator=card, device="cuda") / 32
+    b = torch.randn(T, r, dout, generator=card, device="cuda") * 0.1
+    ids = torch.randint(0, T, (B,), generator=card, device="cuda")
+    y0 = torch.randn(B, S, dout, generator=card, device="cuda").to(torch.bfloat16)
+    from repro_torch.lora.multilora import multi_lora_delta
+    want = y0 + multi_lora_delta(x if S > 1 else x[:, 0], a, b, ids,
+                                 0.5).reshape(B, S, dout)
+    y = y0.clone()
+    sgmv.sgmv_add_(y.view(B * S, dout), x.reshape(B * S, d), a, b,
+                   sgmv.sgmv_table(ids, T, S), 0.5)
+    assert torch.equal(y, want)
+
+
+def test_sgmv_graph_replay_gives_eager_bits(card):
+    """Both epilogues captured in a CUDA graph: replays give the eager
+    calls' bits."""
+    x, a, b, ids = _sgmv_case(card, 16, 4, 1024, 16, 6144, torch.bfloat16,
+                              "uniform")
+    table = sgmv.sgmv_table(ids, 4)
+    y0 = torch.randn(16, 6144, generator=card, device="cuda").to(torch.bfloat16)
+    eager = sgmv.sgmv(x, a, b, ids, table=table)
+    eager_y = sgmv.sgmv_add_(y0.clone(), x, a, b, table, 0.25)
+    out = torch.empty_like(eager)
+    y = y0.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(sgmv.sgmv(x, a, b, ids, table=table))
+        sgmv.sgmv_add_(y, x, a, b, table, 0.25)
+    for _ in range(2):
+        out.zero_()
+        y.copy_(y0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(y, eager_y)
+
+
+def test_sgmv_refuses_autograd(card):
+    """The kernel has no backward: a card call whose operands autograd
+    tracks raises instead of dropping their gradients; under no_grad it
+    runs."""
+    x, a, b, ids = _sgmv_case(card, 8, 2, 64, 4, 32, torch.float32, "uniform")
+    table = sgmv.sgmv_table(ids, 2)
+    y = torch.zeros(8, 32, device="cuda")
+    for args in ((x.requires_grad_(True), a, b), (x.detach(), a.requires_grad_(True), b)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            sgmv.sgmv(*args, ids)
+        with pytest.raises(RuntimeError, match="no backward"):
+            sgmv.sgmv_add_(y, *args, table, 1.0)
+        with torch.no_grad():
+            sgmv.sgmv_add_(y, *args, table, 1.0)
+
+
+def test_batched_forward_launches_once_per_projection(card):
+    """A batched-ctx forward on the card: one sgmv call and one CUDA launch
+    for each adapted projection of each layer, one segment table for the
+    whole forward, and the logits of the CPU forward."""
+    from repro_torch.lora.adapters import batched_ctx, stack_adapters
+    from repro_torch.models import forward_seq, lm_logits
+    cfg = dataclasses.replace(reduced(REGISTRY["qwen3-0.6b"], dtype="float32"),
+                              vocab_size=tok.VOCAB_SIZE)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 3, seed=0, device="cpu", b_scale=0.2)
+    tokens = torch.randint(0, cfg.vocab_size, (5, 12),
+                           generator=torch.Generator().manual_seed(1))
+    ids = torch.tensor([2, 0, 1, 2, 2], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        ctx = batched_ctx(stack_adapters([tree_map(lambda t: t.to(dev), t)
+                                          for t in adapters]), ids.to(dev), cfg)
+        n, nc = sgmv.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n
+        with torch.no_grad():
+            h, _, _ = forward_seq(p, tokens.to(dev), cfg, ctx)
+            out[dev] = lm_logits(h, p, cfg).cpu()
+        want = 6 * cfg.num_layers if dev == "cuda" else 0
+        assert (sgmv.LAUNCHES.n - n, sgmv.CUDA_LAUNCHES.n - nc) == (want, want)
+        assert len(ctx._tables) == (1 if dev == "cuda" else 0)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros(2, 4, 48, device="cuda")
     cache = torch.zeros(2, 8, 2, 48, device="cuda")
@@ -79,6 +236,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="float32"):
         sgmv.sgmv(x, a, torch.zeros(2, 4, 8, device="cuda"),
                   torch.zeros(4, dtype=torch.int32, device="cuda"))
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="rank"):      # rank 12
+        sgmv.sgmv(x, torch.zeros(2, 64, 12, device="cuda"),
+                  torch.zeros(2, 12, 8, device="cuda"), ids)
+    a32, b32 = torch.zeros(2, 64, 4, device="cuda"), torch.zeros(2, 4, 8, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):     # y not in the rows' dtype
+        sgmv.sgmv_add_(torch.zeros(4, 8, device="cuda", dtype=torch.bfloat16),
+                       x, a32, b32, sgmv.sgmv_table(ids, 2), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sgmv.sgmv_add_(torch.zeros(8, 4, device="cuda").T, x, a32, b32,
+                       sgmv.sgmv_table(ids, 2), 1.0)
 
 
 def test_generate_on_card_matches_cpu(card):
@@ -93,7 +261,7 @@ def test_generate_on_card_matches_cpu(card):
     reqs = make_requests(2, 3, max_new_tokens=8)
     res_cpu, _ = RolloutEngine(cfg, params, max_len=48, device="cpu").generate(
         reqs, adapters)
-    gqa.LAUNCHES.n = sgmv.LAUNCHES.n = 0
+    gqa.LAUNCHES.n = sgmv.LAUNCHES.n = sgmv.CUDA_LAUNCHES.n = 0
     def to_card(tree):
         return tree_map(lambda t: t.to("cuda"), tree)
     res_gpu, st = RolloutEngine(cfg, to_card(params), max_len=48,
@@ -101,6 +269,7 @@ def test_generate_on_card_matches_cpu(card):
         reqs, [to_card(t) for t in adapters])
     assert gqa.LAUNCHES.n == cfg.num_layers * st.decode_steps
     assert sgmv.LAUNCHES.n == 6 * cfg.num_layers * (st.decode_steps + 1)
+    assert sgmv.CUDA_LAUNCHES.n == sgmv.LAUNCHES.n
     for a, b in zip(res_cpu, res_gpu):
         assert a["tokens"] == b["tokens"]
         torch.testing.assert_close(torch.tensor(b["gen_logprobs"]),

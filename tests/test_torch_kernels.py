@@ -118,12 +118,3 @@ def test_cpu_wrappers_do_not_count_launches():
              torch.zeros(2, dtype=torch.int32))
     assert (gqa_mod.LAUNCHES.n, sgmv_mod.LAUNCHES.n) == (n_g, n_s)
 
-
-def test_sgmv_split_covers_d():
-    """The shrink launch's d slices cover d exactly and shrink as rows grow."""
-    for R in (1, 16, 100, 768, 5000):
-        for d in (48, 1024, 3072):
-            ks = sgmv_mod.split_for(R, d)
-            dc = -(-d // ks)
-            assert ks >= 1 and dc * ks >= d and dc * (ks - 1) < d
-    assert sgmv_mod.split_for(16, 1024) > sgmv_mod.split_for(768, 1024) == 1
