@@ -54,7 +54,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     sgmv 168 per forward;
  9. paged check: 4 of phase 8's rows in fp32, 16 teacher-forced decode
     steps over shuffled pages on the card (paged_gqa_decode) against a dense
-    cache on the CPU (plain versions), logprobs within TF_TOL.
+    cache on the CPU (plain versions), logprobs within TF_TOL;
+10. runtime: MARLaaSRuntime at the same full size, 4 tenants (2 gsm8k, 2
+    amc12; groups of 4, 2 groups a round, 32 new tokens, 3 steps each) with
+    random-b adapters and a graded verifier (the share of even token ids,
+    so that rewards differ within a group and every update is nonzero), the
+    continuous engine on the rollout thread and the GRPO trainer on the
+    trainer thread. In both runs every commit's grad_norm is above 0, every
+    adapter install is a tree the manager committed and equals the engine's
+    stacked slot after it, and each tenant's trained trees reach the
+    engine. Run A, the runtime's defaults (16
+    slots, dense cache, round-synchronous trainer): every tenant at version
+    3, 12 commits, 96 rows trained and none orphaned, train intervals
+    serialised, a decode interval serving several tenants and one
+    overlapping a train interval; gqa_decode 28 launches a decode step,
+    sgmv 168 a forward, token_logprob 1 forward and 1 backward a commit.
+    Run B, the asynchronous trainer (max_staleness 1, micro-batches of one
+    group, the importance weight on) over the paged pool: every tenant
+    done, an exact row account, paged_gqa_decode 28 launches a decode step
+    and gqa_decode none, the pool whole at the end. Each run prints its
+    wall time to the last commit, the runtime's summary, decode ms/step
+    inside and outside train intervals, train ms/step and the launches.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -87,6 +107,12 @@ CONT_PER_TENANT, CONT_MAX_NEW, CONT_SLOTS = 8, 64, 16    # phase 8
 CONT_MAX_LEN, PAGE, POOL_PAGES = 512, 16, 128            # paged pool
 PREEMPT_AT = 10         # phase 8: preempt tenant-1 after this decode step
 PAGED_TF_ROWS, PAGED_TF_STEPS = 4, 16                    # phase 9
+RT_ENVS = ("gsm8k", "gsm8k", "amc12", "amc12")           # phase 10: tenants
+RT_SPEC = dict(group_size=4, num_groups=2, max_new_tokens=32, target_steps=3)
+RT_SLOTS = 16
+RT_RUNS = {"A": {},                                      # the defaults
+           "B": dict(async_train=True, max_staleness=1, min_train_rows=4,
+                     paged_kv=True, prefix_cache=False, kv_page_size=PAGE)}
 
 
 def log(msg):
@@ -1563,6 +1589,195 @@ def paged_check(torch, M, cfg, params, adapters, comps):
                 served_bf16_vs_fp32=bf16_dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the runtime, rollout and trainer threads on one card
+# ---------------------------------------------------------------------------
+
+def _median(xs):
+    xs = sorted(xs)
+    return (xs[len(xs) // 2] + xs[(len(xs) - 1) // 2]) / 2 if xs else float("nan")
+
+
+def graded_env(env):
+    """`env` with a graded verifier, the share of even token ids in a
+    completion: random weights earn no task reward, and with every reward
+    equal the GRPO advantages, gradients and updates would all be 0."""
+    class Graded(type(env)):
+        def verify(self, truth, completion_ids):
+            ids = list(completion_ids)
+            return sum(t % 2 == 0 for t in ids) / max(1, len(ids))
+    return Graded()
+
+
+def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
+    """Phase 10, one run: MARLaaSRuntime with RT_RUNS[run] over RT_ENVS'
+    tenants, each rewarded by a graded verifier. The engine's step, refill
+    and the trainer's step are wrapped to time each engine step, count
+    prefill forwards and keep each commit's metrics; the manager's commit
+    and the engine's set_adapters to check that every install is a
+    committed tree and lands in the stacked buffer the decode reads;
+    launches are counted from just before run() to just after. Raises on
+    any miss; returns the record."""
+    import math
+    from repro_torch.core.manager import TaskSpec
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.runtime import MARLaaSRuntime, RuntimeConfig
+    from repro_torch.launch.serve import make_adapters
+    from repro_torch.models import tree_leaves
+
+    rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
+        policy="marlaas", device=device, max_slots=RT_SLOTS,
+        max_adapter_slots=len(RT_ENVS), max_len=MAX_LEN, seed=0,
+        **RT_RUNS[run]))
+    adapters = make_adapters(cfg, len(RT_ENVS), seed=20, device=device,
+                             b_scale=B_SCALE)
+    tids = [f"{env}-{i}" for i, env in enumerate(RT_ENVS)]
+    for tid, env, tree in zip(tids, RT_ENVS, adapters):
+        rt.submit_task(TaskSpec(tid, env, **RT_SPEC), tree)
+        rt.envs[tid] = graded_env(rt.envs[tid])
+    eng = rt.cengine
+    # every tree a tenant held: its initial one, then each commit's (listed
+    # before the manager publishes it, so the rollout thread finds it)
+    committed, commit, set_adapters = list(adapters), rt.mgr.commit, eng.set_adapters
+    installed = {tid: 0 for tid in tids}       # installs of a trained tree
+
+    def listed_commit(tid, tree, *a, **kw):
+        committed.append(tree)
+        return commit(tid, tree, *a, **kw)
+
+    def checked_install(slot, tree):
+        set_adapters(slot, tree)
+        owner = [tid for tid in tids if rt.mgr.state(tid).adapter_slot == slot]
+        if not any(tree is t for t in committed) or len(owner) != 1:
+            raise AssertionError(f"phase 10 {run}: slot {slot} installed a tree "
+                                 f"no tenant committed (owners {owner})")
+        if not all(torch.equal(buf[:, slot], leaf) for buf, leaf in
+                   zip(tree_leaves(eng._stacked), tree_leaves(tree))):
+            raise AssertionError(f"phase 10 {run}: slot {slot} differs from its tree")
+        installed[owner[0]] += not any(tree is t for t in adapters)
+    rt.mgr.commit, eng.set_adapters = listed_commit, checked_install
+    eng._ensure_built()
+    refill, step, forwards, steps = eng._refill_fn, eng.step, {"n": 0}, []
+
+    def counted_refill(*a):
+        forwards["n"] += 1
+        return refill(*a)
+
+    def timed_step():
+        d0, f0 = eng.stats.decode_steps, forwards["n"]
+        t0 = time.monotonic()
+        out = step()
+        steps.append((t0, time.monotonic(), eng.stats.decode_steps - d0,
+                      forwards["n"] - f0))
+        return out
+    eng._refill_fn, eng.step = counted_refill, timed_step
+    train_step, metrics = rt._train_step_for(rt.mgr.spec_for(tids[0])), []
+
+    def kept_step(*a):
+        out = train_step(*a)
+        metrics.append(out[2])
+        return out
+    rt._train_steps[RT_SPEC["group_size"]] = kept_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_all(counters, reset=True)
+    t0 = time.monotonic()
+    rt.run(timeout_s=600)
+    launches = count_all(counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = max(st.last_step_at for _, st in rt.mgr.task_items()) - t0
+    states = dict(rt.mgr.task_items())
+    if not rt.mgr.all_done() or any(st.version != RT_SPEC["target_steps"]
+                                    for st in states.values()):
+        raise AssertionError(f"phase 10 {run}: versions "
+                             f"{[st.version for st in states.values()]}")
+    commits = rt.mgr.total_steps_done()
+    acc = rt.row_accounting()
+    if acc["orphaned"] or acc["failed"] or acc["quarantine_dropped"] or \
+            acc["completed"] != (acc["trained"] + acc["stale_dropped"]
+                                 + acc["discarded_tails"]):
+        raise AssertionError(f"phase 10 {run}: row accounting {acc}")
+    ivs = rt.rec.intervals
+    trains = sorted([iv for iv in ivs if iv.phase == "train"], key=lambda iv: iv.start)
+    decodes = [iv for iv in ivs if iv.phase == "decode"]
+    if len(trains) != commits or any(b.start < a.end - 1e-6
+                                     for a, b in zip(trains, trains[1:])):
+        raise AssertionError(f"phase 10 {run}: train intervals not serialised")
+    decode_steps = eng.stats.decode_steps
+    n_sgmv = 6 * cfg.num_layers * (decode_steps + forwards["n"])
+    attn = "paged_gqa_decode" if RT_RUNS[run].get("paged_kv") else "gqa_decode"
+    want = {"gqa_decode": 0, "paged_gqa_decode": 0, "sgmv": n_sgmv,
+            "sgmv_cuda": n_sgmv, "token_logprob_fwd": commits,
+            "token_logprob_bwd": commits}
+    want[attn] = cfg.num_layers * decode_steps
+    got = {k: launches[k] for k in want}
+    if run == "A":
+        if commits != len(RT_ENVS) * RT_SPEC["target_steps"] or acc != dict(
+                completed=96, trained=96, stale_dropped=0, discarded_tails=0,
+                failed=0, quarantine_dropped=0, orphaned=0):
+            raise AssertionError(f"phase 10 A: {commits} commits, rows {acc}")
+        if not any("+" in iv.task_id for iv in decodes):
+            raise AssertionError("phase 10 A: no decode interval served two tenants")
+        if not any(d.start < t.end and t.start < d.end for d in decodes for t in trains):
+            raise AssertionError("phase 10 A: no decode interval overlaps a train interval")
+    else:
+        if eng._pages.used_pages != 0:
+            raise AssertionError(f"phase 10 B: {eng._pages.used_pages} pages held")
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    losses = [float(m["loss"]) for m in metrics]
+    if len(metrics) != commits or not all(map(math.isfinite, grad_norms + losses)) \
+            or not all(g > 0 for g in grad_norms):
+        raise AssertionError(f"phase 10 {run}: train metrics {grad_norms} {losses}")
+    if not all(installed.values()):
+        raise AssertionError(f"phase 10 {run}: trained trees installed {installed}")
+
+    def inside(t0_, t1_):
+        return any(t0_ < t.end and t.start < t1_ for t in trains)
+    pure = [(a, b) for a, b, d, f in steps if d == 1 and f == 0]
+    d_in = [1e3 * (b - a) for a, b in pure if inside(a, b)]
+    d_out = [1e3 * (b - a) for a, b in pure if not inside(a, b)]
+    summary = summarize(rt.mgr, rt.rec)
+    counters_ = rt.rec.counters_snapshot()
+    drops = rt.mgr.drop_counters()
+    rec = dict(run=run, config=RT_RUNS[run], tenants=len(RT_ENVS), **RT_SPEC,
+               slots=RT_SLOTS, max_len=MAX_LEN, wall_to_last_commit_s=wall,
+               commits=commits, rows=acc, decode_steps=decode_steps,
+               refill_forwards=forwards["n"],
+               decode_ms_per_step=1e3 * eng.stats.decode_seconds / decode_steps,
+               decode_only_steps=len(pure),
+               decode_step_ms_median=_median(d_in + d_out),
+               decode_step_ms_median_in_train=_median(d_in),
+               decode_step_ms_median_outside_train=_median(d_out),
+               decode_steps_in_train=len(d_in), decode_steps_outside_train=len(d_out),
+               train_ms_median=_median([1e3 * (t.end - t.start) for t in trains]),
+               train_ms=[1e3 * (t.end - t.start) for t in trains],
+               grad_norm=grad_norms, loss=losses, trained_trees_installed=installed,
+               reward_history={tid: st.reward_history for tid, st in rt.mgr.task_items()},
+               stale_rows_trained=counters_.get("stale_rows_trained", 0),
+               stale_rows_dropped=drops["stale_rows_dropped"],
+               discarded_tail_rows=drops["discarded_tail_rows"],
+               summary={k: summary[k] for k in (
+                   "span_s", "total_steps", "utilization_pct", "idle_pct",
+                   "ttfs_mean_s", "ttfs_max_s", "tpts_mean_s", "slot_util_pct",
+                   "steps_per_hr")},
+               peak_mem_gib=peak_gib, launches=launches, card=card)
+    log(f"[10 runtime {run}] {len(RT_ENVS)} tenants x {RT_SPEC['target_steps']} steps "
+        f"({RT_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, {commits} commits, "
+        f"rows {acc}; {decode_steps} decode steps ({forwards['n']} prefill forwards), "
+        f"decode {rec['decode_step_ms_median']:.2f} ms/step median "
+        f"({rec['decode_step_ms_median_in_train']:.2f} in {len(d_in)} steps inside "
+        f"train intervals, {rec['decode_step_ms_median_outside_train']:.2f} in "
+        f"{len(d_out)} outside), train {rec['train_ms_median']:.1f} ms/step median; "
+        f"grad_norm {min(grad_norms):.3e}-{max(grad_norms):.3e}, trained trees "
+        f"installed {sum(installed.values())}; stale rows trained "
+        f"{rec['stale_rows_trained']} dropped {rec['stale_rows_dropped']}; summary "
+        f"{json.dumps(rec['summary'])}; peak {peak_gib:.2f} GiB; launches {got} on {card}")
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase 10 {run}: launches {got}, want {want}")
+    return rec
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -1722,6 +1937,12 @@ def main(argv):
         profile_continuous(torch, cfg, params, adapters, profile_dir)
     cont["check"] = paged_check(torch, M, cfg, params, adapters, comps)
 
+    # -- phase 10: the runtime, rollout and trainer threads ------------------
+    runtime = {run: runtime_phase(torch, cfg, params, counters, card, run)
+               for run in RT_RUNS}
+    rt_launch = {k: sum(r["launches"][k] for r in runtime.values())
+                 for k in counters}
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
@@ -1729,6 +1950,7 @@ def main(argv):
         seconds=time.monotonic() - t_all, build_s=secs, card=card)}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"continuous": cont}), flush=True)
+    print(json.dumps({"runtime": runtime}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -1736,38 +1958,56 @@ def main(argv):
     sgmv_main = next(c for c in sgmv_cases if c["main"])
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
-                     "src/repro/kernels/gqa_decode.py:71", gqa_cases, n_gqa,
-                     dict(launches_per_decode_step=cfg.num_layers,
+                     "src/repro/kernels/gqa_decode.py:71", gqa_cases,
+                     n_gqa + rt_launch["gqa_decode"],
+                     dict(launches_by_phase={"serve (4)": n_gqa, **{
+                         f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
+                         for r in runtime}},
+                          launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
-                     "src/repro/kernels/sgmv.py:64", sgmv_cases, n_sgmv,
-                     dict(launches_per_decode_step=6 * cfg.num_layers,
+                     "src/repro/kernels/sgmv.py:64", sgmv_cases,
+                     n_sgmv + rt_launch["sgmv"],
+                     dict(launches_by_phase={"serve (4)": n_sgmv, **{
+                         f"runtime {r} (10)": runtime[r]["launches"]["sgmv"]
+                         for r in runtime}},
+                          launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
                           sgmv_ms=sgmv_main["a_ms"],
                           sgmv_bound_ms=sgmv_main["a_bound_ms"],
                           sgmv_library_ms=sgmv_main["a_library_ms"])),
         kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
-                     "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases, n_fwd,
-                     dict(launches_per_train_step=2,
+                     "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases,
+                     n_fwd + rt_launch["token_logprob_fwd"],
+                     dict(launches_by_phase={"train (6)": n_fwd, **{
+                         f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
+                         for r in runtime}},
+                          launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
-                          tflops=fwd_main["tflops"], plan=fwd_main["plan"],
-                          launches_phase="train (phase 6)")),
+                          tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
         kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
-                     "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases, n_bwd,
-                     dict(launches_per_train_step=1,
+                     "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases,
+                     n_bwd + rt_launch["token_logprob_bwd"],
+                     dict(launches_by_phase={"train (6)": n_bwd, **{
+                         f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
+                         for r in runtime}},
+                          launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
-                          scratch_bytes=bwd_main["scratch_bytes"],
-                          launches_phase="train (phase 6)")),
+                          scratch_bytes=bwd_main["scratch_bytes"])),
         kernel_entry("paged_gqa_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:85", paged_cases,
-                     cont["launches"]["paged_gqa_decode"],
-                     dict(launches_per_decode_step=cfg.num_layers,
+                     cont["launches"]["paged_gqa_decode"]
+                     + rt_launch["paged_gqa_decode"],
+                     dict(launches_by_phase={
+                         "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
+                         **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
+                            for r in runtime}},
+                          launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
-                          plan=paged_main["plan"],
-                          launches_phase="continuous serve (phase 8)")),
+                          plan=paged_main["plan"])),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -46,11 +46,16 @@ donate them instead); the engines keep them as attributes (``_step_fn``,
 do. Serving runs under ``torch.inference_mode()``. ``to_trajectory_batch``
 packs one task's results for the trainer.
 
+``abort_tenant`` ends every in-flight episode of one tenant (the runtime's
+circuit breaker quarantines a tenant with it), ``queue_depths`` and
+``env_depths`` read the stage queues, and ``supervisor`` is the engine's
+``StageSupervisor``: the names the runtime reads.
+
 Not ported yet (each raises ``NotImplementedError`` at construction where
 the JAX engine has a switch for it): the prefix cache over the paged pool
 (``prefix_cache=True`` with ``paged_kv``), the disaggregated prefill
-workers, the env stage, the tracer, chaos injection and stage supervision;
-and ``abort_tenant``.
+workers, the env stage, the tracer, chaos injection and stage supervision.
+So the supervisor has no stage registered and its counters stay empty.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.supervisor import StageSupervisor
 from repro_torch.data import tokenizer as tok
 from repro_torch.envs.base import CancelToken, Env, call_session
 from repro_torch.lora.adapters import (batched_ctx, init_stacked_buffer,
@@ -753,13 +759,13 @@ class ContinuousRolloutEngine:
                  tool_retry_max_s: float = 2.0,
                  tool_retry_episode_cap: int = 0,
                  supervise_wedge_s: float = 0.0, device="cuda"):
-        later = {"disagg_prefill": (disagg_prefill, "5 (e)"),
-                 "env_stage": (env_stage, "5 (f)"),
+        later = {"disagg_prefill": (disagg_prefill, "4"),
+                 "env_stage": (env_stage, "5"),
                  "prefix_cache (with paged_kv)": (paged_kv and prefix_cache,
-                                                  "5 (d)"),
-                 "tracer": (tracer is not None, "7"),
-                 "chaos": (chaos is not None, "7"),
-                 "supervise_wedge_s": (supervise_wedge_s > 0, "7")}
+                                                  "3"),
+                 "tracer": (tracer is not None, "6"),
+                 "chaos": (chaos is not None, "6"),
+                 "supervise_wedge_s": (supervise_wedge_s > 0, "6")}
         for name, (on, item) in later.items():
             if on:
                 raise NotImplementedError(
@@ -833,6 +839,9 @@ class ContinuousRolloutEngine:
         self._completed: Deque[RolloutCompletion] = deque()
         self._n_submitted = 0
         self.stats = RolloutStats()
+        # the stages a supervisor would watch (prefill and env workers) are
+        # not ported: nothing is registered
+        self.supervisor = StageSupervisor()
         # submit() and the introspection methods may run on another thread
         # than step(). (Named apart from the JAX engine's _stage_lock: the
         # repo's lock analyzer names locks by class and attribute.)
@@ -908,6 +917,18 @@ class ContinuousRolloutEngine:
     def queued(self) -> int:
         with self._queue_lock:
             return len(self._sched)
+
+    def queue_depths(self) -> Tuple[int, int]:
+        """(prefill queue + in-prefill, ready-to-splice) — the two stage
+        queues of the disaggregated layout. The fused refill has no
+        in-prefill or ready rows, so the second is 0."""
+        with self._queue_lock:
+            return len(self._sched), 0
+
+    def env_depths(self) -> Tuple[int, int]:
+        """(queued, executing) depths of the env-interaction stage: (0, 0)
+        with no env stage."""
+        return (0, 0)
 
     def idle(self) -> bool:
         return self.queued() == 0 and all(r is None for r in self._rows)
@@ -1264,6 +1285,34 @@ class ContinuousRolloutEngine:
             self._preempt_slot(slot)
             freed += 1
         return freed
+
+    def abort_tenant(self, task_id: str, reason: str = "quarantined") -> int:
+        """Abort EVERY in-flight episode of one tenant — resident rows and
+        queued rows (preempted rows awaiting resume included) — each
+        yielding exactly one completion with ``reason`` as its
+        finish_reason (the runtime counts them as quarantine drops).
+        Resident rows end in slot order, queued rows in pop order; other
+        tenants' rows and scheduling order are untouched."""
+        n = 0
+        for slot, r in enumerate(self._rows):
+            if r is not None and r.req.task_id == task_id:
+                r.status, r.finish_reason = "done", reason
+                self._evict(slot)    # cancels a pending tool future too
+                n += 1
+        with self._queue_lock:
+            drained: List[_Row] = []
+            while True:
+                row = self._sched.pop(
+                    self.stats.refills,
+                    where=lambda r: r.req.task_id == task_id)
+                if row is None:
+                    break
+                drained.append(row)
+        for row in drained:
+            row.status, row.finish_reason = "done", reason
+            self._complete_parked(row)
+            n += 1
+        return n
 
     # -- fused refill ------------------------------------------------------
     def _refill_free_slots(self) -> bool:

@@ -685,3 +685,131 @@ def test_continuous_paged_on_card_matches_cpu(card):
         torch.testing.assert_close(torch.tensor(b.gen_logprobs),
                                    torch.tensor(a.gen_logprobs), rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- the runtime: rollout and trainer threads on one card -------------------
+
+def _graded(env):
+    """`env` with a graded verifier (the share of even token ids), so that
+    rewards differ within a group and the updates are not zero."""
+    class Graded(type(env)):
+        def verify(self, truth, completion_ids):
+            ids = list(completion_ids)
+            return sum(t % 2 == 0 for t in ids) / max(1, len(ids))
+    return Graded()
+
+
+def _card_runtime(policy, **kw):
+    """qwen3-0.6b at full width and 2 layers in bf16, 2 tenants with
+    random-b adapters and graded verifiers, 2 steps each."""
+    from repro_torch.core.manager import TaskSpec
+    from repro_torch.core.runtime import MARLaaSRuntime, RuntimeConfig
+    cfg = dataclasses.replace(REGISTRY["qwen3-0.6b"], num_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
+        policy=policy, device="cuda", max_slots=8, max_adapter_slots=2,
+        max_len=128, seed=0, **kw))
+    adapters = make_adapters(cfg, 2, seed=1, device="cuda", b_scale=0.02)
+    for i, env in enumerate(("gsm8k", "amc12")):
+        tid = f"{env}-{i}"
+        rt.submit_task(TaskSpec(tid, env, group_size=4, num_groups=1,
+                                max_new_tokens=16, target_steps=2),
+                       adapters[i])
+        rt.envs[tid] = _graded(rt.envs[tid])
+    return cfg, rt
+
+
+def _check_installs(rt):
+    """Wrap the manager's commit and the engine's set_adapters: every
+    install must be a tree the manager committed (or a tenant's first) and
+    equal the stacked slot the decode reads. Returns the trees installed
+    that a commit made, and the grad norms of the commits."""
+    from repro_torch.models import tree_leaves
+    eng, commit, set_adapters = rt.cengine, rt.mgr.commit, rt.cengine.set_adapters
+    first = [st.adapters for _, st in rt.mgr.task_items()]
+    committed, trained, norms = list(first), [], []
+    spec = next(st.spec for _, st in rt.mgr.task_items())
+    step = rt._train_step_for(spec)
+
+    def kept_step(*a):
+        out = step(*a)
+        norms.append(float(out[2]["grad_norm"]))
+        return out
+
+    def listed_commit(tid, tree, *a, **kw):
+        committed.append(tree)
+        return commit(tid, tree, *a, **kw)
+
+    def checked_install(slot, tree):
+        set_adapters(slot, tree)
+        assert any(tree is t for t in committed)
+        assert all(torch.equal(buf[:, slot], leaf) for buf, leaf in
+                   zip(tree_leaves(eng._stacked), tree_leaves(tree)))
+        if not any(tree is t for t in first):
+            trained.append(tree)
+    rt._train_steps[spec.group_size] = kept_step
+    rt.mgr.commit, eng.set_adapters = listed_commit, checked_install
+    return trained, norms
+
+
+@pytest.mark.parametrize("run", ["A", "B"])
+def test_runtime_on_card_invariants_and_launches(card, run):
+    """Run A (the defaults: dense cache, round-synchronous trainer) and run
+    B (async trainer at max_staleness 1 over the paged pool): every tenant
+    at its target version, an exact row account, serialised train
+    intervals; decode attention 2 launches a decode step (the paged kernel
+    in B, gqa_decode in A), sgmv 12 a forward, token_logprob one forward
+    and one backward a commit; every commit's gradient is nonzero, and
+    the committed trees reach the engine's stacked buffer."""
+    kw = {} if run == "A" else dict(async_train=True, max_staleness=1,
+                                    min_train_rows=4, paged_kv=True,
+                                    prefix_cache=False, kv_page_size=16)
+    cfg, rt = _card_runtime("marlaas", **kw)
+    eng = rt.cengine
+    eng._ensure_built()
+    refill, forwards = eng._refill_fn, [0]
+
+    def counted(*a):
+        forwards[0] += 1
+        return refill(*a)
+    eng._refill_fn = counted
+    trained, norms = _check_installs(rt)
+    counters = [gqa.LAUNCHES, paged.LAUNCHES, sgmv.LAUNCHES,
+                tlp.FWD_LAUNCHES, tlp.BWD_LAUNCHES]
+    for c in counters:
+        c.n = 0
+    rt.run(timeout_s=300)
+    got = [c.n for c in counters]
+    assert rt.mgr.all_done()
+    assert all(st.version == 2 for _, st in rt.mgr.task_items())
+    acc = rt.row_accounting()
+    assert acc["orphaned"] == acc["failed"] == 0
+    assert acc["completed"] == (acc["trained"] + acc["stale_dropped"]
+                                + acc["discarded_tails"])
+    trains = sorted((iv for iv in rt.rec.intervals if iv.phase == "train"),
+                    key=lambda iv: iv.start)
+    assert len(trains) == 4
+    assert all(b.start >= a.end - 1e-6 for a, b in zip(trains, trains[1:]))
+    assert len(norms) == 4 and all(n > 0 for n in norms), norms
+    if run == "A":     # each tenant's version 1 (B may train 2 off v0)
+        assert len(trained) == 2
+    steps = eng.stats.decode_steps
+    attn = [2 * steps, 0] if run == "A" else [0, 2 * steps]
+    assert got == attn + [12 * (steps + forwards[0]), 4, 4]
+    if run == "A":
+        assert acc["trained"] == acc["completed"] == 16
+    else:
+        assert eng._pages.used_pages == 0
+
+
+@pytest.mark.parametrize("policy", ["multilora_sync", "single_disagg"])
+def test_runtime_sync_policies_train_after_generate_on_card(card, policy):
+    """generate() serves under inference_mode and the train step runs next
+    on the same thread: no tensor the step saves for backward may come from
+    the served round."""
+    _, rt = _card_runtime(policy)
+    tlp.BWD_LAUNCHES.n = 0
+    rt.run(timeout_s=300)
+    assert rt.mgr.all_done() and tlp.BWD_LAUNCHES.n == 4
+    assert all(st.version == 2 for _, st in rt.mgr.task_items())

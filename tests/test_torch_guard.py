@@ -32,6 +32,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.token_logprob", "repro_torch.rl.grpo",
     "repro_torch.rl.types", "repro_torch.train.optimizer",
     "repro_torch.train.sft", "repro_torch.train.train_step",
+    "repro_torch.core", "repro_torch.core.admission",
+    "repro_torch.core.chaos", "repro_torch.core.manager",
+    "repro_torch.core.metrics", "repro_torch.core.runtime",
+    "repro_torch.core.supervisor", "repro_torch.launch.multi_tenant_train",
 ]
 
 
