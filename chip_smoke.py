@@ -72,9 +72,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     Run B, the asynchronous trainer (max_staleness 1, micro-batches of one
     group, the importance weight on) over the paged pool: every tenant
     done, an exact row account, paged_gqa_decode 28 launches a decode step
-    and gqa_decode none, the pool whole at the end. Each run prints its
+    and gqa_decode none, the pool whole at the end. Run C, run B with the
+    prefix cache on (the JAX runtime's default with the paged pool; pages of
+    8 tokens, which the runtime's 5-11-token prompts fill): run B's checks,
+    prefix hits > 0 (GRPO siblings share their leader's prompt pages) and at
+    the end only the index's pages held. Each run prints its
     wall time to the last commit, the runtime's summary, decode ms/step
     inside and outside train intervals, train ms/step and the launches.
+11. prefix cache: ContinuousRolloutEngine over the paged pool with its
+    default copy-on-write prefix cache at the same full size (16 slots,
+    pages of 16, max_len 512): each tenant's two gsm8k prompts behind one
+    128-token header (8 whole pages), each a GRPO group of 4, 64 new tokens;
+    the first groups first, then after decode step 4 the second groups
+    (priority 1) while tenant-1 is preempted mid-fork (its rows park in the
+    pool). Page invariants after every step; prefix hits and hit tokens
+    equal to what the prompts give (28 and 3584, as the CPU run of the same
+    schedule in tests/test_torch_prefix.py), COW forks and device-resident
+    resumes, no snapshot and no spill, prefill tokens at most half those of
+    the same requests with private pages, only the index's pages at the
+    end, paged_gqa_decode 28 launches a decode step and sgmv 168 a forward
+    (suffix prefills included); with a pool of 48 pages, index evictions
+    and a spill, every row finished; both modes again in fp32 (TF32 off,
+    32 new tokens): rows with equal streams counted, and where two part the
+    logprobs of their shared tokens and the sampler's scores at the parting
+    token within TF_TOL. Prints decode ms/step, prefill time, peak pages,
+    HBM bytes a row and the admission charge of private over shared pages.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -113,6 +135,13 @@ RT_SLOTS = 16
 RT_RUNS = {"A": {},                                      # the defaults
            "B": dict(async_train=True, max_staleness=1, min_train_rows=4,
                      paged_kv=True, prefix_cache=False, kv_page_size=PAGE)}
+# run C: run B with the prefix cache on (the JAX default with the paged pool);
+# 8-token pages, since no gsm8k or amc12 prompt (5 to 11 tokens) fills one of 16
+RT_RUNS["C"] = dict(RT_RUNS["B"], prefix_cache=True, kv_page_size=8)
+P11_PROMPTS, P11_GROUP, P11_HEADER = 2, 4, 128   # phase 11: 4 tenants x 2 prompts
+P11_MAX_NEW, P11_LATE_AT = 64, 4                 # x groups of 4 = 32 rows
+P11_SMALL_POOL = 48     # pages: less than the resident set plus the index
+P11_FP32_NEW = 32       # new tokens a row in phase 11's fp32 card check
 
 
 def log(msg):
@@ -488,10 +517,11 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     (the fp32 product) and sgmv_add_ (the scaled delta added into y in place,
     as the serving path calls it). Cases: the six projections at decode
     (R=16, 4 rows of each of 4 adapters) and at the served prefill (R=16 x
-    the prompt bucket), mlp_in with fp32 rows, one row a slot (R=16, T=16)
-    and a continuous-prefill size (R=2048, T=4). Each case: the plan, one
-    CUDA launch a call, two calls' bits, sgmv_add_ bit-equal to sgmv
-    followed by the torch composition, and the times of both epilogues,
+    the prompt bucket), mlp_in with fp32 rows, one row a slot (R=16, T=16),
+    a continuous-prefill size (R=2048, T=4) and phase 11's radix suffix
+    prefill (one row's 8-token bucket, one live adapter of 4). Each case:
+    the plan, one CUDA launch a call, two calls' bits, sgmv_add_ bit-equal
+    to sgmv followed by the torch composition, and the times of both epilogues,
     their plain versions, the library yardstick (a gather and two bmm; for
     sgmv_add_ also the scale and the add), the eager call (sgmv_add_ as the
     batched LoraCtx calls it: adapters checked once a forward, autograd
@@ -502,7 +532,8 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     specs += [(16 * S_p, 4, d, dout, bf16, "prefill") for d, dout in SGMV_PAIRS]
     specs += [(16, 4, 1024, 6144, torch.float32, "decode fp32"),
               (16, 16, 1024, 6144, bf16, "one row a slot"),
-              (2048, 4, 1024, 6144, bf16, "continuous prefill")]
+              (2048, 4, 1024, 6144, bf16, "continuous prefill"),
+              (8, 4, 1024, 6144, bf16, "radix suffix")]
 
     def gathered_bmm(x, a, b, ids):
         il = ids.long()
@@ -529,6 +560,8 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     cases = []
     for R, T, d, dout, xdt, label in specs:
         ids = torch.arange(T, device="cuda", dtype=torch.int32).repeat_interleave(R // T)
+        if label == "radix suffix":      # phase 11's suffix prefill: one row
+            ids = torch.full((R,), 1, device="cuda", dtype=torch.int32)
         x = torch.randn(R, d, generator=g, device="cuda").to(xdt)
         y0 = torch.randn(R, dout, generator=g, device="cuda").to(xdt)
         n_copy = copies_for(4 * T * r * (d + dout))
@@ -1658,10 +1691,17 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     rt.mgr.commit, eng.set_adapters = listed_commit, checked_install
     eng._ensure_built()
     refill, step, forwards, steps = eng._refill_fn, eng.step, {"n": 0}, []
+    suffix = eng._suffix_fn
 
     def counted_refill(*a):
         forwards["n"] += 1
         return refill(*a)
+
+    def counted_suffix(*a):
+        forwards["n"] += 1
+        return suffix(*a)
+    if suffix is not None:
+        eng._suffix_fn = counted_suffix
 
     def timed_step():
         d0, f0 = eng.stats.decode_steps, forwards["n"]
@@ -1720,9 +1760,16 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             raise AssertionError("phase 10 A: no decode interval served two tenants")
         if not any(d.start < t.end and t.start < d.end for d in decodes for t in trains):
             raise AssertionError("phase 10 A: no decode interval overlaps a train interval")
-    else:
+    elif run == "B":
         if eng._pages.used_pages != 0:
             raise AssertionError(f"phase 10 B: {eng._pages.used_pages} pages held")
+    else:
+        st_ = eng.stats
+        if eng._pages.used_pages != eng._prefix_idx.held_pages \
+                or st_.prefix_hits == 0:
+            raise AssertionError(f"phase 10 C: {eng._pages.used_pages} pages held, "
+                                 f"{eng._prefix_idx.held_pages} by the index; "
+                                 f"{st_.prefix_hits} prefix hits")
     grad_norms = [float(m["grad_norm"]) for m in metrics]
     losses = [float(m["loss"]) for m in metrics]
     if len(metrics) != commits or not all(map(math.isfinite, grad_norms + losses)) \
@@ -1761,6 +1808,13 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
                    "ttfs_mean_s", "ttfs_max_s", "tpts_mean_s", "slot_util_pct",
                    "steps_per_hr")},
                peak_mem_gib=peak_gib, launches=launches, card=card)
+    if eng.prefix_cache:
+        st_ = eng.stats
+        rec["prefix"] = dict(prefix_hits=st_.prefix_hits,
+                             prefix_hit_tokens=st_.prefix_hit_tokens,
+                             cow_forks=st_.cow_forks,
+                             prefill_tokens=st_.prefill_tokens,
+                             index_pages=eng._prefix_idx.held_pages)
     log(f"[10 runtime {run}] {len(RT_ENVS)} tenants x {RT_SPEC['target_steps']} steps "
         f"({RT_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, {commits} commits, "
         f"rows {acc}; {decode_steps} decode steps ({forwards['n']} prefill forwards), "
@@ -1771,11 +1825,278 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
         f"grad_norm {min(grad_norms):.3e}-{max(grad_norms):.3e}, trained trees "
         f"installed {sum(installed.values())}; stale rows trained "
         f"{rec['stale_rows_trained']} dropped {rec['stale_rows_dropped']}; summary "
-        f"{json.dumps(rec['summary'])}; peak {peak_gib:.2f} GiB; launches {got} on {card}")
+        f"{json.dumps(rec['summary'])}; peak {peak_gib:.2f} GiB; launches {got} on {card}"
+        + (f"; prefix cache {json.dumps(rec['prefix'])}" if "prefix" in rec else ""))
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"phase 10 {run}: launches {got}, want {want}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the copy-on-write prefix cache in the continuous engine
+# ---------------------------------------------------------------------------
+
+def prefix_requests():
+    """Phase 11's 32 requests: each tenant's two gsm8k prompts behind one
+    128-token header (8 whole pages), each prompt a GRPO group of 4; the
+    first groups come first, the second ones (priority 1) later."""
+    from repro_torch.launch.serve import make_group_requests
+    reqs = make_group_requests(TENANTS, P11_PROMPTS, P11_GROUP,
+                               header_len=P11_HEADER, max_new_tokens=P11_MAX_NEW,
+                               seed=11)
+    early = [r for i, r in enumerate(reqs) if (i // P11_GROUP) % 2 == 0]
+    late = [r for r in reqs if r not in early]
+    for r in late:
+        r.priority = 1
+    return early, late
+
+
+def expected_prefix_hits(reqs, page):
+    """The prefix hits and hit tokens of phase 11's schedule, from the
+    prompts alone (``tests/test_torch_prefix.py`` runs the same schedule on
+    the CPU and gets these): the first row of each tenant's first group
+    prefills privately; every other row of a group shares all of its
+    leader's pages (the full pages, plus the tail, which is recomputed when
+    the prompt is page-aligned); the leader of a later group shares the full
+    pages its prompt has in common with the tenant's earlier prompts (at
+    least one token left to prefill)."""
+    hits = tokens = 0
+    seen = []
+    for r in reqs:
+        L = len(r.prompt)
+        if (r.adapter_index, r.prompt) in seen:
+            hits += 1
+            tokens += L // page * page if L % page else L - page
+            continue
+        best = 0
+        for a, p in seen:
+            if a != r.adapter_index:
+                continue
+            n = 0
+            while (n + 1) * page <= min(L - 1, len(p)) and \
+                    p[n * page:(n + 1) * page] == r.prompt[n * page:(n + 1) * page]:
+                n += 1
+            best = max(best, n)
+        if best:
+            hits += 1
+            tokens += best * page
+        seen.append((r.adapter_index, r.prompt))
+    return hits, tokens
+
+
+def prefix_run(torch, cfg, params, adapters, *, prefix_cache, pool=0,
+               max_new=P11_MAX_NEW, counters=None):
+    """One drive of phase 11's schedule on the card: the first groups, then
+    after decode step P11_LATE_AT the second groups arrive (priority 1) and
+    tenant-1 is preempted for them (its rows park in the pool with the
+    prefix cache, snapshot to host without). Page invariants after every
+    step; the refill and suffix forwards, index evictions and spills are
+    counted, and with `counters` the kernels' launches from just before the
+    drive to just after it. Returns the completions by submit index and
+    the record."""
+    from repro_torch.rollout.engine import ContinuousRolloutEngine
+    early, late = prefix_requests()
+    for r in early + late:
+        r.max_new_tokens = max_new
+    eng = ContinuousRolloutEngine(
+        cfg, params, max_slots=CONT_SLOTS, max_adapters=TENANTS,
+        max_len=CONT_MAX_LEN, paged_kv=True, prefix_cache=prefix_cache,
+        kv_page_size=PAGE, kv_pool_pages=pool, device="cuda")
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    n = {"forwards": 0, "evicted": 0, "spilled": 0}
+
+    def counted(fn, key, size=lambda out: 1):
+        def wrapped(*a):
+            out = fn(*a)
+            n[key] += size(out)
+            return out
+        return wrapped
+    eng._refill_fn = counted(eng._refill_fn, "forwards")
+    if prefix_cache:
+        eng._suffix_fn = counted(eng._suffix_fn, "forwards")
+        eng._prefix_idx.pop_lru = counted(eng._prefix_idx.pop_lru, "evicted", len)
+        eng._spill_dev_parked = counted(eng._spill_dev_parked, "spilled", int)
+    for r in early:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    if counters is not None:
+        count_all(counters, reset=True)
+    comps, parked, steps, hbm = {}, 0, 0, []
+    t0 = time.monotonic()
+    while not eng.idle():
+        eng.step()
+        steps += 1
+        eng.check_page_invariants()
+        if any(r is not None for r in eng._rows):
+            hbm.append(eng.page_stats()["kv_hbm_bytes_per_row"])
+        if not parked and eng.stats.decode_steps >= P11_LATE_AT:
+            for r in late:
+                eng.submit(r)
+            parked = eng.preempt_tenant("tenant-1")
+            if not parked:
+                raise AssertionError("phase 11: tenant-1 had no resident row")
+        for c in eng.drain_completions():
+            comps[c.submit_index] = c
+        if steps > 50 * max_new:
+            raise AssertionError("phase 11: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = count_all(counters) if counters is not None else None
+    if sorted(comps) != list(range(len(early) + len(late))):
+        raise AssertionError(f"phase 11: completions {sorted(comps)}")
+    st = eng.stats
+    held = eng._prefix_idx.held_pages if prefix_cache else 0
+    if eng._pages.used_pages != held:
+        raise AssertionError(f"phase 11: {eng._pages.used_pages} pages held at "
+                             f"idle, {held} by the index")
+    rec = dict(prefix_cache=prefix_cache, pool_pages=eng.kv_pool_pages,
+               rows=len(comps), preempted_rows=parked, decode_steps=st.decode_steps,
+               decode_ms_per_step=1e3 * st.decode_seconds / st.decode_steps,
+               prefill_s=st.prefill_seconds, prefill_tokens=st.prefill_tokens,
+               forwards=n["forwards"], prefix_hits=st.prefix_hits,
+               prefix_hit_tokens=st.prefix_hit_tokens, cow_forks=st.cow_forks,
+               device_resident_resumes=st.device_resident_resumes,
+               restores=st.restores, snapshots=st.snapshots,
+               snapshot_drops=st.snapshot_drops, replays=st.replays,
+               pool_exhausted=st.pool_exhausted, index_evicted_pages=n["evicted"],
+               spills=n["spilled"], kv_pages_peak=eng._pages.peak_used,
+               kv_hbm_bytes_per_row=_median(hbm), index_pages_at_idle=held,
+               finish_reasons=sorted({c.finish_reason for c in comps.values()}),
+               wall_s=wall, launches=launches)
+    return comps, rec
+
+
+def parted_rows(torch, a, b, reqs, vocab):
+    """Rows of two runs of the same requests (completions by submit index;
+    `reqs` by submit index too): how many streams are equal; where two
+    part, the largest difference of the logprobs of the tokens they share,
+    and at the token where they part the difference of the sampler's two
+    scores, logprob + temperature x the row's Gumbel noise at that counter
+    (the sampler takes the argmax of logits / temperature + noise, so a
+    parting token is a near-tie in that score, not in the logprob)."""
+    from repro_torch.rollout import prng
+    equal, parted, shared_err, tie_err = 0, 0, 0.0, 0.0
+    for i in a:
+        ta, tb = a[i].tokens[a[i].prompt_len:], b[i].tokens[b[i].prompt_len:]
+        la, lb = a[i].gen_logprobs, b[i].gen_logprobs
+        t = next((k for k in range(min(len(ta), len(tb))) if ta[k] != tb[k]),
+                 None)
+        same = min(len(ta), len(tb)) if t is None else t
+        if same:
+            shared_err = max(shared_err, max(abs(x - y) for x, y in
+                                             zip(la[:same], lb[:same])))
+        if t is None:
+            equal += ta == tb
+            continue
+        parted += 1
+        key = prng.fold_in_host(prng.prng_key(0), reqs[i].seed)
+        g = prng.gumbel(prng.fold_in(torch.from_numpy(key.astype("int64"))[None],
+                                     torch.tensor([t])), vocab)[0]
+        T = reqs[i].temperature
+        tie_err = max(tie_err, abs((la[t] + T * float(g[ta[t]]))
+                                   - (lb[t] + T * float(g[tb[t]]))))
+    return equal, parted, shared_err, tie_err
+
+
+def prefix_phase(torch, cfg, params, adapters, counters, card):
+    """Phase 11: phase 11's schedule with the prefix cache (the engine's
+    default with the paged pool; launches counted over this drive), then
+    the same requests with private pages, then with the cache and a pool
+    of P11_SMALL_POOL pages, then both modes in fp32 (TF32 off). Raises on
+    any miss; returns the record."""
+    import dataclasses
+    from repro_torch.core.admission import (task_state_bytes_paged,
+                                            task_state_bytes_shared)
+    from repro_torch.core.manager import TaskSpec
+    from repro_torch.models import tree_map
+    early, late = prefix_requests()
+    want_hits = expected_prefix_hits(early + late, PAGE)
+    shared, rec = prefix_run(torch, cfg, params, adapters, prefix_cache=True,
+                             counters=counters)
+    private, rec_p = prefix_run(torch, cfg, params, adapters, prefix_cache=False)
+    _, rec_s = prefix_run(torch, cfg, params, adapters, prefix_cache=True,
+                          pool=P11_SMALL_POOL)
+    n_sgmv = 6 * cfg.num_layers * (rec["decode_steps"] + rec["forwards"])
+    want = {"paged_gqa_decode": cfg.num_layers * rec["decode_steps"],
+            "gqa_decode": 0, "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
+    got = {k: rec["launches"][k] for k in want}
+    problems = []
+    if got != want:
+        problems.append(f"launches {got}, want {want}")
+    if 2 * rec["prefill_tokens"] > rec_p["prefill_tokens"]:
+        problems.append(f"prefill tokens {rec['prefill_tokens']} with the cache, "
+                        f"{rec_p['prefill_tokens']} without")
+    if (rec["prefix_hits"], rec["prefix_hit_tokens"]) != want_hits:
+        problems.append(f"prefix hits {rec['prefix_hits']} / tokens "
+                        f"{rec['prefix_hit_tokens']}, want {want_hits}")
+    if not (rec["cow_forks"] > 0 and rec["device_resident_resumes"] > 0
+            and rec["snapshots"] == 0 and rec["spills"] == 0):
+        problems.append(f"forks {rec['cow_forks']}, device-resident resumes "
+                        f"{rec['device_resident_resumes']}, snapshots "
+                        f"{rec['snapshots']}, spills {rec['spills']}")
+    if not (rec_s["index_evicted_pages"] > 0 and rec_s["spills"] > 0
+            and rec_s["kv_pages_peak"] <= P11_SMALL_POOL):
+        problems.append(f"small pool: {rec_s['index_evicted_pages']} index pages "
+                        f"evicted, {rec_s['spills']} spills, peak "
+                        f"{rec_s['kv_pages_peak']}")
+    # fp32, TF32 off (main() turns it off): both modes, fewer new tokens
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    a32 = [tree_map(lambda t: t.float(), a) for a in adapters]
+    on32, rec32 = prefix_run(torch, cfg32, p32, a32, prefix_cache=True,
+                             max_new=P11_FP32_NEW)
+    off32, rec32_p = prefix_run(torch, cfg32, p32, a32, prefix_cache=False,
+                                max_new=P11_FP32_NEW)
+    del p32, a32
+    by_index = dict(enumerate(early + late))        # by submit index
+    equal, parted, shared_err, tie_err = parted_rows(torch, on32, off32,
+                                                     by_index, cfg.vocab_size)
+    if not (shared_err <= TF_TOL and tie_err <= TF_TOL):
+        problems.append(f"fp32: shared-token logprobs differ by {shared_err:.3e}, "
+                        f"parting scores by {tie_err:.3e} (tol {TF_TOL})")
+    bf16_equal = sum(shared[i].tokens == private[i].tokens for i in shared)
+    L = sorted(len(r.prompt) for r in early + late)[len(early + late) // 2]
+    spec = TaskSpec("t", "gsm8k", group_size=P11_GROUP, num_groups=P11_PROMPTS,
+                    max_new_tokens=P11_MAX_NEW)
+    admit = (task_state_bytes_paged(cfg, spec, L, page_size=PAGE)
+             / task_state_bytes_shared(cfg, spec, L, page_size=PAGE))
+    out = dict(requests=len(early + late), header=P11_HEADER, prompt_len=L,
+               slots=CONT_SLOTS, page=PAGE, max_len=CONT_MAX_LEN,
+               late_at=P11_LATE_AT, expected_prefix_hits=want_hits,
+               shared=rec, private=rec_p, small_pool=rec_s,
+               fp32=dict(new_tokens=P11_FP32_NEW, rows_equal=equal,
+                         rows_parted=parted, shared_logprob_max_abs_diff=shared_err,
+                         parting_score_max_abs_diff=tie_err, tol=TF_TOL,
+                         shared=rec32, private=rec32_p),
+               bf16_rows_equal=bf16_equal,
+               admission_paged_over_shared=admit, card=card)
+    log(f"[11 prefix cache] {len(early + late)} requests ({TENANTS} tenants x "
+        f"{P11_PROMPTS} prompts x groups of {P11_GROUP}, {P11_HEADER}-token header, "
+        f"prompts ~{L} tokens, {P11_MAX_NEW} new), {CONT_SLOTS} slots, pages of "
+        f"{PAGE}, tenant-1 preempted after step {P11_LATE_AT} on {card}")
+    for name, r in (("cache", rec), ("private", rec_p),
+                    (f"cache, {P11_SMALL_POOL}-page pool", rec_s),
+                    ("fp32 cache", rec32), ("fp32 private", rec32_p)):
+        log(f"  {name}: {r['decode_steps']} decode steps "
+            f"{r['decode_ms_per_step']:.2f} ms/step, prefill {r['prefill_s']:.3f} s "
+            f"({r['prefill_tokens']} tokens, {r['forwards']} forwards), hits "
+            f"{r['prefix_hits']} ({r['prefix_hit_tokens']} tokens), forks "
+            f"{r['cow_forks']}, device-resident resumes {r['device_resident_resumes']}, "
+            f"snapshots {r['snapshots']}, index pages evicted "
+            f"{r['index_evicted_pages']}, spills {r['spills']}, pages peak "
+            f"{r['kv_pages_peak']}, HBM bytes/row (median over steps) "
+            f"{r['kv_hbm_bytes_per_row']:.0f}, finishes {r['finish_reasons']}, "
+            f"wall {r['wall_s']:.2f} s")
+    log(f"  expected hits {want_hits}; launches {got}; bf16 rows equal to the "
+        f"private run {bf16_equal}/{len(shared)}; fp32 rows equal {equal}/{len(on32)} "
+        f"(parted {parted}; shared-token logprobs max diff {shared_err:.3e}, "
+        f"parting scores {tie_err:.3e}, tol {TF_TOL}); admission paged/shared "
+        f"bytes {admit:.3f}")
+    if problems:
+        raise AssertionError("phase 11: " + "; ".join(problems))
+    return out
 
 
 def main(argv):
@@ -1943,6 +2264,10 @@ def main(argv):
     rt_launch = {k: sum(r["launches"][k] for r in runtime.values())
                  for k in counters}
 
+    # -- phase 11: the copy-on-write prefix cache ----------------------------
+    prefix = prefix_phase(torch, cfg, params, adapters, counters, card)
+    p11_launch = prefix["shared"]["launches"]
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
@@ -1951,6 +2276,7 @@ def main(argv):
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"continuous": cont}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
+    print(json.dumps({"prefix_cache": prefix}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -1968,10 +2294,14 @@ def main(argv):
                           plan=gqa_main["plan"])),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
-                     n_sgmv + rt_launch["sgmv"],
-                     dict(launches_by_phase={"serve (4)": n_sgmv, **{
-                         f"runtime {r} (10)": runtime[r]["launches"]["sgmv"]
-                         for r in runtime}},
+                     n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
+                     + p11_launch["sgmv"],
+                     dict(launches_by_phase={
+                         "serve (4)": n_sgmv,
+                         "continuous serve (8)": cont["launches"]["sgmv"],
+                         **{f"runtime {r} (10)": runtime[r]["launches"]["sgmv"]
+                            for r in runtime},
+                         "prefix cache (11)": p11_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -2000,11 +2330,13 @@ def main(argv):
         kernel_entry("paged_gqa_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:85", paged_cases,
                      cont["launches"]["paged_gqa_decode"]
-                     + rt_launch["paged_gqa_decode"],
+                     + rt_launch["paged_gqa_decode"]
+                     + p11_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
-                            for r in runtime}},
+                            for r in runtime},
+                         "prefix cache (11)": p11_launch["paged_gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

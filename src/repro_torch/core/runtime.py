@@ -46,10 +46,13 @@ buffer, so a commit never aliases the tree a decode reads.
 takes the place of the JAX runtime's ``use_kernel``: on the card the
 engines run the decode and SGMV kernels and the trainer the
 ``token_logprob`` kernels; on the CPU every path is the plain version.
+With ``paged_kv`` the engine runs the copy-on-write prefix cache by
+default, as the JAX runtime does, and admission charges a GRPO group's full
+prompt pages once (``prefix_shared``).
 The switches of stages not ported yet raise ``NotImplementedError``:
-``disagg_prefill`` (ROADMAP §1 item 4), ``env_stage`` (item 5), the prefix
-cache with ``paged_kv`` (item 3), and ``trace``, an enabled ``chaos``,
-checkpoints, ``adopt_checkpoint`` and ``run_with_recovery`` (item 6).
+``disagg_prefill`` (ROADMAP §1 item 4), ``env_stage`` (item 5), and
+``trace``, an enabled ``chaos``, checkpoints, ``adopt_checkpoint`` and
+``run_with_recovery`` (item 6).
 """
 from __future__ import annotations
 
@@ -115,8 +118,7 @@ class RuntimeConfig:
                                       # pages to host and resume splices them
                                       # back (no prefill replay)
     snapshot_budget_bytes: int = 0    # host bytes for snapshots (0 = no cap)
-    prefix_cache: bool = True         # paged only: the COW prefix cache (not
-                                      # ported: pass False with paged_kv)
+    prefix_cache: bool = True         # paged only: the COW prefix cache
     async_train: bool = False         # event-driven off-policy trainer;
                                       # False = round-synchronous baseline
     max_staleness: int = 1            # bounded staleness window (versions);
@@ -151,8 +153,6 @@ def _not_ported(rcfg: RuntimeConfig) -> Dict[str, tuple]:
     §1 item."""
     return {"disagg_prefill": (rcfg.disagg_prefill, "4"),
             "env_stage": (rcfg.env_stage, "5"),
-            "prefix_cache (with paged_kv)": (rcfg.paged_kv
-                                             and rcfg.prefix_cache, "3"),
             "trace": (rcfg.trace, "6"),
             "chaos": (rcfg.chaos is not None and rcfg.chaos.enabled, "6"),
             "checkpoint_dir / checkpoint_every": (
@@ -206,12 +206,14 @@ class MARLaaSRuntime:
                                             strict=False)
         if rcfg.paged_kv:
             # page-granular admission accounting rides the paged engine
-            # (copy, never mutate a caller-shared config object); no page
-            # sharing without the prefix cache
+            # (copy, never mutate a caller-shared config object);
+            # group-shared prompt charging where the engine shares pages
+            # (the port's families are all pure attention)
             import dataclasses as _dc
-            self.acfg = _dc.replace(self.acfg, paged=True,
-                                    page_size=rcfg.kv_page_size,
-                                    prefix_shared=False)
+            self.acfg = _dc.replace(
+                self.acfg, paged=True, page_size=rcfg.kv_page_size,
+                prefix_shared=(rcfg.prefix_cache
+                               and cfg.family not in ("ssm", "hybrid")))
         if rcfg.async_train and rcfg.rollout_mode != "continuous":
             raise ValueError("async_train requires rollout_mode='continuous' "
                              "(the event-driven trainer consumes the slot "

@@ -62,7 +62,8 @@ def main(argv=None) -> MARLaaSRuntime:
     ap.add_argument("--timeout", type=float, default=3600.0)
     ap.add_argument("--paged-kv", action="store_true",
                     help="paged KV-cache block pool (16-token pages) instead "
-                         "of a dense [slots, max_len] cache")
+                         "of a dense [slots, max_len] cache, with the "
+                         "copy-on-write prefix cache")
     ap.add_argument("--async-train", action="store_true",
                     help="event-driven off-policy trainer: train "
                          "micro-batches of complete GRPO groups as they "
@@ -86,7 +87,7 @@ def main(argv=None) -> MARLaaSRuntime:
     rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
         policy=args.policy, max_len=max_len, max_slots=slots,
         max_adapter_slots=max(args.tasks, 1), seed=0, device=str(dev),
-        paged_kv=args.paged_kv, prefix_cache=False,
+        paged_kv=args.paged_kv,
         async_train=args.async_train, max_staleness=args.max_staleness,
         min_train_rows=args.min_train_rows))
     adapters = (make_adapters(cfg, args.tasks, seed=0, device=dev,
@@ -107,6 +108,14 @@ def main(argv=None) -> MARLaaSRuntime:
     print(json.dumps({k: round(v, 3) for k, v in
                       summarize(rt.mgr, rt.rec).items()}, indent=2))
     print(f"row accounting: {json.dumps(rt.row_accounting())}")
+    if args.paged_kv:
+        st = rt.cengine.stats
+        print(f"paged KV: restores={st.restores} replays={st.replays} "
+              f"prefix_hits={st.prefix_hits} "
+              f"prefix_hit_tokens={st.prefix_hit_tokens} "
+              f"cow_forks={st.cow_forks} "
+              f"device_resident_resumes={st.device_resident_resumes} "
+              f"pool={rt.cengine.page_stats()}")
     return rt
 
 

@@ -72,6 +72,39 @@ def make_requests(tenants: int, per_tenant: int, *, max_new_tokens: int,
     return reqs
 
 
+HEADER_TEXT = ("you are a careful tutor. work the sum out step by step. "
+               "check it. then answer with the number alone. ")
+
+
+def make_group_requests(tenants: int, prompts_per_tenant: int,
+                        group_size: int, *, header_len: int,
+                        max_new_tokens: int, seed: int = 0
+                        ) -> List[RolloutRequest]:
+    """GRPO groups behind a shared header: for each tenant (tenant t on
+    adapter t), `prompts_per_tenant` gsm8k prompts, each `group_size` times
+    with its own per-row seed. Every prompt starts with the same
+    `header_len` tokens, BOS and then a system prompt (``HEADER_TEXT``
+    repeated), so that the prompts of one tenant share that many leading
+    tokens and the rows of one group share all of theirs: the shapes the
+    prefix cache shares. Tenant-major order, a group's rows together;
+    temperature 0.8."""
+    env = make_env("gsm8k")
+    rng = random.Random(seed)
+    text = HEADER_TEXT * (-(-header_len // len(HEADER_TEXT)))
+    header = [tok.BOS] + tok.encode(text)[:header_len - 1]
+    reqs = []
+    for t in range(tenants):
+        for _ in range(prompts_per_tenant):
+            prompt, truth = env.sample_prompt(rng)
+            prompt = header + [i for i in prompt if i != tok.BOS]
+            for _ in range(group_size):
+                reqs.append(RolloutRequest(
+                    f"tenant-{t}", t, list(prompt), truth, env,
+                    max_new_tokens=max_new_tokens, temperature=0.8,
+                    seed=seed * 100003 + len(reqs)))
+    return reqs
+
+
 def render(ids) -> str:
     """Tokenizer text where it can decode, ``<id>`` elsewhere."""
     out = []

@@ -151,6 +151,24 @@ def attention_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
     return torch.cat(outs, dim=1)
 
 
+def attention_prefill_chunk(q, k, v, cfg: ModelConfig, *, q_start: int,
+                            window: int = 0):
+    """Chunk-incremental prefill attention: queries sit at ABSOLUTE positions
+    ``q_start .. q_start+Sq``, keys/values are the cache read back over
+    ``[0, Sk)`` (earlier chunks + this one, RoPE'd at their absolute
+    positions when written). It is `attention_dense` with the causal mask
+    offset by ``q_start``; the cache is cast to the queries' dtype, as the
+    JAX package does."""
+    H = q.shape[2]
+    Sq, Sk = q.shape[1], k.shape[1]
+    k = repeat_kv(k.to(q.dtype), H // cfg.num_kv_heads)
+    v = repeat_kv(v.to(q.dtype), H // cfg.num_kv_heads)
+    dev = q.device
+    mask = _pair_mask(q_start + torch.arange(Sq, device=dev),
+                      torch.arange(Sk, device=dev), causal=True, window=window)
+    return _softmax_attend(q, k, v, cfg, mask)
+
+
 def attention_decode(q, cache_k, cache_v, pos, cfg: ModelConfig, *,
                      window: int = 0):
     """Single-token decode. q: [B, H, hd]; cache: [B, Smax, KVH, hd];

@@ -25,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from .attention import (attention_chunked, attention_decode,
-                        attention_decode_paged, attn_init, qkv)
+                        attention_decode_paged, attention_prefill_chunk,
+                        attn_init, qkv)
 from .common import (LoraCtx, dense_init, dtype_of, embed_init, proj,
                      resolve_device, rmsnorm, rmsnorm_init, rope_tables,
                      softcap)
@@ -281,6 +282,57 @@ def forward_seq(params: Params, tokens, cfg: ModelConfig,
             cache["v"][i, :, :S] = v.to(cache["v"].dtype)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ===========================================================================
+# chunk-incremental prefill
+# ===========================================================================
+
+def _dense_block_chunk(x, lp, cfg, lora, window, positions, rope, ck, cv,
+                       start: int):
+    """One dense block over a prefill CHUNK at absolute offset `start`.
+    x: [B, C, d]; ck/cv: [B, Smax, KVH, hd], this layer's cache. Writes the
+    chunk's K/V at [start, start+C), in place, and attends causally over
+    [0, start+C). The ops of `_dense_block_seq`; only the mask offset and
+    the cache-resident keys differ."""
+    C = x.shape[1]
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv(h, lp["attn"], cfg, positions, lora, rope_tables=rope)
+    ck[:, start:start + C] = k.to(ck.dtype)
+    cv[:, start:start + C] = v.to(cv.dtype)
+    o = attention_prefill_chunk(q, ck[:, :start + C], cv[:, :start + C], cfg,
+                                q_start=start, window=window)
+    o = o.reshape(x.shape[0], C, cfg.q_dim)
+    x = x + proj(o, lp["attn"].wo, lora=lora, name="attn_o")
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(h, lp["mlp"], cfg.mlp_act, lora)
+
+
+def forward_prefill_chunk(params: Params, tokens, cfg: ModelConfig,
+                          lora: Optional[LoraCtx] = None,
+                          cache: Optional[Params] = None, *, start: int = 0,
+                          seq_lens=None) -> Tuple[torch.Tensor, Params]:
+    """One chunk of an incremental prefill: tokens [B, C] are the absolute
+    positions ``start .. start+C`` of each row (`start` a Python int). Every
+    layer writes the chunk's K/V into the dense cache (``init_cache``) at
+    [start, start+C), in place, and attends over [0, start+C) of it, so the
+    cache must already hold the row's first `start` entries. `seq_lens` [B]
+    is the valid length within the chunk; the attention families need none
+    (positions past it are overwritten before they are read), as in
+    ``forward_seq``. A prompt prefilled chunk by chunk gives the hidden
+    states of ``forward_seq``. Returns (hidden [B, C, d] final-normed,
+    cache); the caller sets ``cache["pos"]``."""
+    _check_family(cfg)
+    C = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    positions = (start + torch.arange(C, device=x.device))[None, :]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.num_layers):
+        x = _dense_block_chunk(x, tree_index(params["layers"], i), cfg,
+                               _lora_layer(lora, i), _window_for(cfg, i),
+                               positions, rope, cache["k"][i], cache["v"][i],
+                               start)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), cache
 
 
 # ===========================================================================

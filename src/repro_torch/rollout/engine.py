@@ -39,6 +39,26 @@ holds ``ceil(len/page)`` pages, growing one page at a time, and decode reads
 them through per-slot block tables (the ``paged_gqa_decode`` kernel on the
 card). A row the pool cannot serve finishes with ``capacity``.
 
+Copy-on-write prefix cache (``prefix_cache=True``, the default with
+``paged_kv``): rows share pool pages at three levels, with page refcounts
+keeping ownership exact.
+- GRPO groups: every installed prompt's pages (full pages and the partial
+  tail) go into a per-adapter radix index (``PrefixIndex``); a sibling with
+  the same prompt retains all of them, recomputes only the last chunk for
+  its first-token logits and writes nothing. A row about to decode-write
+  into a page with refcount > 1 first copies just that page to a fresh one
+  (the COW fork), so earlier shared pages stay shared.
+- Radix reuse: a row whose prompt shares page-aligned leading pages with an
+  indexed one (a common system prompt) retains them and prefills only its
+  suffix (``forward_prefill_chunk`` at the matched offset, over the matched
+  pages gathered into a scratch cache).
+- Device-resident parking: a preempted row keeps its pages in the pool;
+  its resume re-attaches them to a slot and moves no K/V. Under pool
+  pressure, allocation first drops the index's least recently used
+  entries, then spills the oldest parked row to a host snapshot (or, past
+  the snapshot budget, to token replay).
+Either way a row's tokens equal those of the private-pages engine.
+
 The step functions are plain Python closures over the model that write the
 engine's cache and row-state tensors in place (the JAX engine's jitted calls
 donate them instead); the engines keep them as attributes (``_step_fn``,
@@ -52,10 +72,10 @@ circuit breaker quarantines a tenant with it), ``queue_depths`` and
 ``StageSupervisor``: the names the runtime reads.
 
 Not ported yet (each raises ``NotImplementedError`` at construction where
-the JAX engine has a switch for it): the prefix cache over the paged pool
-(``prefix_cache=True`` with ``paged_kv``), the disaggregated prefill
-workers, the env stage, the tracer, chaos injection and stage supervision.
-So the supervisor has no stage registered and its counters stay empty.
+the JAX engine has a switch for it): the disaggregated prefill workers, the
+env stage (and with it the JAX engine's response-prefill fusion, which only
+its resumes reach), the tracer, chaos injection and stage supervision. So
+the supervisor has no stage registered and its counters stay empty.
 """
 from __future__ import annotations
 
@@ -75,13 +95,14 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.envs.base import CancelToken, Env, call_session
 from repro_torch.lora.adapters import (batched_ctx, init_stacked_buffer,
                                        stack_adapters, write_adapter_slot)
-from repro_torch.models import (decode_step, forward_seq, init_cache,
-                                init_paged_cache, lm_logits)
+from repro_torch.models import (decode_step, forward_prefill_chunk,
+                                forward_seq, init_cache, init_paged_cache,
+                                lm_logits)
 from repro_torch.models.common import resolve_device, synchronize
 from repro_torch.rl.types import RolloutCompletion, TrajectoryBatch
 from repro_torch.rollout import prng
-from repro_torch.rollout.kvcache import (KVSnapshot, PagePool, SnapshotStore,
-                                         pages_for)
+from repro_torch.rollout.kvcache import (KVSnapshot, PagePool, PrefixIndex,
+                                         SnapshotStore, pages_for)
 from repro_torch.rollout.prefill import _bucket_len, _sample_rows
 from repro_torch.rollout.scheduler import LengthPredictor, SlotScheduler
 
@@ -108,9 +129,8 @@ class RolloutRequest:
 class RolloutStats:
     """Engine counters, the JAX package's fields. ``generate`` fills the
     first group; the continuous engine fills the extras. The extras of
-    stages not ported yet (disaggregated prefill, env stage, prefix cache)
-    stay 0 and are kept so that both packages' stats compare field by
-    field."""
+    stages not ported yet (disaggregated prefill, env stage) stay 0 and are
+    kept so that both packages' stats compare field by field."""
     decode_steps: int = 0
     prefill_tokens: int = 0
     decode_seconds: float = 0.0     # decode-stage device time only
@@ -149,12 +169,13 @@ class RolloutStats:
                                    # pressure (row fell back to replay)
     pool_exhausted: int = 0        # rows finished by cache-capacity
                                    # eviction when the page pool ran dry
-    # prefix-cache extras (not ported yet: always 0)
-    prefix_hits: int = 0
-    prefix_hit_tokens: int = 0
-    cow_forks: int = 0
-    device_resident_resumes: int = 0
-    fused_forced_tokens: int = 0
+    # prefix-cache extras
+    prefix_hits: int = 0           # rows installed over indexed pages
+    prefix_hit_tokens: int = 0     # prompt tokens those rows did not prefill
+    cow_forks: int = 0             # shared pages copied before a write
+    device_resident_resumes: int = 0   # restores from pages kept in-pool
+    fused_forced_tokens: int = 0   # response-prefill fusion (env stage; not
+                                   # ported yet: always 0)
     tool_wait_slot_steps: int = 0  # sum over decode steps of resident rows
                                    # frozen on a tool wait
     env_wait_by_task: Dict[str, float] = field(default_factory=dict)
@@ -354,16 +375,19 @@ def _build_restore_fn(cfg: ModelConfig):
     them), `pos` to the snapshot position, and the device row state to
     (pending token, counter); the next ordinary decode step then continues
     the row with the logits an uninterrupted run would produce. No prefill
-    runs."""
+    runs. A device-resident resume passes ``kpages=None``: its pages never
+    left the pool, so only `pos` and the row state move (the JAX engine
+    writes a zero page stack into the scratch page instead)."""
 
     def restore(cache, kpages, vpages, dest_pages, slot, pos_val, cur_tok,
                 counter, key, temp, row_id, cur, counters, keys, temps,
                 row_ids):
-        dest = dest_pages.long()
-        cache["kp"][:, dest] = kpages.to(device=cache["kp"].device,
-                                         dtype=cache["kp"].dtype)
-        cache["vp"][:, dest] = vpages.to(device=cache["vp"].device,
-                                         dtype=cache["vp"].dtype)
+        if kpages is not None:
+            dest = dest_pages.long()
+            cache["kp"][:, dest] = kpages.to(device=cache["kp"].device,
+                                             dtype=cache["kp"].dtype)
+            cache["vp"][:, dest] = vpages.to(device=cache["vp"].device,
+                                             dtype=cache["vp"].dtype)
         cache["pos"][slot] = pos_val
         state = _set_row_state(slot, cur_tok, counter, key, temp, row_id,
                                cur, counters, keys, temps, row_ids)
@@ -372,13 +396,76 @@ def _build_restore_fn(cfg: ModelConfig):
     return restore
 
 
+def _build_cow_fn(cfg: ModelConfig):
+    """Copy-on-write fork of ONE page: copy physical page `src` to the
+    freshly allocated page `dst` in every layer, in place. It runs before
+    the decode step that writes into the page, on the same stream, so the
+    write lands on the copy."""
+
+    def cow(cache, src: int, dst: int):
+        cache["kp"][:, dst] = cache["kp"][:, src]
+        cache["vp"][:, dst] = cache["vp"][:, src]
+        return cache
+
+    return cow
+
+
+def _build_suffix_fn(cfg: ModelConfig, page: int):
+    """Radix-hit install of one row: its longest indexed prefix (`start`
+    tokens, the pool pages `prefix_pages`) is GATHERED into a width-1 dense
+    scratch cache, only the suffix `tokens` [1, S_b] runs through
+    ``forward_prefill_chunk`` at offset `start` (attending over the
+    gathered prefix), and only the suffix's pages are written back, into
+    `fresh_pages`, whose first one is the row's page `first_fresh`. The
+    scratch is zeroed and a whole number of pages wide, so lanes past the
+    suffix hold zeros, never stale values. The first token is sampled or
+    forced as in the whole-prompt refill: the same final-position logits,
+    the same fold_in(key, init_counter)."""
+
+    def suffix(start: int, params, adapters, row_id, prefix_pages, tokens,
+               seq_len: int, init_counter, key, temp, forced, forced_mask,
+               cache, fresh_pages, first_fresh: int, slot: int, cur,
+               counters, keys, temps, row_ids):
+        L, _, _, KVH, hd = cache["kp"].shape
+        width = -(-(start + tokens.shape[1]) // page) * page
+        pcache = init_cache(cfg, 1, width, dtype=cache["kp"].dtype,
+                            device=tokens.device)
+        idx = prefix_pages.long()
+        pcache["k"][:, 0, :start] = cache["kp"][:, idx].reshape(L, start,
+                                                                KVH, hd)
+        pcache["v"][:, 0, :start] = cache["vp"][:, idx].reshape(L, start,
+                                                                KVH, hd)
+        lora = batched_ctx(adapters, row_id, cfg)
+        h, pcache = forward_prefill_chunk(params, tokens, cfg, lora, pcache,
+                                          start=start)
+        logits = lm_logits(h[:, seq_len - 1 - start], params, cfg)
+        sampled = _sample_rows(logits, key, init_counter, temp)
+        first = torch.where(forced_mask > 0, forced.long(),
+                            sampled).to(torch.int32)
+        n = fresh_pages.shape[0]
+        if n:
+            lo, dest = first_fresh * page, fresh_pages.long()
+            cache["kp"][:, dest] = pcache["k"][:, 0, lo:lo + n * page].reshape(
+                L, n, page, KVH, hd)
+            cache["vp"][:, dest] = pcache["v"][:, 0, lo:lo + n * page].reshape(
+                L, n, page, KVH, hd)
+        cache["pos"][slot] = seq_len
+        state = _set_row_state(slot, first[0], init_counter[0] + 1, key[0],
+                               temp[0], row_id[0], cur, counters, keys, temps,
+                               row_ids)
+        return first, _log_softmax_at(logits, first), cache, state
+
+    return suffix
+
+
 class _Row:
     """Host-side per-episode state machine (one batch lane, or one slot of
     the continuous engine while resident)."""
     __slots__ = ("req", "prompt_len", "gen", "lps", "lmask", "sampled",
                  "forced", "status", "forced_q", "finish_reason", "key",
                  "submit_index", "meta", "submitted_at", "started_at",
-                 "replays", "session", "turns", "snap")
+                 "replays", "session", "turns", "snap", "dev_pages",
+                 "dev_pos")
 
     def __init__(self, req: RolloutRequest, key=None, submit_index: int = 0,
                  meta=None, submitted_at: float = 0.0):
@@ -404,6 +491,10 @@ class _Row:
         self.snap = None              # host KVSnapshot while preempted
                                       # (paged engine, resume_restore);
                                       # None -> the row replays from tokens
+        self.dev_pages = None         # KV pages kept IN-POOL while preempted
+                                      # (prefix cache; the row owns one
+                                      # refcount per page)
+        self.dev_pos = 0              # cache entries those pages hold
 
     def turn_limit(self) -> int:
         """Effective tool-turn budget (0 = unlimited)."""
@@ -733,11 +824,11 @@ class ContinuousRolloutEngine:
     switch: kernels run for tensors on the card) and plus ``device``
     (default "cuda", which raises when no card is present); ``base_params``
     and the adapters passed to ``set_adapters`` live on ``device``. The
-    switches of stages not ported yet raise ``NotImplementedError``:
-    ``disagg_prefill``, ``env_stage``, ``tracer``, ``chaos``,
-    ``supervise_wedge_s``, and the prefix cache, which is the JAX default
-    with ``paged_kv`` — so the paged engine needs ``prefix_cache=False``
-    passed explicitly. Their companion arguments (``prefill_chunk``,
+    prefix cache is on by default with ``paged_kv``, as in the JAX engine;
+    ``prefix_cache=False`` gives the private-pages engine. The switches of
+    stages not ported yet raise ``NotImplementedError``: ``disagg_prefill``,
+    ``env_stage``, ``tracer``, ``chaos``, ``supervise_wedge_s``. Their
+    companion arguments (``prefill_chunk``,
     ``prefill_workers``, ``env_workers``, ``env_inflight_per_tenant``,
     ``tool_retry_*``) are accepted and unused.
     """
@@ -761,8 +852,6 @@ class ContinuousRolloutEngine:
                  supervise_wedge_s: float = 0.0, device="cuda"):
         later = {"disagg_prefill": (disagg_prefill, "4"),
                  "env_stage": (env_stage, "5"),
-                 "prefix_cache (with paged_kv)": (paged_kv and prefix_cache,
-                                                  "3"),
                  "tracer": (tracer is not None, "6"),
                  "chaos": (chaos is not None, "6"),
                  "supervise_wedge_s": (supervise_wedge_s > 0, "6")}
@@ -802,6 +891,19 @@ class ContinuousRolloutEngine:
             self.kv_pool_pages = 0
             self._pages = None
             self._snap_store = None
+        # -- copy-on-write prefix cache -------------------------------------
+        # three sharing levels over the page pool: GRPO-group prompt pages,
+        # cross-request radix reuse of common prefixes, and device-resident
+        # preemption (pages stay in the pool; the host snapshot becomes a
+        # spill tier). prefix_cache=False gives the private-pages engine.
+        self.prefix_cache = bool(paged_kv and prefix_cache)
+        self._prefix_idx = (PrefixIndex(kv_page_size)
+                            if self.prefix_cache else None)
+        self._dev_parked: List[_Row] = []   # rows whose dev_pages are live
+                                            # (engine thread only: spill
+                                            # victims and invariants)
+        self._cow_fn = None
+        self._suffix_fn = None
         self._snap_fn = None
         self._restore_fn = None
         self.sim_latency = sim_latency
@@ -856,6 +958,10 @@ class ContinuousRolloutEngine:
                     self.cfg, self.max_len, self.kv_page_size)
                 self._snap_fn = _build_snap_fn(self.cfg)
                 self._restore_fn = _build_restore_fn(self.cfg)
+                if self.prefix_cache:
+                    self._cow_fn = _build_cow_fn(self.cfg)
+                    self._suffix_fn = _build_suffix_fn(self.cfg,
+                                                       self.kv_page_size)
             else:
                 self._refill_fn = _build_refill_fn(self.cfg, self.max_len)
         if self._cache is None:
@@ -883,7 +989,8 @@ class ContinuousRolloutEngine:
     @torch.no_grad()
     def set_adapters(self, index: int, tree):
         """Install/replace the LoRA tree at adapter slot `index` of the
-        fixed-capacity stacked buffer, in place."""
+        fixed-capacity stacked buffer, in place. The prefix index drops the
+        slot's entries: their K/V was computed under the old weights."""
         if not 0 <= index < self.max_adapters:
             raise ValueError(f"adapter slot {index} out of range "
                              f"[0, {self.max_adapters})")
@@ -892,6 +999,10 @@ class ContinuousRolloutEngine:
             self._stacked = init_stacked_buffer(tree, self.max_adapters,
                                                 self.device)
         write_adapter_slot(self._stacked, tree, index)
+        if self._prefix_idx is not None:
+            stale = self._prefix_idx.invalidate(index)
+            if stale:
+                self._pages.release(stale)
 
     # -- submission ------------------------------------------------------
     def submit(self, req: RolloutRequest, meta=None):
@@ -1002,6 +1113,7 @@ class ContinuousRolloutEngine:
         """Finish an episode that holds no slot (queued: capacity or
         abort)."""
         self._drop_snap(row)          # a dead row's snapshot frees its arena
+        self._release_dev(row)        # ... and its in-pool parked pages
         self._completed.append(self._completion(row, row.req.prompt, -1))
         self.stats.completions += 1
 
@@ -1055,11 +1167,94 @@ class ContinuousRolloutEngine:
             self._snap_store.remove(row.snap)
             row.snap = None
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
-        """Pool allocation (all-or-nothing; None when the pool is short).
-        The JAX engine's relief steps (evicting prefix-cache entries,
-        spilling device-parked rows) belong to the prefix cache."""
-        return [] if n == 0 else self._pages.alloc(n)
+    def _release_dev(self, row: _Row):
+        """Drop a row's device-resident parked pages (abort, capacity
+        finish, drain): the in-pool counterpart of ``_drop_snap``."""
+        if row.dev_pages is not None:
+            self._pages.release(row.dev_pages)
+            row.dev_pages, row.dev_pos = None, 0
+            if row in self._dev_parked:
+                self._dev_parked.remove(row)
+
+    # -- prefix cache: allocation relief + device-resident parking ---------
+    def _alloc_pages(self, n: int, *, spill: bool = True
+                     ) -> Optional[List[int]]:
+        """Pool allocation (all-or-nothing; None when the pool is short),
+        with the prefix cache's relief: on failure, evict cold index entries
+        (LRU leaves), then spill the oldest device-parked row to the host
+        tier, then retry. ``spill=False`` keeps the call host-only (no
+        device gather); use it under ``_queue_lock``."""
+        if n == 0:
+            return []
+        pages = self._pages.alloc(n)
+        while pages is None:
+            if self._prefix_idx is not None:
+                dropped = self._prefix_idx.pop_lru(
+                    max(1, n - self._pages.free_pages))
+                if dropped:
+                    self._pages.release(dropped)
+                    pages = self._pages.alloc(n)
+                    continue
+            if not (spill and self._spill_dev_parked()):
+                return None
+            pages = self._pages.alloc(n)
+        return pages
+
+    def _spill_dev_parked(self) -> bool:
+        """Spill tier: demote the oldest device-parked row to a host
+        snapshot (its pages copied off the card) so that its pool pages free
+        up. If the snapshot store rejects the bytes, the row falls back to
+        token replay; either way its pages return to the pool. Returns True
+        if a row was spilled."""
+        if not self._dev_parked:
+            return False
+        row = self._dev_parked.pop(0)
+        outs = self._snap_fn(self._cache,
+                             self._tensor(row.dev_pages, torch.int64))
+        snap = KVSnapshot(pos=row.dev_pos, cur=row.gen[-1], kpages=outs["kp"],
+                          vpages=outs["vp"])
+        self._pages.release(row.dev_pages)
+        row.dev_pages, row.dev_pos = None, 0
+        if self._snap_store.try_add(snap):
+            row.snap = snap
+            self.stats.snapshots += 1
+        else:
+            self.stats.snapshot_drops += 1   # token-replay fallback
+        return True
+
+    def _dev_park_row(self, slot: int, row: _Row) -> bool:
+        """Device-resident preemption (prefix cache): the row KEEPS its pool
+        pages (ownership moves from the slot to the row), its resume is a
+        block-table splice, and no K/V byte leaves the card. Returns True
+        when the slot was vacated so."""
+        if not (self.prefix_cache and self.resume_restore):
+            return False
+        if not self._slot_pages[slot]:
+            return False                 # no pages to keep
+        pos = self._slot_pos[slot]
+        n_pg = self._row_pages_needed(pos)
+        pages = self._slot_pages[slot]
+        # the slot may hold one slack page allocated for the pending write
+        # (pos % page == 0): it has no valid entries, so it is dropped
+        if n_pg < len(pages):
+            self._pages.release(pages[n_pg:])
+        row.dev_pages = pages[:n_pg]
+        row.dev_pos = pos
+        self._dev_parked.append(row)
+        # hand-off WITHOUT release: the row now owns the refcounts
+        self._slot_pages[slot] = []
+        self._tbl_host[slot, :] = self._pages.sentinel
+        self._tbl_dirty = True
+        return True
+
+    def _park_or_snap(self, slot: int, row: _Row):
+        """Vacate a slot keeping the row's resume state: in the pool when
+        the prefix cache is on, as a host snapshot otherwise (which falls
+        back to token replay under memory pressure)."""
+        if self._dev_park_row(slot, row):
+            return
+        self._snapshot_row(slot, row)
+        self._free_slot_pages(slot)
 
     def _finish_capacity(self, row: _Row):
         """Cache-capacity eviction: the page pool cannot serve this row even
@@ -1076,7 +1271,8 @@ class ContinuousRolloutEngine:
         pending token; the next decode step produces the logits an
         uninterrupted run would have. No token is accepted at install (the
         pending one was accepted before the preemption), so only the device
-        state moves."""
+        state moves. A device-resident row (prefix cache) re-attaches the
+        pages it kept in the pool: no K/V moves at all."""
         if not self.resume_restore or self._cache is None:
             return False
         free = [s for s in range(self.max_slots) if self._rows[s] is None]
@@ -1085,10 +1281,42 @@ class ContinuousRolloutEngine:
             with self._queue_lock:
                 # pop_if, not pop(where=): a snapshot row restores only
                 # when it is genuinely next in scheduler order
-                row = self._sched.pop_if(self.stats.refills,
-                                         lambda r: r.snap is not None)
+                row = self._sched.pop_if(
+                    self.stats.refills,
+                    lambda r: r.snap is not None or r.dev_pages is not None)
             if row is None:
                 break
+            if row.dev_pages is not None:
+                # device-resident resume: reattach the pages to the slot's
+                # block table and reset the device row state
+                slot = free.pop(0)
+                t0 = time.monotonic()
+                self._cache, state = self._restore_fn(  # noqa: RA204
+                    self._cache, None, None, None, slot, row.dev_pos,
+                    row.gen[-1], len(row.gen),
+                    self._tensor(row.key.astype(np.int64), torch.int64),
+                    row.req.temperature, row.req.adapter_index, self._d_cur,
+                    self._d_counters, self._d_keys, self._d_temps,
+                    self._d_row_ids)
+                (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
+                 self._d_row_ids) = state
+                self._mask_sig = None
+                now = time.monotonic()
+                self._rows[slot] = row
+                self._prompts[slot] = list(row.req.prompt)
+                # ownership transfer back: the slot adopts the refcounts
+                self._assign_slot_pages(slot, row.dev_pages, row.dev_pos)
+                self._dev_parked.remove(row)
+                row.dev_pages, row.dev_pos = None, 0
+                self.stats.restores += 1
+                self.stats.device_resident_resumes += 1
+                self.stats.replay_tokens_saved += (row.prompt_len
+                                                   + len(row.gen))
+                self.stats.splice_seconds += now - t0
+                if self.on_stage is not None:
+                    self.on_stage("splice", row.req.task_id, t0, now)
+                did = True
+                continue
             snap = row.snap
             pages = self._alloc_pages(snap.n_pages)
             if pages is None:
@@ -1142,8 +1370,26 @@ class ContinuousRolloutEngine:
             if need_idx >= self._max_pg:
                 continue            # accept() finishes the row at max_len
             if need_idx < len(self._slot_pages[slot]):
+                page = self._slot_pages[slot][need_idx]
+                if self.prefix_cache and self._pages.refcount(page) > 1:
+                    # copy-on-write fork: the row is about to write into a
+                    # SHARED page; privatize just this page. The last owner
+                    # standing sees rc == 1 and writes in place.
+                    pg = self._alloc_pages(1)
+                    if pg is None:
+                        r.status, r.finish_reason = "done", "capacity"
+                        self.stats.pool_exhausted += 1
+                        self._evict(slot)
+                        continue
+                    self._cache = self._cow_fn(self._cache, page, pg[0])
+                    self._pages.release([page])
+                    self._slot_pages[slot][need_idx] = pg[0]
+                    self._tbl_host[slot, need_idx] = pg[0]
+                    self._tbl_dirty = True
+                    self.stats.cow_forks += 1
                 continue
-            pg = self._pages.alloc(1)
+            pg = (self._alloc_pages(1) if self.prefix_cache
+                  else self._pages.alloc(1))
             if pg is None:
                 r.status, r.finish_reason = "done", "capacity"
                 self.stats.pool_exhausted += 1
@@ -1156,8 +1402,10 @@ class ContinuousRolloutEngine:
     def page_stats(self) -> Dict[str, float]:
         """Pool occupancy/fragmentation gauges: used/total pages, the
         high-water mark, internal fragmentation (allocated page slack beyond
-        the live cache entries), HBM bytes per resident row and the host
-        snapshot arena's bytes. (The prefix-cache gauges are 0.)"""
+        the live cache entries), the prefix cache's sharing gauges (pages
+        with more than one owner, pages the index holds, device bytes per
+        row in a slot or parked in the pool) and the host snapshot arena's
+        bytes."""
         if self._pages is None:
             return {}
         used = self._pages.used_pages
@@ -1168,6 +1416,7 @@ class ContinuousRolloutEngine:
                    if self._rows[s] is not None)
         frag = 1.0 - live / cap_tokens if cap_tokens else 0.0
         resident = sum(1 for r in self._rows if r is not None)
+        resident += len(self._dev_parked)      # their pages are HBM too
         dtype_bytes = (self._cache["kp"].element_size()
                        if self._cache is not None else 2)
         hbm = cap_tokens * self.cfg.state_bytes_per_token(dtype_bytes)
@@ -1176,17 +1425,21 @@ class ContinuousRolloutEngine:
                 "kv_pages_peak": float(self._pages.peak_used),
                 "kv_page_frag": float(frag),
                 "kv_shared_pages": float(self._pages.shared_pages),
-                "kv_prefix_pages": 0.0,
+                "kv_prefix_pages": float(
+                    self._prefix_idx.held_pages
+                    if self._prefix_idx is not None else 0),
                 "kv_hbm_bytes_per_row": float(hbm / max(1, resident)),
                 "snapshot_bytes": float(self._snap_store.bytes_used)}
 
     def check_page_invariants(self):
         """Debug assertion the tests run after every step: allocator-level
         conservation (``PagePool.check_invariants``) plus exact refcount
-        accounting (every page's rc equals the number of slots that hold
-        it), the host block-table mirror naming exactly the slots' pages,
-        and, once the cache exists, the device ``pos`` of every resident
-        row equal to its host mirror ``_slot_pos``."""
+        accounting (every page's rc equals its owners: the slots that hold
+        it, the device-parked rows and the prefix index's nodes), the host
+        block-table mirror naming exactly the slots' pages, and, once the
+        cache exists, the device ``pos`` of every resident row equal to its
+        host mirror ``_slot_pos``. A COW leak or double free fails at the
+        step it happens."""
         if self._pages is None:
             return
         self._pages.check_invariants()
@@ -1198,10 +1451,17 @@ class ContinuousRolloutEngine:
             want[:len(self._slot_pages[s])] = self._slot_pages[s]
             assert (self._tbl_host[s] == want).all(), \
                 f"slot {s}: block-table mirror out of sync"
+        for row in self._dev_parked:
+            assert row.dev_pages is not None
+            for p in row.dev_pages:
+                owners[p] += 1
+        if self._prefix_idx is not None:
+            for p, n in self._prefix_idx.refcounts().items():
+                owners[p] += n
         for p in range(self._pages.n_pages):
             assert self._pages.refcount(p) == owners[p], (
                 f"page {p}: rc={self._pages.refcount(p)} but "
-                f"{owners[p]} owning slots")
+                f"{owners[p]} owners (slots+parked+index)")
         if self._cache is not None:
             pos = self._cache["pos"].cpu().numpy()
             for s, r in enumerate(self._rows):
@@ -1214,7 +1474,9 @@ class ContinuousRolloutEngine:
                            dtype_bytes: int = 2) -> Optional[int]:
         """Actual byte need of a tenant's queued rows (paged mode): snapshot
         page counts for restore rows (exact — what restore will allocate),
-        page-rounded prompt+prefix for replay rows. None in dense mode."""
+        page-rounded prompt+prefix for replay rows, only the fixed state for
+        device-parked rows (their pages are already in the pool). None in
+        dense mode."""
         if not self.paged_kv:
             return None
         with self._queue_lock:
@@ -1223,6 +1485,9 @@ class ContinuousRolloutEngine:
         fixed = self.cfg.state_bytes_fixed(dtype_bytes)
         total = 0
         for r in rows:
+            if r.dev_pages is not None:
+                total += fixed
+                continue
             n_pg = (r.snap.n_pages if r.snap is not None
                     else self._row_pages_needed(r.prompt_len + len(r.gen)))
             total += n_pg * self.kv_page_size * per_tok + fixed
@@ -1238,15 +1503,14 @@ class ContinuousRolloutEngine:
     def _preempt_slot(self, slot: int):
         """Free one slot: the generated prefix already lives host-side in
         the _Row, so vacate and re-queue. With the paged cache and
-        ``resume_restore`` the row's live KV pages are first copied to host,
-        so the later resume splices them back instead of re-prefilling
-        (unless the snapshot was dropped under memory pressure: then the
-        row replays, with the same output)."""
+        ``resume_restore`` the row's live KV pages are kept: in the pool with
+        the prefix cache, else copied to host; the later resume splices them
+        back instead of re-prefilling (unless the snapshot was dropped under
+        memory pressure: then the row replays, with the same output)."""
         row = self._rows[slot]
         row.replays += 1
         if self.paged_kv:
-            self._snapshot_row(slot, row)
-            self._free_slot_pages(slot)
+            self._park_or_snap(slot, row)
         self._rows[slot] = None
         self._prompts[slot] = None
         self.stats.preemptions += 1
@@ -1288,7 +1552,8 @@ class ContinuousRolloutEngine:
 
     def abort_tenant(self, task_id: str, reason: str = "quarantined") -> int:
         """Abort EVERY in-flight episode of one tenant — resident rows and
-        queued rows (preempted rows awaiting resume included) — each
+        queued rows (preempted rows awaiting resume included; a
+        device-parked row's pages return to the pool) — each
         yielding exactly one completion with ``reason`` as its
         finish_reason (the runtime counts them as quarantine drops).
         Resident rows end in slot order, queued rows in pop order; other
@@ -1314,6 +1579,165 @@ class ContinuousRolloutEngine:
             n += 1
         return n
 
+    # -- radix prefix reuse + GRPO-group sharing ---------------------------
+    def _radix_on(self) -> bool:
+        """Radix/group page sharing is on once the paged cache exists (the
+        port's families are all pure attention, for which a suffix prefill
+        at any page offset is exact)."""
+        return (self._prefix_idx is not None and self._cache is not None
+                and "kp" in self._cache)
+
+    def _group_key(self, r: _Row):
+        return (r.req.adapter_index, tuple(r.req.prompt))
+
+    def _radix_candidate(self, r: _Row):
+        """Shared-install plan for a queued row whose prefix is in the pool:
+        ``(shared_pages, start, L)`` or None. ``shared_pages`` are the pool
+        pages the row will reference (NOT yet retained) and ``start`` the
+        page-aligned offset its suffix prefill resumes from. An exact
+        whole-sequence hit (a GRPO sibling, or an unchanged re-submit)
+        shares EVERY page including the partial tail: nothing is written at
+        install (the final chunk is recomputed only for the first-token
+        logits), and the first decode write forks the tail page."""
+        if r.snap is not None or r.dev_pages is not None:
+            return None
+        seq = list(r.req.prompt) + r.gen
+        L = len(seq)
+        adapter = r.req.adapter_index
+        hit = self._prefix_idx.match_full(adapter, seq)
+        if hit is not None:
+            pages, tail = hit
+            shared = pages + ([tail] if tail is not None else [])
+            start = (len(pages) - (1 if tail is None else 0)) \
+                * self.kv_page_size
+            if start + _bucket_len(L - start) <= self.max_len:
+                return (shared, start, L)
+        pages = self._prefix_idx.match(adapter, seq, max_tokens=L - 1)
+        if not pages:
+            return None
+        start = len(pages) * self.kv_page_size
+        if start + _bucket_len(L - start) > self.max_len:
+            return None                  # suffix bucket would overflow
+        return (pages, start, L)
+
+    def _index_prompt(self, row: _Row, row_pages: List[int]):
+        """Publish an installed row's prompt pages (full pages + partial
+        tail) to the per-adapter radix index so that later same-prefix rows
+        share them. The index holds its own refcount per page (retained
+        here); entries outlive the row and go by LRU eviction under pool
+        pressure or by invalidation when the adapter slot is rewritten.
+        Valid on every install path: prompt-position K/V depends only on
+        the prompt's tokens."""
+        if not self._radix_on():
+            return
+        n_full = row.prompt_len // self.kv_page_size
+        if n_full < 1:
+            return
+        rem = row.prompt_len % self.kv_page_size
+        tail = (int(row_pages[n_full])
+                if rem and len(row_pages) > n_full else None)
+        newly = self._prefix_idx.insert(
+            row.req.adapter_index, row.req.prompt,
+            [int(p) for p in row_pages[:n_full]], tail_page=tail)
+        if newly:
+            self._pages.retain(newly)
+
+    def _radix_fill_rows(self) -> bool:
+        """Install queued rows whose prefix is already in the pool (radix
+        hit / GRPO sibling): retain the shared pages, prefill ONLY the
+        suffix (``_suffix_fn``, one width-1 call a row) and book only the
+        suffix as prefill work. Runs before the fused refill each step, and
+        pops with ``pop_if`` so that a sharable row never jumps a
+        higher-priority tenant."""
+        if not self._radix_on():
+            return False
+        free = [s for s in range(self.max_slots) if self._rows[s] is None]
+        if not free:
+            return False
+        installed = 0
+        while free:
+            with self._queue_lock:
+                row = self._sched.pop_if(
+                    self.stats.refills,
+                    lambda r: self._radix_candidate(r) is not None)
+            if row is None:
+                break
+            plan = self._radix_candidate(row)
+            if plan is None:      # the index changed between pop and here
+                with self._queue_lock:
+                    self._sched.push(row, self.stats.refills)
+                break
+            shared, start, L = plan
+            self._pages.retain(shared)
+            fresh = self._alloc_pages(self._row_pages_needed(L)
+                                      - len(shared))
+            if fresh is None:     # pool pressure: retry next step
+                self._pages.release(shared)
+                with self._queue_lock:
+                    self._sched.push(row, self.stats.refills)
+                break
+            slot = free.pop(0)
+            t0 = time.monotonic()
+            seq = list(row.req.prompt) + row.gen
+            toks = np.zeros((1, _bucket_len(L - start)), np.int32)
+            toks[0, :L - start] = seq[start:]
+            was_forced = bool(row.forced_q)
+            # eager, as the step functions are: a per-row shape recompiles
+            # nothing (the analyzer's jit rule does not apply)
+            first, lp, self._cache, state = self._suffix_fn(  # noqa: RA204
+                start, self.base_params, self._stacked,
+                self._tensor([row.req.adapter_index], torch.int32),
+                self._tensor(shared[:start // self.kv_page_size],
+                             torch.int64),
+                self._tensor(toks, torch.int32), L,
+                self._tensor([len(row.gen)], torch.int32),
+                self._tensor(row.key[None].astype(np.int64), torch.int64),
+                self._tensor([row.req.temperature], torch.float32),
+                self._tensor([row.forced_q[0] if was_forced else 0],
+                             torch.int32),
+                self._tensor([1 if was_forced else 0], torch.int32),
+                self._cache, self._tensor(fresh, torch.int64), len(shared),
+                slot, self._d_cur, self._d_counters, self._d_keys,
+                self._d_temps, self._d_row_ids)
+            (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
+             self._d_row_ids) = state
+            first = int(first.cpu()[0])
+            lp = float(lp.float().cpu()[0])
+            self._mask_sig = None
+            now = time.monotonic()
+            installed += 1
+            self._rows[slot] = row
+            self._prompts[slot] = list(row.req.prompt)
+            self._assign_slot_pages(slot, shared + fresh, L)
+            self._index_prompt(row, shared + fresh)
+            self.stats.prefix_hits += 1
+            self.stats.prefix_hit_tokens += start
+            self.stats.prefill_tokens += L - start      # suffix only
+            self.stats.prefill_seconds += now - t0
+            self.stats.decode_stall_seconds += now - t0
+            if row.gen:                       # preemption replay
+                self.stats.replays += 1
+                self.stats.replay_tokens += L - start
+            else:                             # fresh row (GRPO sibling)
+                self.stats.prefills += 1
+                row.started_at = now
+            if was_forced:
+                row.forced_q.pop(0)
+            self.stats.tokens_generated += 1
+            if not was_forced:
+                self.stats.sampled_tokens += 1
+            if self.on_stage is not None:
+                self.on_stage("prefill", row.req.task_id, t0, now)
+            action = row.accept(first, lp, 0.0 if was_forced else 1.0,
+                                self.max_len)
+            if action == "call":
+                self._dispatch_tool(slot)
+            elif action == "done":
+                self._evict(slot)
+        if installed:
+            self.stats.refills += 1    # one refill event (starvation aging)
+        return installed > 0
+
     # -- fused refill ------------------------------------------------------
     def _refill_free_slots(self) -> bool:
         """Fill every freed slot from the queue with ONE fused call:
@@ -1323,8 +1747,12 @@ class ContinuousRolloutEngine:
         The queue pops in scheduler order. A preemption-replayed row
         prefills its prompt + generated prefix in one sequence and samples
         token `len(gen)` with counter `len(gen)`: the same continuation.
-        Snapshot-carrying rows restore in ``_restore_rows`` and are skipped
-        here."""
+        Snapshot-carrying and device-parked rows restore in
+        ``_restore_rows`` and radix-sharable rows install in
+        ``_radix_fill_rows``; neither pops here. A GRPO sibling of a row
+        popped THIS round waits one step (``seen_keys``), so that the
+        leader's pages reach the index first and the sibling shares them
+        instead of prefilling its own."""
         free = [s for s in range(self.max_slots) if self._rows[s] is None]
         with self._queue_lock:
             has_queued = bool(self._sched)
@@ -1336,25 +1764,49 @@ class ContinuousRolloutEngine:
         t0 = time.monotonic()
         incoming: List[Tuple[int, _Row]] = []
         pages_of: List[List[int]] = []
-        where = (lambda r: r.snap is None) if self.resume_restore else None
+        seen_keys = set()
+        radix = self._radix_on()
+        where = None
+        if self.resume_restore or radix:
+            def where(r):
+                if r.snap is not None or r.dev_pages is not None:
+                    return False        # restores in _restore_rows
+                if radix and self._radix_candidate(r) is not None:
+                    return False        # installs in _radix_fill_rows
+                if radix and len(r.req.prompt) >= self.kv_page_size \
+                        and self._group_key(r) in seen_keys:
+                    return False        # sibling: wait for the leader
+                return True
+        pressure = False
         with self._queue_lock:
             while free and self._sched:
                 row = self._sched.pop(self.stats.refills, where=where)
                 if row is None:
                     break
                 if self.paged_kv:
+                    # spill=False: spilling a parked row copies device state
+                    # to host, never under the lock; cold index entries
+                    # still evict (host bookkeeping)
                     pages = self._alloc_pages(self._row_pages_needed(
-                        len(row.req.prompt) + len(row.gen)))
+                        len(row.req.prompt) + len(row.gen)), spill=False)
                     if pages is None:
                         if self._pages.used_pages == 0:
                             self._finish_capacity(row)   # can never fit
                             continue
                         # pool pressure: resident rows will free pages
                         self._sched.push(row, self.stats.refills)
+                        pressure = True
                         break
                     pages_of.append(pages)
                 incoming.append((free.pop(0), row))
+                if radix:
+                    seen_keys.add(self._group_key(row))
         if not incoming:
+            if pressure and self._dev_parked:
+                # nothing installable and nothing resident to free pages:
+                # demote the oldest parked row to the host tier (outside the
+                # lock) so that the next step's allocation succeeds
+                self._spill_dev_parked()
             return False
         k = len(incoming)
         seqs = [list(row.req.prompt) + row.gen for _, row in incoming]
@@ -1413,6 +1865,7 @@ class ContinuousRolloutEngine:
             self._prompts[slot] = list(row.req.prompt)
             if self.paged_kv:
                 self._assign_slot_pages(slot, pages_of[j], len(seqs[j]))
+                self._index_prompt(row, pages_of[j])
             was_forced = fmask[j] == 1
             if row.gen:                           # preemption replay
                 self.stats.replays += 1
@@ -1447,9 +1900,10 @@ class ContinuousRolloutEngine:
     # -- scheduler interface ---------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
-        """One engine iteration: resolve tools, restore snapshot rows, fill
-        freed slots (fused refill), one decode step over the pool, evict
-        finished rows. Returns True if any device work happened."""
+        """One engine iteration: resolve tools, restore preempted rows,
+        install radix-sharable rows, fill the other freed slots (fused
+        refill), one decode step over the pool, evict finished rows.
+        Returns True if any device work happened."""
         now = time.monotonic()
         progressed = False
         # resolve / time out pending tool calls (freeze-in-slot)
@@ -1474,13 +1928,20 @@ class ContinuousRolloutEngine:
         # snapshot splice their saved pages back, before the fill path runs
         if self.resume_restore and self._restore_rows():
             progressed = True
+        # radix/GRPO shared installs (prefix cache): rows whose prefix is
+        # already in the pool retain it and prefill only their suffix,
+        # before the fused refill
+        if self.paged_kv and self._stacked is not None \
+                and self._radix_fill_rows():
+            progressed = True
         if self._refill_free_slots():
             progressed = True
         if self.paged_kv:
             # pre-step growth: allocate the page each active row's next K/V
-            # write lands in (cache-capacity eviction on exhaustion), then
-            # upload the block table if the topology changed: one
-            # host-to-device copy of [max_slots, max_pages] int32
+            # write lands in, or fork it if it is shared (cache-capacity
+            # eviction on exhaustion); then upload the block table if the
+            # topology changed, AFTER the forks: one host-to-device copy of
+            # [max_slots, max_pages] int32
             self._ensure_decode_pages()
             if self._tbl_dirty and self._cache is not None:
                 self._cache["tbl"].copy_(torch.from_numpy(self._tbl_host))

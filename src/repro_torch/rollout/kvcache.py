@@ -1,7 +1,6 @@
 """Paged KV-cache block pool: the host-side half of the paged cache (a copy
-of ``pages_for``, ``PagePool``, ``KVSnapshot`` and ``SnapshotStore`` from
-``repro.rollout.kvcache``; its ``PrefixIndex`` belongs to the prefix cache,
-which is not ported yet).
+of ``pages_for``, ``PagePool``, ``KVSnapshot``, ``SnapshotStore`` and
+``PrefixIndex`` from ``repro.rollout.kvcache``).
 
 ``PagePool`` — a fixed-size pool of ``n_pages`` KV pages of ``page_size``
 tokens each, with a free list and per-page reference counts. Rows own
@@ -21,7 +20,18 @@ decode with the pending token: no prefill replay.
 
 ``SnapshotStore`` — byte-budgeted host arena for snapshots. A snapshot that
 would exceed ``budget_bytes`` is DROPPED rather than stored; the row then
-falls back to token replay, which gives the same tokens, recomputed.
+falls back to token replay, which gives the same tokens, recomputed. With
+the prefix cache on, a preempted row keeps its pages in the pool instead,
+and the store is a SPILL tier: it sees pages only when the pool itself is
+under pressure.
+
+``PrefixIndex`` — a per-adapter radix trie over page-aligned token
+prefixes. Every installed prompt inserts its FULL pages (each node is one
+page worth of tokens and holds its own refcount on the page) plus its
+partial tail page, and a new request walks its longest indexed prefix,
+retains those pages and prefills only the suffix. Indexed pages are never
+written: decode writes land at positions past the prompt, and the engine
+forks (copy-on-write) any page with refcount > 1 before writing into it.
 
 The pool is plain host bookkeeping — device page contents live in the
 engine's cache dict (``kp``/``vp``: ``[L, n_pages+1, page, KVH, hd]``;
@@ -31,8 +41,9 @@ harmless).
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -180,3 +191,201 @@ class SnapshotStore:
     def remove(self, snap: KVSnapshot):
         self.bytes_used -= snap.nbytes
         assert self.bytes_used >= 0
+
+
+class _TrieNode:
+    __slots__ = ("children", "page", "parent", "key", "stamp")
+
+    def __init__(self, parent: Optional["_TrieNode"] = None,
+                 key=None, page: int = -1):
+        self.children: Dict[tuple, "_TrieNode"] = {}
+        self.page = page          # physical page id this node retains
+        self.parent = parent
+        self.key = key            # edge label: tuple of page_size tokens
+        self.stamp = 0            # LRU clock at last touch
+
+
+class PrefixIndex:
+    """Per-adapter radix index over page-aligned token prefixes.
+
+    Each trie edge is one page worth of tokens (a tuple of ``page_size``
+    ints); the node at the end of the edge retains exactly one reference on
+    the physical page holding that chunk's K/V. ``insert`` dedups against
+    existing nodes (a sibling inserting an already-indexed prefix retains
+    nothing new), ``match`` walks the longest indexed prefix, and
+    ``pop_lru`` / ``invalidate`` hand back page ids for the CALLER to
+    release: every ``PagePool`` mutation stays on the engine thread. The
+    lock guards the trie alone, so that another thread may probe it while
+    the engine thread inserts or evicts. (It is named apart from the JAX
+    package's ``_lock``: the repo's lock analyzer names locks by class and
+    attribute.)
+    """
+
+    def __init__(self, page_size: int):
+        if page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        self.page_size = int(page_size)
+        self._trie_lock = threading.Lock()   # guards: _roots/_clock/_held
+        self._roots: Dict[object, _TrieNode] = {}
+        self._clock = 0
+        self._held = 0                  # pages currently retained by nodes
+
+    # -- introspection ---------------------------------------------------
+    @property
+    def held_pages(self) -> int:
+        with self._trie_lock:
+            return self._held
+
+    def refcounts(self) -> Dict[int, int]:
+        """Page id -> number of index nodes retaining it (for the engine's
+        page-invariant checker)."""
+        out: Dict[int, int] = {}
+        with self._trie_lock:
+            for root in self._roots.values():
+                stack = list(root.children.values())
+                while stack:
+                    nd = stack.pop()
+                    out[nd.page] = out.get(nd.page, 0) + 1
+                    stack.extend(nd.children.values())
+        return out
+
+    # -- helpers ---------------------------------------------------------
+    def _chunks(self, tokens) -> List[tuple]:
+        p = self.page_size
+        n = len(tokens) // p
+        return [tuple(int(t) for t in tokens[i * p:(i + 1) * p])
+                for i in range(n)]
+
+    # -- lifecycle -------------------------------------------------------
+    def insert(self, adapter, tokens, pages: List[int],
+               tail_page: Optional[int] = None) -> List[int]:
+        """Index a prompt's FULL pages (``len(pages)`` must cover the
+        page-aligned prefix of ``tokens``) plus, optionally, the PARTIAL
+        tail page holding the remainder, keyed by the (shorter) remainder
+        tuple, so that an exact-prompt sibling (GRPO group) can share the
+        whole prompt including its last page and fork it copy-on-write at
+        the first decode write. Returns the page ids newly referenced by the
+        index: the caller must ``retain`` exactly those (the row already
+        owns them, so rc >= 1 holds)."""
+        chunks = self._chunks(tokens)[:len(pages)]
+        rem = tuple(int(t) for t in tokens[len(chunks) * self.page_size:])
+        newly: List[int] = []
+        with self._trie_lock:
+            self._clock += 1
+            node = self._roots.setdefault(adapter, _TrieNode())
+            for i, ch in enumerate(chunks):
+                nxt = node.children.get(ch)
+                if nxt is None:
+                    nxt = _TrieNode(parent=node, key=ch, page=int(pages[i]))
+                    node.children[ch] = nxt
+                    newly.append(int(pages[i]))
+                nxt.stamp = self._clock
+                node = nxt
+            if tail_page is not None and rem:
+                nxt = node.children.get(rem)
+                if nxt is None:
+                    nxt = _TrieNode(parent=node, key=rem, page=int(tail_page))
+                    node.children[rem] = nxt
+                    newly.append(int(tail_page))
+                nxt.stamp = self._clock
+            self._held += len(newly)
+        return newly
+
+    def match_full(self, adapter, tokens):
+        """Exact whole-sequence match (the GRPO-sibling fast path): every
+        full chunk is indexed AND, for a sequence that is not page-aligned,
+        a tail node holds the exact remainder. Returns ``(full_pages,
+        tail_page)`` (``tail_page`` None when the sequence is page-aligned)
+        or None. A hit installs with ZERO prefill writes: the row retains
+        every page, recomputes only the final chunk for its first-token
+        logits, and its first decode write forks the shared tail."""
+        chunks = self._chunks(tokens)
+        rem = tuple(int(t) for t in tokens[len(chunks) * self.page_size:])
+        with self._trie_lock:
+            node = self._roots.get(adapter)
+            if node is None:
+                return None
+            self._clock += 1
+            pages: List[int] = []
+            for ch in chunks:
+                nxt = node.children.get(ch)
+                if nxt is None:
+                    return None
+                nxt.stamp = self._clock
+                pages.append(nxt.page)
+                node = nxt
+            if not rem:
+                return (pages, None) if pages else None
+            tail = node.children.get(rem)
+            if tail is None:
+                return None
+            tail.stamp = self._clock
+            return (pages, tail.page)
+
+    def match(self, adapter, tokens, max_tokens: Optional[int] = None
+              ) -> List[int]:
+        """Longest indexed page-aligned prefix of ``tokens``: the page ids
+        along the path, NOT retained (the engine retains them before any
+        eviction can run; evictions also happen only on the engine thread).
+        ``max_tokens`` caps the match (e.g. to ``len(seq) - 1`` so that at
+        least one suffix token remains to prefill)."""
+        chunks = self._chunks(tokens)
+        if max_tokens is not None:
+            chunks = chunks[:max(0, int(max_tokens)) // self.page_size]
+        pages: List[int] = []
+        with self._trie_lock:
+            node = self._roots.get(adapter)
+            if node is None:
+                return []
+            self._clock += 1
+            for ch in chunks:
+                nxt = node.children.get(ch)
+                if nxt is None:
+                    break
+                nxt.stamp = self._clock
+                pages.append(nxt.page)
+                node = nxt
+        return pages
+
+    def pop_lru(self, n_pages: int) -> List[int]:
+        """Remove up to ``n_pages`` least-recently-touched LEAF entries (an
+        emptied parent becomes eligible next round) and return their page
+        ids for the caller to release."""
+        out: List[int] = []
+        with self._trie_lock:
+            while len(out) < n_pages:
+                leaf = None
+                for root in self._roots.values():
+                    stack = list(root.children.values())
+                    while stack:
+                        nd = stack.pop()
+                        if nd.children:
+                            stack.extend(nd.children.values())
+                        elif leaf is None or nd.stamp < leaf.stamp:
+                            leaf = nd
+                if leaf is None:
+                    break
+                del leaf.parent.children[leaf.key]
+                out.append(leaf.page)
+            self._held -= len(out)
+        return out
+
+    def invalidate(self, adapter=None) -> List[int]:
+        """Drop one adapter's subtree (or everything when ``adapter`` is
+        None) and return the page ids for the caller to release."""
+        out: List[int] = []
+        with self._trie_lock:
+            if adapter is None:
+                roots = list(self._roots.values())
+                self._roots.clear()
+            else:
+                nd = self._roots.pop(adapter, None)
+                roots = [nd] if nd is not None else []
+            for root in roots:
+                stack = list(root.children.values())
+                while stack:
+                    nd = stack.pop()
+                    out.append(nd.page)
+                    stack.extend(nd.children.values())
+            self._held -= len(out)
+        return out

@@ -3,7 +3,8 @@
 Both engines get the same bridged fp32 weights and randomised-b adapters,
 the same requests and seeds, and the same external drive (the same step
 count between ``submit``/``preempt`` calls); both run with
-``prefix_cache=False`` (the port's prefix cache is not ported yet). Token
+``prefix_cache=False``, the private-pages engine (the prefix cache is held
+to the JAX engine's in ``tests/test_torch_prefix.py``). Token
 streams, loss masks and finish reasons must be equal, logprobs within 1e-5,
 and the ``RolloutStats`` counters equal (timings excepted). Each paged
 engine's ``check_page_invariants()`` runs after every step.
@@ -14,7 +15,8 @@ Scenarios, from the JAX package's tests: continuous equals one-shot
 replay with ``resume_restore=False`` (``:186``), preemption at any step with
 snapshot restore (``test_paged_kv.py:173``, attention), pool exhaustion
 (``:340``) and a prompt larger than the pool (``:368``). Each stage the port
-does not have yet raises ``NotImplementedError`` at construction."""
+does not have yet raises ``NotImplementedError`` at construction; the paged
+engine's default prefix cache runs."""
 import dataclasses
 import random
 
@@ -384,18 +386,33 @@ def test_prompt_larger_than_pool_finishes_capacity(weights):
     dict(paged_kv=True, prefix_cache=True), dict(tracer=object()),
     dict(chaos=object()), dict(supervise_wedge_s=1.0)])
 def test_later_stages_raise(weights, flag):
-    _, pcfg, _, _, pparams, _ = weights
+    """Each switch of a stage not ported yet raises at construction. The
+    prefix cache with the paged pool is ported: that case builds the engine
+    and serves a GRPO pair through it, the sibling sharing the leader's
+    pages."""
+    _, pcfg, _, _, pparams, ptrees = weights
+    if flag.get("prefix_cache"):
+        eng = PtContinuous(pcfg, pparams, device="cpu", kv_page_size=4,
+                           max_len=32, **flag)
+        eng.set_adapters(0, ptrees[0])
+        _, preqs = _requests(1, 2, lambda i: 4)
+        comps = _drive(eng, preqs * 2)
+        assert [len(c.tokens) > c.prompt_len for c in comps.values()] \
+            == [True, True]
+        assert eng.prefix_cache and eng.stats.prefix_hits == 1
+        assert eng._pages.used_pages == eng._prefix_idx.held_pages > 0
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PtContinuous(pcfg, pparams, device="cpu", **flag)
 
 
 def test_paged_engine_defaults_raise_and_dense_default_runs(weights):
-    """The JAX default ``prefix_cache=True`` is refused only with the paged
-    cache; and the default device is the card, refused without one."""
+    """The JAX default ``prefix_cache=True`` holds with the paged cache, as
+    there; the dense engine has no prefix cache; and the default device is
+    the card, refused without one."""
     _, pcfg, _, _, pparams, _ = weights
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        PtContinuous(pcfg, pparams, paged_kv=True, device="cpu")
-    PtContinuous(pcfg, pparams, device="cpu")
+    assert PtContinuous(pcfg, pparams, paged_kv=True, device="cpu").prefix_cache
+    assert not PtContinuous(pcfg, pparams, device="cpu").prefix_cache
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PtContinuous(pcfg, pparams)

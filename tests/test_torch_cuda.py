@@ -1,7 +1,9 @@
 """The port on the card: each hand-written CUDA kernel against its plain
 version, the wrappers' refusals, and RolloutEngine.generate, a GRPO train
-step and the paged ContinuousRolloutEngine on the card (kernels) against
-the CPU (plain versions) on the same weights. Every test is marked `cuda`, needs a CUDA device and skips
+step and the paged ContinuousRolloutEngine (with private pages and with the
+prefix cache: a COW fork under the paged kernel, a radix install through
+sgmv) on the card (kernels) against the CPU (plain versions) on the same
+weights. Every test is marked `cuda`, needs a CUDA device and skips
 without one (decided in the `card` fixture); on a machine with a card run
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
@@ -681,6 +683,173 @@ def test_continuous_paged_on_card_matches_cpu(card):
         out[dev] = comps
     for i in range(len(reqs)):
         a, b = out["cpu"][i], out["cuda"][i]
+        assert a.tokens == b.tokens
+        torch.testing.assert_close(torch.tensor(b.gen_logprobs),
+                                   torch.tensor(a.gen_logprobs), rtol=1e-4,
+                                   atol=1e-4)
+
+
+# -- the prefix cache: COW forks, radix installs, page accounting ----------
+
+def _qwen3_reduced():
+    return dataclasses.replace(reduced(REGISTRY["qwen3-0.6b"], dtype="float32"),
+                               vocab_size=tok.VOCAB_SIZE)
+
+
+def test_cow_fork_then_paged_decode_write(card):
+    """Two rows share pages [p0, p1] (p1 their partial tail); the engine's
+    COW function copies p1 to p2 and row 1's table is switched to it, then
+    one decode step writes each row's token into its own tail page through
+    the paged kernel: p2 holds p1's old entries and row 1's new one, p1 row
+    0's, and each row's logits equal the CPU's (plain versions) on the same
+    pool."""
+    from repro_torch.lora.adapters import batched_ctx, stack_adapters
+    from repro_torch.models import decode_step, init_paged_cache
+    from repro_torch.rollout.engine import _build_cow_fn
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 2, seed=0, device="cpu", b_scale=0.2)
+    page, pos = 8, 11
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cache = init_paged_cache(cfg, 2, pool_pages=4, page_size=page,
+                                 max_pages_per_row=4, dtype=torch.float32,
+                                 device=dev)
+        g = torch.Generator().manual_seed(3)
+        for key in ("kp", "vp"):
+            cache[key].copy_(torch.randn(cache[key].shape, generator=g))
+        cache["tbl"].copy_(torch.tensor([[0, 1, 4, 4], [0, 1, 4, 4]]))
+        cache["pos"].fill_(pos)
+        old, p0 = cache["kp"][:, 1].cpu(), cache["kp"][:, 0].cpu()
+        cache = _build_cow_fn(cfg)(cache, 1, 2)
+        cache["tbl"][1, 1] = 2
+        lora = batched_ctx(stack_adapters([tree_map(lambda t: t.to(dev), a)
+                                           for a in adapters]),
+                           torch.tensor([0, 1], device=dev), cfg)
+        paged.LAUNCHES.n = 0
+        with torch.inference_mode():
+            logits, cache = decode_step(tree_map(lambda t: t.to(dev), params),
+                                        torch.tensor([5, 9], device=dev),
+                                        cache, cfg, lora)
+        assert paged.LAUNCHES.n == (cfg.num_layers if dev == "cuda" else 0)
+        kp = cache["kp"].cpu()
+        off = pos % page
+        assert torch.equal(kp[:, 2, :off], old[:, :off])
+        assert torch.equal(kp[:, 1, :off], old[:, :off])
+        assert torch.equal(kp[:, 1, off + 1:], old[:, off + 1:])
+        assert not torch.equal(kp[:, 1, off], kp[:, 2, off])
+        assert torch.equal(kp[:, 0], p0)
+        out[dev] = (logits.cpu(), kp)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_radix_suffix_install_on_card_matches_plain(card):
+    """A radix hit in bf16 at qwen3-0.6b's width (2 layers): 48 prompt
+    tokens prefilled into pool pages, then a row whose first 32 tokens match
+    installs through the engine's suffix function (the matched pages
+    gathered, the 17-token suffix through forward_prefill_chunk with the
+    sgmv kernel, 6 launches a layer). Its first-token logprob (the token
+    forced, so that both devices score the same one) and the K/V written to
+    its fresh pages equal the CPU's (plain versions) within the decode
+    tests' bf16 tolerance."""
+    from repro_torch.lora.adapters import batched_ctx, stack_adapters
+    from repro_torch.models import forward_seq, init_cache, init_paged_cache
+    from repro_torch.rollout.engine import _build_suffix_fn
+    from repro_torch.rollout.prefill import _bucket_len
+    cfg = dataclasses.replace(REGISTRY["qwen3-0.6b"], num_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 2, seed=0, device="cpu", b_scale=0.02)
+    page, start, L = 16, 32, 49
+    g = torch.Generator().manual_seed(4)
+    seq = torch.randint(3, 1000, (L,), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        stacked = stack_adapters([tree_map(lambda t: t.to(dev), a)
+                                  for a in adapters])
+        cache = init_paged_cache(cfg, 2, pool_pages=8, page_size=page,
+                                 max_pages_per_row=4, device=dev)
+        with torch.inference_mode():
+            pre = init_cache(cfg, 1, start, device=dev)
+            _, pre, _ = forward_seq(p, seq[None, :start].to(dev), cfg,
+                                    batched_ctx(stacked, torch.tensor(
+                                        [1], device=dev), cfg), pre)
+            for j in range(start // page):
+                cache["kp"][:, 5 + j] = pre["k"][:, 0, j * page:(j + 1) * page]
+                cache["vp"][:, 5 + j] = pre["v"][:, 0, j * page:(j + 1) * page]
+            toks = torch.zeros((1, _bucket_len(L - start)), dtype=torch.int32)
+            toks[0, :L - start] = seq[start:]
+            state = [torch.zeros((2,), dtype=torch.int32, device=dev),
+                     torch.zeros((2,), dtype=torch.int32, device=dev),
+                     torch.zeros((2, 2), dtype=torch.int64, device=dev),
+                     torch.ones((2,), dtype=torch.float32, device=dev),
+                     torch.zeros((2,), dtype=torch.int32, device=dev)]
+            sgmv.CUDA_LAUNCHES.n = 0
+
+            def t(v, dt):
+                return torch.tensor(v, dtype=dt, device=dev)
+            first, lp, cache, _ = _build_suffix_fn(cfg, page)(
+                start, p, stacked, t([1], torch.int32), t([5, 6], torch.int64),
+                toks.to(dev), L, t([0], torch.int32),
+                t([[0, 7]], torch.int64), t([1.0], torch.float32),
+                t([123], torch.int32), t([1], torch.int32), cache,
+                t([0, 1], torch.int64), 2, 1, *state)
+        assert sgmv.CUDA_LAUNCHES.n == (6 * cfg.num_layers if dev == "cuda"
+                                        else 0)
+        assert int(cache["pos"][1]) == L and int(first[0]) == 123
+        out[dev] = (lp.float().cpu(), cache["kp"][:, :2].float().cpu(),
+                    cache["vp"][:, :2].float().cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+
+
+def test_prefix_cache_page_invariants_on_card(card):
+    """qwen3-0.6b reduced in fp32, a GRPO group of 4 and a second prompt
+    behind a shared 24-token header, 3 slots, pages of 8, the group
+    preempted at step 4: page invariants after every step on the card; the
+    card's tokens, prefix counters and paged launches equal the CPU's (plain
+    versions); forks, hits and device-resident resumes happen, and at idle
+    the pool holds only the index's pages."""
+    from repro_torch.launch.serve import make_group_requests
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 1, seed=0, device="cpu", b_scale=0.2)
+    reqs = make_group_requests(1, 2, 3, header_len=24, max_new_tokens=10,
+                               seed=5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousRolloutEngine(
+            cfg, tree_map(lambda t: t.to(dev), params), max_slots=3,
+            max_adapters=1, max_len=64, paged_kv=True, kv_page_size=8,
+            device=dev)
+        eng.set_adapters(0, tree_map(lambda t: t.to(dev), adapters[0]))
+        pos_of = {eng.submit(r): i for i, r in enumerate(reqs)}
+        paged.LAUNCHES.n = 0
+        comps, it = {}, 0
+        while not eng.idle() and it < 200:
+            eng.step()
+            it += 1
+            if it == 4:
+                eng.preempt_tenant("tenant-0")
+            eng.check_page_invariants()
+            for c in eng.drain_completions():
+                comps[pos_of[c.submit_index]] = c
+        assert len(comps) == len(reqs)
+        st = eng.stats
+        assert st.prefix_hits > 0 and st.cow_forks > 0
+        assert st.device_resident_resumes > 0 and st.snapshots == 0
+        assert eng._pages.used_pages == eng._prefix_idx.held_pages
+        assert paged.LAUNCHES.n == (cfg.num_layers * st.decode_steps
+                                    if dev == "cuda" else 0)
+        out[dev] = (comps, (st.prefix_hits, st.prefix_hit_tokens,
+                            st.cow_forks, st.device_resident_resumes,
+                            st.decode_steps))
+    assert out["cuda"][1] == out["cpu"][1]
+    for i in range(len(reqs)):
+        a, b = out["cpu"][0][i], out["cuda"][0][i]
         assert a.tokens == b.tokens
         torch.testing.assert_close(torch.tensor(b.gen_logprobs),
                                    torch.tensor(a.gen_logprobs), rtol=1e-4,

@@ -31,8 +31,9 @@ path.
   rows as in a run without the abort.
 - A commit's adapter tree shares no storage with the tree the rollout
   thread holds; ``RuntimeConfig()`` raises without a card; every switch not
-  ported raises ``NotImplementedError``; the ``multi_tenant_train`` entry
-  point runs on the CPU."""
+  ported raises ``NotImplementedError`` (the paged pool's default prefix
+  cache, ported, builds); the ``multi_tenant_train`` entry point runs on the
+  CPU."""
 import dataclasses
 import random
 
@@ -462,7 +463,16 @@ def test_default_config_needs_a_card(weights):
     ids=["disagg_prefill", "env_stage", "prefix_cache", "trace", "chaos",
          "checkpoint"])
 def test_switches_not_ported_raise(weights, flag, item):
+    """Each switch of a stage not ported yet raises. ``paged_kv=True`` with
+    the default prefix cache (ROADMAP item 3) is ported: the runtime builds
+    its engine with the cache on and admission charges shared prompt pages
+    once."""
     _, pcfg, _, pparams, _ = weights
+    if item == "item 3":
+        rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(device="cpu", **flag))
+        assert rt.cengine.prefix_cache and rt.acfg.prefix_shared
+        assert rt.cengine._prefix_idx is not None
+        return
     with pytest.raises(NotImplementedError, match=item):
         MARLaaSRuntime(pcfg, pparams, RuntimeConfig(device="cpu", **flag))
 
