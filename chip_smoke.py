@@ -76,9 +76,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     prefix cache on (the JAX runtime's default with the paged pool; pages of
     8 tokens, which the runtime's 5-11-token prompts fill): run B's checks,
     prefix hits > 0 (GRPO siblings share their leader's prompt pages) and at
-    the end only the index's pages held. Each run prints its
+    the end only the index's pages held. Runs D0 and D: run C's settings
+    over two gsm8k and two hopsearch tenants whose rows call their tools
+    (a biased sampler returns tok.CALL at token counters 2 and 9); D0 with
+    the stages off, D with one prefill worker and two env workers: run B's
+    checks, and for D parks > 0, no slot frozen on a tool, env wait on the
+    hopsearch tenants only, splices > 0 and no decode stall. Every run pins
+    each tenant's prompt stream. Each run prints its
     wall time to the last commit, the runtime's summary, decode ms/step
-    inside and outside train intervals, train ms/step and the launches.
+    inside and outside train intervals, train ms/step and the launches
+    (sgmv 168 a forward, every forward the engine counts: decode steps,
+    refills, radix installs, the prefill workers' calls), D beside D0.
 11. prefix cache: ContinuousRolloutEngine over the paged pool with its
     default copy-on-write prefix cache at the same full size (16 slots,
     pages of 16, max_len 512): each tenant's two gsm8k prompts behind one
@@ -97,9 +105,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     logprobs of their shared tokens and the sampler's scores at the parting
     token within TF_TOL. Prints decode ms/step, prefill time, peak pages,
     HBM bytes a row and the admission charge of private over shared pages.
+12. stages: the continuous engine at the same full size (16 slots, max_len
+    512, pages of 16) for 4 tenants x 8 requests of 64 new tokens, tenants
+    0 and 2 on hopsearch (2 tool turns a row, the env's 0.08 s latency a
+    call; the biased sampler), in five modes: F (fused refill, calls
+    frozen in the slot), D (two prefill workers on their own streams,
+    16-token chunks), DE (D with the env stage: rows park, resumes restore
+    their pages kept in the pool), DER (DE replaying every resume through a
+    worker, with response-prefill fusion) and DED (DE on the dense cache,
+    8-token chunks). Checks: 32 completions; slots frozen on tools in F
+    and D only; parks and resumes; device-resident resumes (DE); fused
+    tokens (DER); splices and no decode stall (D modes), stall = prefill
+    time (F); page invariants after every step; exact launches (decode
+    attention 28 a decode step, sgmv 168 a forward, worker calls included);
+    then F, DE, DER and DED in fp32 at 32 new tokens: streams equal, or
+    parting at near-ties. Prints decode ms/step (median, p90), prefill
+    time and where it ran, splice time and wait, stall, occupancy, parks,
+    wall and peak memory.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
+import gc
 import json
 import random
 import re
@@ -138,6 +164,27 @@ RT_RUNS = {"A": {},                                      # the defaults
 # run C: run B with the prefix cache on (the JAX default with the paged pool);
 # 8-token pages, since no gsm8k or amc12 prompt (5 to 11 tokens) fills one of 16
 RT_RUNS["C"] = dict(RT_RUNS["B"], prefix_cache=True, kv_page_size=8)
+# runs D0 and D: run C's settings over two gsm8k and two agentic tenants whose
+# rows call tools (the biased sampler below); D0 with the stages off (frozen
+# tool calls, fused refill), D with the prefill workers and the env stage on
+RT_RUNS["D0"] = dict(RT_RUNS["C"])
+RT_RUNS["D"] = dict(RT_RUNS["C"], disagg_prefill=True, prefill_workers=1,
+                    env_stage=True, env_workers=2, max_turns=2)
+RT_RUN_ENVS = {"D0": ("gsm8k", "gsm8k", "hopsearch", "hopsearch"),
+               "D": ("gsm8k", "gsm8k", "hopsearch", "hopsearch")}
+CALL_AT = (2, 9)        # phases 10 (D0, D) and 12: sampled-token counters at
+                        # which the biased sampler emits tok.CALL
+P12_ENVS = ("hopsearch", "gsm8k", "hopsearch", "gsm8k")  # phase 12: tenants
+P12_MODES = {"F": {},                                   # fused, frozen calls
+             "D": dict(disagg_prefill=True, prefill_workers=2,
+                       prefill_chunk=16)}
+P12_MODES["DE"] = dict(P12_MODES["D"], env_stage=True, env_workers=2)
+P12_MODES["DER"] = dict(P12_MODES["DE"], resume_restore=False)
+# DED: DE on the dense cache, with 8-token chunks so that the replays of the
+# second tool turn (15 tokens) prefill in two chunks on the workers
+P12_MODES["DED"] = dict(P12_MODES["DE"], paged_kv=False, prefill_chunk=8)
+P12_FP32_MODES = ("F", "DE", "DER", "DED")
+P12_FP32_NEW = 32       # new tokens a row in phase 12's fp32 card check
 P11_PROMPTS, P11_GROUP, P11_HEADER = 2, 4, 128   # phase 11: 4 tenants x 2 prompts
 P11_MAX_NEW, P11_LATE_AT = 64, 4                 # x groups of 4 = 32 rows
 P11_SMALL_POOL = 48     # pages: less than the resident set plus the index
@@ -1642,15 +1689,40 @@ def graded_env(env):
     return Graded()
 
 
+def biased_sampler(torch):
+    """Install a sampler in the port's engine and prefill modules that
+    returns tok.CALL at the CALL_AT counters and never EOS (remapped to a
+    plain token): random weights would almost never sample CALL, so this is
+    what makes agentic rows call their tools, alike in every mode. Works
+    on the device's tensors. Returns the function that undoes it."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.rollout import engine as eng_mod, prefill as pf_mod
+    orig = pf_mod._sample_rows
+
+    def biased(logits, keys, counters, temps):
+        s = orig(logits, keys, counters, temps)
+        s = torch.where(s == tok.EOS, 10, s)
+        hit = torch.zeros(counters.shape, dtype=torch.bool, device=counters.device)
+        for c in CALL_AT:
+            hit = hit | (counters == c)
+        return torch.where(hit, tok.CALL, s)
+    pf_mod._sample_rows = eng_mod._sample_rows = biased
+
+    def undo():
+        pf_mod._sample_rows = eng_mod._sample_rows = orig
+    return undo
+
+
 def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
-    """Phase 10, one run: MARLaaSRuntime with RT_RUNS[run] over RT_ENVS'
-    tenants, each rewarded by a graded verifier. The engine's step, refill
-    and the trainer's step are wrapped to time each engine step, count
-    prefill forwards and keep each commit's metrics; the manager's commit
-    and the engine's set_adapters to check that every install is a
-    committed tree and lands in the stacked buffer the decode reads;
-    launches are counted from just before run() to just after. Raises on
-    any miss; returns the record."""
+    """Phase 10, one run: MARLaaSRuntime with RT_RUNS[run] over the run's
+    tenants (RT_ENVS, or RT_RUN_ENVS[run] with the biased sampler), each
+    rewarded by a graded verifier, each tenant's prompt stream pinned. The
+    engine's step and the trainer's step are wrapped to time each engine
+    step and keep each commit's metrics (the engine counts its forwards,
+    the prefill workers' too); the manager's commit and the engine's
+    set_adapters to check that every install is a committed tree and lands
+    in the stacked buffer the decode reads; launches are counted from just
+    before run() to just after. Raises on any miss; returns the record."""
     import math
     from repro_torch.core.manager import TaskSpec
     from repro_torch.core.metrics import summarize
@@ -1658,16 +1730,20 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     from repro_torch.launch.serve import make_adapters
     from repro_torch.models import tree_leaves
 
+    envs = RT_RUN_ENVS.get(run, RT_ENVS)
     rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
         policy="marlaas", device=device, max_slots=RT_SLOTS,
-        max_adapter_slots=len(RT_ENVS), max_len=MAX_LEN, seed=0,
+        max_adapter_slots=len(envs), max_len=MAX_LEN, seed=0,
         **RT_RUNS[run]))
-    adapters = make_adapters(cfg, len(RT_ENVS), seed=20, device=device,
+    adapters = make_adapters(cfg, len(envs), seed=20, device=device,
                              b_scale=B_SCALE)
-    tids = [f"{env}-{i}" for i, env in enumerate(RT_ENVS)]
-    for tid, env, tree in zip(tids, RT_ENVS, adapters):
+    tids = [f"{env}-{i}" for i, env in enumerate(envs)]
+    for i, (tid, env, tree) in enumerate(zip(tids, envs, adapters)):
         rt.submit_task(TaskSpec(tid, env, **RT_SPEC), tree)
         rt.envs[tid] = graded_env(rt.envs[tid])
+        # the runtime seeds a tenant's prompt stream with the salted str
+        # hash; a pinned stream gives every run of a call the same prompts
+        rt.datagens[tid] = random.Random(100 + i)
     eng = rt.cengine
     # every tree a tenant held: its initial one, then each commit's (listed
     # before the manager publishes it, so the rollout thread finds it)
@@ -1689,28 +1765,19 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             raise AssertionError(f"phase 10 {run}: slot {slot} differs from its tree")
         installed[owner[0]] += not any(tree is t for t in adapters)
     rt.mgr.commit, eng.set_adapters = listed_commit, checked_install
-    eng._ensure_built()
-    refill, step, forwards, steps = eng._refill_fn, eng.step, {"n": 0}, []
-    suffix = eng._suffix_fn
+    step, steps, fc = eng.step, [], eng.forward_counts
 
-    def counted_refill(*a):
-        forwards["n"] += 1
-        return refill(*a)
-
-    def counted_suffix(*a):
-        forwards["n"] += 1
-        return suffix(*a)
-    if suffix is not None:
-        eng._suffix_fn = counted_suffix
+    def on_decode_thread():     # prefill forwards run by the decode thread
+        return fc["refill"].n + fc["suffix"].n
 
     def timed_step():
-        d0, f0 = eng.stats.decode_steps, forwards["n"]
+        d0, f0 = eng.stats.decode_steps, on_decode_thread()
         t0 = time.monotonic()
         out = step()
         steps.append((t0, time.monotonic(), eng.stats.decode_steps - d0,
-                      forwards["n"] - f0))
+                      on_decode_thread() - f0))
         return out
-    eng._refill_fn, eng.step = counted_refill, timed_step
+    eng.step = timed_step
     train_step, metrics = rt._train_step_for(rt.mgr.spec_for(tids[0])), []
 
     def kept_step(*a):
@@ -1718,11 +1785,16 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
         metrics.append(out[2])
         return out
     rt._train_steps[RT_SPEC["group_size"]] = kept_step
+    undo = biased_sampler(torch) if run in RT_RUN_ENVS else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     count_all(counters, reset=True)
     t0 = time.monotonic()
-    rt.run(timeout_s=600)
+    try:
+        rt.run(timeout_s=600)
+    finally:
+        if undo is not None:
+            undo()
     launches = count_all(counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     wall = max(st.last_step_at for _, st in rt.mgr.task_items()) - t0
@@ -1744,7 +1816,12 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
                                      for a, b in zip(trains, trains[1:])):
         raise AssertionError(f"phase 10 {run}: train intervals not serialised")
     decode_steps = eng.stats.decode_steps
-    n_sgmv = 6 * cfg.num_layers * (decode_steps + forwards["n"])
+    forwards = {k: c.n for k, c in fc.items()}
+    prefill_forwards = sum(forwards.values()) - forwards["decode"]
+    if forwards["decode"] != decode_steps:
+        raise AssertionError(f"phase 10 {run}: forwards {forwards}, "
+                             f"{decode_steps} decode steps")
+    n_sgmv = 6 * cfg.num_layers * sum(forwards.values())
     attn = "paged_gqa_decode" if RT_RUNS[run].get("paged_kv") else "gqa_decode"
     want = {"gqa_decode": 0, "paged_gqa_decode": 0, "sgmv": n_sgmv,
             "sgmv_cuda": n_sgmv, "token_logprob_fwd": commits,
@@ -1766,10 +1843,20 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     else:
         st_ = eng.stats
         if eng._pages.used_pages != eng._prefix_idx.held_pages \
-                or st_.prefix_hits == 0:
-            raise AssertionError(f"phase 10 C: {eng._pages.used_pages} pages held, "
-                                 f"{eng._prefix_idx.held_pages} by the index; "
+                or (run == "C" and st_.prefix_hits == 0):
+            raise AssertionError(f"phase 10 {run}: {eng._pages.used_pages} pages "
+                                 f"held, {eng._prefix_idx.held_pages} by the index; "
                                  f"{st_.prefix_hits} prefix hits")
+    if run == "D":
+        st_, waits = eng.stats, rt.rec.env_wait_by_task()
+        agentic = {tid for tid, env in zip(tids, envs) if env == "hopsearch"}
+        if not (st_.parks > 0 and st_.tool_wait_slot_steps == 0
+                and st_.splices > 0 and st_.decode_stall_seconds == 0.0
+                and set(waits) == agentic and all(waits.values())):
+            raise AssertionError(f"phase 10 D: parks {st_.parks}, tool-wait slot "
+                                 f"steps {st_.tool_wait_slot_steps}, splices "
+                                 f"{st_.splices}, decode stall "
+                                 f"{st_.decode_stall_seconds}, env wait {waits}")
     grad_norms = [float(m["grad_norm"]) for m in metrics]
     losses = [float(m["loss"]) for m in metrics]
     if len(metrics) != commits or not all(map(math.isfinite, grad_norms + losses)) \
@@ -1786,10 +1873,10 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     summary = summarize(rt.mgr, rt.rec)
     counters_ = rt.rec.counters_snapshot()
     drops = rt.mgr.drop_counters()
-    rec = dict(run=run, config=RT_RUNS[run], tenants=len(RT_ENVS), **RT_SPEC,
+    rec = dict(run=run, config=RT_RUNS[run], envs=envs, **RT_SPEC,
                slots=RT_SLOTS, max_len=MAX_LEN, wall_to_last_commit_s=wall,
                commits=commits, rows=acc, decode_steps=decode_steps,
-               refill_forwards=forwards["n"],
+               prefill_forwards=prefill_forwards, forwards=forwards,
                decode_ms_per_step=1e3 * eng.stats.decode_seconds / decode_steps,
                decode_only_steps=len(pure),
                decode_step_ms_median=_median(d_in + d_out),
@@ -1815,9 +1902,18 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
                              cow_forks=st_.cow_forks,
                              prefill_tokens=st_.prefill_tokens,
                              index_pages=eng._prefix_idx.held_pages)
-    log(f"[10 runtime {run}] {len(RT_ENVS)} tenants x {RT_SPEC['target_steps']} steps "
-        f"({RT_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, {commits} commits, "
-        f"rows {acc}; {decode_steps} decode steps ({forwards['n']} prefill forwards), "
+    if run in RT_RUN_ENVS:
+        st_ = eng.stats
+        rec["stages"] = dict(
+            parks=st_.parks, resumes=st_.resumes, splices=st_.splices,
+            tool_wait_slot_steps=st_.tool_wait_slot_steps,
+            prefill_s=st_.prefill_seconds, decode_stall_s=st_.decode_stall_seconds,
+            splice_s=st_.splice_seconds, splice_wait_s=st_.splice_wait_seconds,
+            env_wait_by_task=rt.rec.env_wait_by_task())
+    log(f"[10 runtime {run}] {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
+        f"steps ({RT_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, "
+        f"{commits} commits, rows {acc}; {decode_steps} decode steps "
+        f"({prefill_forwards} prefill forwards {forwards}), "
         f"decode {rec['decode_step_ms_median']:.2f} ms/step median "
         f"({rec['decode_step_ms_median_in_train']:.2f} in {len(d_in)} steps inside "
         f"train intervals, {rec['decode_step_ms_median_outside_train']:.2f} in "
@@ -1826,7 +1922,8 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
         f"installed {sum(installed.values())}; stale rows trained "
         f"{rec['stale_rows_trained']} dropped {rec['stale_rows_dropped']}; summary "
         f"{json.dumps(rec['summary'])}; peak {peak_gib:.2f} GiB; launches {got} on {card}"
-        + (f"; prefix cache {json.dumps(rec['prefix'])}" if "prefix" in rec else ""))
+        + (f"; prefix cache {json.dumps(rec['prefix'])}" if "prefix" in rec else "")
+        + (f"; stages {json.dumps(rec['stages'])}" if "stages" in rec else ""))
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"phase 10 {run}: launches {got}, want {want}")
@@ -2099,6 +2196,244 @@ def prefix_phase(torch, cfg, params, adapters, counters, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the disaggregated stages in the continuous engine
+# ---------------------------------------------------------------------------
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def stage_requests(max_new):
+    """Phase 12's 32 requests: CONT_PER_TENANT a tenant, tenants on
+    P12_ENVS (hopsearch: kb 32, 2 hops, at most 2 tool turns, the env's own
+    latency of 0.08 +- 0.02 s a call), explicit per-row seeds."""
+    from repro_torch.envs.tasks import make_env
+    from repro_torch.rollout.engine import RolloutRequest
+    rng, reqs = random.Random(12), []
+    for t, name in enumerate(P12_ENVS):
+        env = (make_env(name, kb_size=32, hops=2) if name == "hopsearch"
+               else make_env(name))
+        for _ in range(CONT_PER_TENANT):
+            prompt, truth = env.sample_prompt(rng)
+            reqs.append(RolloutRequest(
+                f"tenant-{t}", t, prompt, truth, env, max_new_tokens=max_new,
+                seed=3000 + len(reqs),
+                max_turns=2 if env.is_agentic else None))
+    return reqs
+
+
+def stage_run(torch, cfg, params, adapters, mode, counters, max_new):
+    """One drive of phase 12's requests in `mode` (P12_MODES) on the card,
+    all submitted at once: page invariants after every step of a paged
+    engine, each decode step's time (the engine's clock), the kernels'
+    launches from just before the drive to just after, and the engine's
+    forwards. Returns the completions by submit index and the record."""
+    from repro_torch.rollout.engine import ContinuousRolloutEngine
+    kw = dict(dict(paged_kv=True, kv_page_size=PAGE), **P12_MODES[mode])
+    reqs = stage_requests(max_new)
+    eng = ContinuousRolloutEngine(cfg, params, max_slots=CONT_SLOTS,
+                                  max_adapters=TENANTS, max_len=CONT_MAX_LEN,
+                                  device="cuda", **kw)
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    for r in reqs:
+        eng.submit(r)
+    gc.collect()            # the earlier modes' engines: out of the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_all(counters, reset=True)
+    comps, step_ms, st = {}, [], eng.stats
+    t0 = time.monotonic()
+    deadline = t0 + 600
+    while not eng.idle():
+        d0, s0 = st.decode_steps, st.decode_seconds
+        progressed = eng.step()
+        if st.decode_steps > d0:
+            step_ms.append(1e3 * (st.decode_seconds - s0))
+        if eng.paged_kv:
+            eng.check_page_invariants()
+        for c in eng.drain_completions():
+            comps[c.submit_index] = c
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 12 {mode}: the engine did not drain")
+        if not progressed:
+            time.sleep(0.0005)      # waiting on the workers or the tools
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = count_all(counters)
+    forwards = {k: c.n for k, c in eng.forward_counts.items()}
+    held = eng._prefix_idx.held_pages if eng.prefix_cache else 0
+    pages_used = eng._pages.used_pages if eng.paged_kv else 0
+    eng.shutdown()
+    # a worker call's cost with no other thread launching, beside the
+    # worker calls' time under contention above
+    alone_ms = whole_alone_ms(torch, eng, reqs[0]) if eng.disagg_prefill else None
+    rec = dict(mode=mode, config=kw, rows=len(comps), decode_steps=st.decode_steps,
+               decode_ms_median=_median(step_ms), decode_ms_p90=_pct(step_ms, 0.9),
+               prefill_s=st.prefill_seconds,
+               prefill_on="workers" if eng.disagg_prefill else "decode thread",
+               prefill_chunks=st.prefill_chunks, prefill_tokens=st.prefill_tokens,
+               splices=st.splices, splice_s=st.splice_seconds,
+               splice_wait_s=st.splice_wait_seconds,
+               decode_stall_s=st.decode_stall_seconds,
+               slot_occupancy=st.slot_utilization(),
+               tool_wait_slot_steps=st.tool_wait_slot_steps, parks=st.parks,
+               resumes=st.resumes, restores=st.restores,
+               device_resident_resumes=st.device_resident_resumes,
+               snapshots=st.snapshots, replays=st.replays,
+               fused_forced_tokens=st.fused_forced_tokens,
+               env_wait_s=st.env_wait_seconds, forwards=forwards,
+               worker_call_ms_mean=(1e3 * st.prefill_seconds / st.prefill_chunks
+                                    if st.prefill_chunks else None),
+               whole_call_alone_ms=alone_ms,
+               pages_used_at_idle=pages_used, index_pages_at_idle=held,
+               wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    return comps, reqs, rec
+
+
+def whole_alone_ms(torch, eng, req, n=5):
+    """Host time of one prefill-worker call (``PrefillKernels.whole`` on
+    one row, the engine's adapters) run on this thread with no other thread
+    launching, synchronised: median of n after a warm-up call."""
+    from repro_torch.rollout.prefill import _bucket_len
+    L = len(req.prompt)
+    Lb = _bucket_len(L)
+    width = -(-Lb // eng.kv_page_size) * eng.kv_page_size
+    toks = torch.zeros((1, Lb), dtype=torch.int32, device=eng.device)
+    toks[0, :L] = torch.tensor(req.prompt, dtype=torch.int32)
+
+    def vec(x, dt):
+        return torch.tensor(x, dtype=dt, device=eng.device)
+    args = (eng.base_params, eng._stacked, vec([req.adapter_index], torch.int32),
+            toks, L, width, vec([0], torch.int32), vec([[1, 2]], torch.int64),
+            vec([req.temperature], torch.float32), vec([0], torch.int32),
+            vec([0], torch.int32))
+    times = []
+    with torch.no_grad():
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            first = eng._pkernels.whole(*args)[0]
+            int(first.cpu()[0])
+            times.append(1e3 * (time.monotonic() - t0))
+    return _median(times[1:])
+
+
+def stage_checks(cfg, rec):
+    """Phase 12's checks on one bf16 mode's record; returns the misses."""
+    m, bad = rec["mode"], []
+    env_stage = P12_MODES[m].get("env_stage", False)
+    disagg = P12_MODES[m].get("disagg_prefill", False)
+    if rec["rows"] != TENANTS * CONT_PER_TENANT:
+        bad.append(f"{rec['rows']} completions")
+    if env_stage:
+        if not (rec["tool_wait_slot_steps"] == 0 and rec["parks"] > 0
+                and rec["resumes"] == rec["parks"]):
+            bad.append(f"tool-wait slot steps {rec['tool_wait_slot_steps']}, parks "
+                       f"{rec['parks']}, resumes {rec['resumes']}")
+    elif rec["tool_wait_slot_steps"] <= 0 or rec["parks"]:
+        bad.append(f"frozen calls: tool-wait slot steps "
+                   f"{rec['tool_wait_slot_steps']}, parks {rec['parks']}")
+    if m == "DE" and not (rec["device_resident_resumes"] == rec["resumes"]
+                          and rec["snapshots"] == 0):
+        bad.append(f"device-resident resumes {rec['device_resident_resumes']}, "
+                   f"snapshots {rec['snapshots']}")
+    if m == "DER" and not rec["fused_forced_tokens"] > 0:
+        bad.append("no fused forced token")
+    if disagg:
+        if not (rec["splices"] > 0 and rec["decode_stall_s"] == 0.0):
+            bad.append(f"splices {rec['splices']}, decode stall {rec['decode_stall_s']}")
+    elif not rec["decode_stall_s"] == rec["prefill_s"] > 0:
+        bad.append(f"decode stall {rec['decode_stall_s']} != prefill {rec['prefill_s']}")
+    if rec["pages_used_at_idle"] != rec["index_pages_at_idle"]:
+        bad.append(f"{rec['pages_used_at_idle']} pages held at idle, "
+                   f"{rec['index_pages_at_idle']} by the index")
+    fw, steps, L = rec["forwards"], rec["decode_steps"], cfg.num_layers
+    attn = "paged_gqa_decode" if P12_MODES[m].get("paged_kv", True) else "gqa_decode"
+    other = "gqa_decode" if attn == "paged_gqa_decode" else "paged_gqa_decode"
+    n_sgmv = 6 * L * sum(fw.values())
+    want = {attn: L * steps, other: 0, "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
+    got = {k: rec["launches"][k] for k in want}
+    if got != want or fw["decode"] != steps:
+        bad.append(f"launches {got}, want {want} (forwards {fw})")
+    return [f"{m}: {b}" for b in bad]
+
+
+def stage_phase(torch, cfg, params, adapters, counters, card):
+    """Phase 12: phase 12's requests in every mode of P12_MODES in bf16,
+    then in fp32 (TF32 off) at P12_FP32_NEW new tokens in P12_FP32_MODES,
+    all under the biased sampler (undone at the end). Raises on any miss;
+    returns the record."""
+    import dataclasses
+    from repro_torch.models import tree_map
+    undo = biased_sampler(torch)
+    try:
+        runs = {m: stage_run(torch, cfg, params, adapters, m, counters,
+                             CONT_MAX_NEW) for m in P12_MODES}
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        a32 = [tree_map(lambda t: t.float(), a) for a in adapters]
+        runs32 = {m: stage_run(torch, cfg32, p32, a32, m, counters, P12_FP32_NEW)
+                  for m in P12_FP32_MODES}
+        del p32, a32
+    finally:
+        undo()
+    problems = []
+    for m, (_, _, rec) in runs.items():
+        problems += stage_checks(cfg, rec)
+    by_index = dict(enumerate(runs["F"][1]))
+    bf16_equal = {m: sum(runs[m][0][i].tokens == runs["F"][0][i].tokens
+                         for i in by_index) for m in P12_MODES}
+    fp32 = {}
+    for m in P12_FP32_MODES[1:]:
+        equal, parted, shared_err, tie_err = parted_rows(
+            torch, runs32["F"][0], runs32[m][0], by_index, cfg.vocab_size)
+        fp32[m] = dict(rows_equal=equal, rows_parted=parted,
+                       shared_logprob_max_abs_diff=shared_err,
+                       parting_score_max_abs_diff=tie_err)
+        if not (shared_err <= TF_TOL and tie_err <= TF_TOL):
+            problems.append(f"fp32 {m} vs F: shared-token logprobs differ by "
+                            f"{shared_err:.3e}, parting scores by {tie_err:.3e}")
+    out = dict(requests=len(by_index), envs=P12_ENVS, slots=CONT_SLOTS,
+               page=PAGE, max_len=CONT_MAX_LEN, max_new_tokens=CONT_MAX_NEW,
+               call_at=CALL_AT, modes={m: r[2] for m, r in runs.items()},
+               bf16_rows_equal_to_F=bf16_equal,
+               fp32=dict(new_tokens=P12_FP32_NEW, tol=TF_TOL, vs_F=fp32,
+                         modes={m: r[2] for m, r in runs32.items()}),
+               card=card)
+    log(f"[12 stages] {len(by_index)} requests ({TENANTS} tenants {P12_ENVS} x "
+        f"{CONT_PER_TENANT}, {CONT_MAX_NEW} new, CALL at counters {CALL_AT}), "
+        f"{CONT_SLOTS} slots, pages of {PAGE}, max_len {CONT_MAX_LEN} on {card}")
+    for name, r in [(m, runs[m][2]) for m in P12_MODES] + \
+            [(f"fp32 {m}", runs32[m][2]) for m in P12_FP32_MODES]:
+        log(f"  {name}: {r['decode_steps']} decode steps, decode "
+            f"{r['decode_ms_median']:.2f} ms/step median, {r['decode_ms_p90']:.2f} "
+            f"p90; prefill {r['prefill_s']:.3f} s on the {r['prefill_on']} "
+            f"({r['prefill_chunks']} worker calls, {r['prefill_tokens']} tokens), "
+            f"splices {r['splices']} in {r['splice_s']:.3f} s (wait "
+            f"{r['splice_wait_s']:.3f} s), decode stall {r['decode_stall_s']:.3f} s, "
+            f"slot occupancy {r['slot_occupancy']:.3f}, tool-wait slot steps "
+            f"{r['tool_wait_slot_steps']}, parks {r['parks']} resumes {r['resumes']} "
+            f"(device-resident {r['device_resident_resumes']}, replays "
+            f"{r['replays']}, fused forced tokens {r['fused_forced_tokens']}); "
+            f"forwards {r['forwards']}; wall {r['wall_s']:.2f} s, peak "
+            f"{r['peak_mem_gib']:.2f} GiB"
+            + (f"; a worker call {r['worker_call_ms_mean']:.1f} ms mean, "
+               f"{r['whole_call_alone_ms']:.1f} ms alone"
+               if r["whole_call_alone_ms"] is not None else ""))
+    log(f"  bf16 rows equal to F {bf16_equal}; fp32 vs F "
+        + "; ".join(f"{m}: {v['rows_equal']} equal, {v['rows_parted']} parted, "
+                    f"shared logprobs {v['shared_logprob_max_abs_diff']:.3e}, "
+                    f"parting scores {v['parting_score_max_abs_diff']:.3e}"
+                    for m, v in fp32.items()) + f" (tol {TF_TOL})")
+    if problems:
+        raise AssertionError("phase 12: " + "; ".join(problems))
+    return out
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -2263,10 +2598,24 @@ def main(argv):
                for run in RT_RUNS}
     rt_launch = {k: sum(r["launches"][k] for r in runtime.values())
                  for k in counters}
+    d0, d = runtime["D0"], runtime["D"]
+    log(f"[10 runtime D vs D0] last commit {d['wall_to_last_commit_s']:.2f} s vs "
+        f"{d0['wall_to_last_commit_s']:.2f} s; decode ms/step inside train "
+        f"{d['decode_step_ms_median_in_train']:.2f} vs "
+        f"{d0['decode_step_ms_median_in_train']:.2f}, outside "
+        f"{d['decode_step_ms_median_outside_train']:.2f} vs "
+        f"{d0['decode_step_ms_median_outside_train']:.2f}; slot occupancy "
+        f"{d['summary']['slot_util_pct']:.1f}% vs "
+        f"{d0['summary']['slot_util_pct']:.1f}% on {card}")
 
     # -- phase 11: the copy-on-write prefix cache ----------------------------
     prefix = prefix_phase(torch, cfg, params, adapters, counters, card)
     p11_launch = prefix["shared"]["launches"]
+
+    # -- phase 12: the disaggregated prefill and env stages ------------------
+    stages = stage_phase(torch, cfg, params, adapters, counters, card)
+    p12_launch = {k: sum(r["launches"][k] for r in stages["modes"].values())
+                  for k in counters}
 
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
@@ -2277,6 +2626,7 @@ def main(argv):
     print(json.dumps({"continuous": cont}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
     print(json.dumps({"prefix_cache": prefix}), flush=True)
+    print(json.dumps({"stages": stages}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -2285,23 +2635,26 @@ def main(argv):
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
-                     n_gqa + rt_launch["gqa_decode"],
+                     n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
-                         for r in runtime}},
+                         for r in runtime},
+                         "stages DED (12)": p12_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
-                     + p11_launch["sgmv"],
+                     + p11_launch["sgmv"] + p12_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["sgmv"]
                             for r in runtime},
-                         "prefix cache (11)": p11_launch["sgmv"]},
+                         "prefix cache (11)": p11_launch["sgmv"],
+                         **{f"stages {m} (12)": r["launches"]["sgmv"]
+                            for m, r in stages["modes"].items()}},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -2331,12 +2684,15 @@ def main(argv):
                      "src/repro/kernels/paged_decode.py:85", paged_cases,
                      cont["launches"]["paged_gqa_decode"]
                      + rt_launch["paged_gqa_decode"]
-                     + p11_launch["paged_gqa_decode"],
+                     + p11_launch["paged_gqa_decode"]
+                     + p12_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
                             for r in runtime},
-                         "prefix cache (11)": p11_launch["paged_gqa_decode"]},
+                         "prefix cache (11)": p11_launch["paged_gqa_decode"],
+                         **{f"stages {m} (12)": r["launches"]["paged_gqa_decode"]
+                            for m, r in stages["modes"].items() if m != "DED"}},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

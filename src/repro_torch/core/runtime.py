@@ -3,10 +3,14 @@ training as independently scheduled stages on one shared base model (port
 of ``repro.core.runtime``).
 
     submit ──> SlotScheduler queue ──> RolloutWorker thread
-                (SRPT/priority/          fused refill + one decode step
-                 starvation order)       over the slot pool, each row under
-                                         its tenant's LoRA adapter
-                                              │ completions
+                (SRPT/priority/          fused refill (or the splice of
+                 starvation order)       worker-prefilled rows) + one decode
+                      │   ▲              step over the slot pool, each row
+                      │   │ resume job   under its tenant's LoRA adapter
+                      ▼   │                   │ completions   │ park on CALL
+      PrefillWorker threads   EnvWorker threads ◄─────────────┘
+      (disagg_prefill: own    (env_stage: the tool call, then the
+       caches and streams)     response re-queues the row)
                Trainer thread  <──────────────┘ (round-synchronous: full
                  PolicyUpdate (LoRA-only       rounds off the FIFO Q_buffer;
                  GRPO), commits v+1            async_train: per-tenant
@@ -34,10 +38,14 @@ time). Per-stage intervals land in the ``MetricsRecorder``; every issued
 row's fate is accounted (``row_accounting``). A per-tenant circuit breaker
 quarantines a tenant whose episodes keep failing.
 
-Two threads share one card. Both launch on the default stream, so device
-work runs in issue order; only the rollout thread decodes. The engines
-serve under ``torch.no_grad()`` / ``torch.inference_mode()``, which are
-thread-local, so the trainer thread keeps autograd. The manager hands the
+The rollout and trainer threads share one card and both launch on the
+default stream, so their device work runs in issue order; only the rollout
+thread decodes. With ``disagg_prefill`` the prefill workers launch on CUDA
+streams of their own beside it (``rollout/prefill.py``), and the decode
+step waits for its own stream only; the env workers run no device work.
+The engines serve under ``torch.no_grad()`` / ``torch.inference_mode()``,
+which are thread-local (each worker thread enters its own), so the trainer
+thread keeps autograd. The manager hands the
 rollout thread the committed adapter tree by reference; a train step
 returns new tensors and ``set_adapters`` copies into the engine's stacked
 buffer, so a commit never aliases the tree a decode reads.
@@ -50,9 +58,8 @@ With ``paged_kv`` the engine runs the copy-on-write prefix cache by
 default, as the JAX runtime does, and admission charges a GRPO group's full
 prompt pages once (``prefix_shared``).
 The switches of stages not ported yet raise ``NotImplementedError``:
-``disagg_prefill`` (ROADMAP §1 item 4), ``env_stage`` (item 5), and
 ``trace``, an enabled ``chaos``, checkpoints, ``adopt_checkpoint`` and
-``run_with_recovery`` (item 6).
+``run_with_recovery`` (ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
@@ -90,9 +97,8 @@ class RuntimeConfig:
     """The JAX runtime's configuration, with ``device`` in place of
     ``use_kernel``, and the fields of the stages this port runs. The
     switches of stages not ported yet are kept and raise at construction
-    when set; their companion knobs (prefill workers, env workers, tool
-    retries, stage supervision, checkpoint retention, trace capacity) come
-    with the ROADMAP item that ports the stage."""
+    when set; their companion knobs (stage supervision's wedge timeout,
+    checkpoint retention, trace capacity) come with ROADMAP §1 item 6."""
     policy: str = "marlaas"           # marlaas | multilora_sync | single_disagg
     rollout_mode: str = "continuous"  # continuous (slot engine) | round (fused)
     max_slots: int = 8                # decode slots in the continuous engine
@@ -101,9 +107,20 @@ class RuntimeConfig:
     starvation_k: int = 8             # refills before a queued row jumps tiers
     preemption: bool = True           # admission may preempt lower-priority
                                       # tenants' resident rows
-    disagg_prefill: bool = False      # async prefill stage (not ported)
-    env_stage: bool = False           # parked-row env stage (not ported);
-                                      # False = freeze-in-slot tool calls
+    disagg_prefill: bool = False      # async prefill stage (Fig 5): the
+                                      # prefills run on worker threads, the
+                                      # decode thread only splices; False =
+                                      # fused-refill baseline
+    prefill_workers: int = 1          # async prefill worker threads
+    prefill_chunk: int = 0            # chunked prefill size (0 = whole
+                                      # sequence a call); rounded up to 8
+    env_stage: bool = False           # disaggregated env-interaction stage:
+                                      # rows park on tool calls (slot freed)
+                                      # and resume via the prefill path;
+                                      # False = freeze-in-slot baseline
+    env_workers: int = 2              # env-interaction worker threads
+    env_inflight_per_tenant: int = 0  # max concurrent tool calls per tenant
+                                      # in the env stage (0 = uncapped)
     max_turns: int = 0                # per-episode tool-turn budget applied
                                       # to every request (0 = env default)
     paged_kv: bool = False            # paged KV-cache block pool: attention
@@ -141,6 +158,13 @@ class RuntimeConfig:
     env_threads: int = 4
     trace: bool = False               # episode tracing (not ported)
     chaos: Optional[ChaosConfig] = None   # fault injection (not ported)
+    tool_retry_max: int = 3           # per-tool-call transient retries
+                                      # (exponential backoff + jitter on the
+                                      # env-stage queue, no worker blocked)
+    tool_retry_base_s: float = 0.05   # first-retry backoff
+    tool_retry_max_s: float = 2.0     # backoff ceiling
+    tool_retry_episode_cap: int = 0   # total retries per episode across its
+                                      # turns (0 = uncapped)
     breaker_fail_threshold: int = 5   # consecutive tool-error episodes that
                                       # trip a tenant's circuit breaker open
     breaker_cooldown_s: float = 2.0   # open -> half-open probe delay
@@ -149,14 +173,11 @@ class RuntimeConfig:
 
 
 def _not_ported(rcfg: RuntimeConfig) -> Dict[str, tuple]:
-    """The switches of stages the port has not yet, each with its ROADMAP
-    §1 item."""
-    return {"disagg_prefill": (rcfg.disagg_prefill, "4"),
-            "env_stage": (rcfg.env_stage, "5"),
-            "trace": (rcfg.trace, "6"),
-            "chaos": (rcfg.chaos is not None and rcfg.chaos.enabled, "6"),
-            "checkpoint_dir / checkpoint_every": (
-                bool(rcfg.checkpoint_dir or rcfg.checkpoint_every), "6")}
+    """The switches of stages the port has not yet (ROADMAP §1 item 6)."""
+    return {"trace": rcfg.trace,
+            "chaos": rcfg.chaos is not None and rcfg.chaos.enabled,
+            "checkpoint_dir / checkpoint_every": bool(
+                rcfg.checkpoint_dir or rcfg.checkpoint_every)}
 
 
 class FailureInjector:
@@ -193,11 +214,11 @@ class MARLaaSRuntime:
                  acfg: Optional[AdmissionConfig] = None,
                  train_cfg: Optional[TrainConfig] = None,
                  failure: Optional[FailureInjector] = None):
-        for name, (on, item) in _not_ported(rcfg).items():
+        for name, on in _not_ported(rcfg).items():
             if on:
                 raise NotImplementedError(
                     f"MARLaaSRuntime: {name} is not ported yet "
-                    f"(ROADMAP.md, §1 item {item})")
+                    f"(ROADMAP.md, §1 item 6)")
         self.device = resolve_device(rcfg.device)
         self.cfg = cfg
         self.base_params = base_params
@@ -241,6 +262,15 @@ class MARLaaSRuntime:
             max_adapters=rcfg.max_adapter_slots, max_len=rcfg.max_len,
             seed=rcfg.seed, tool_executor=self._tool_pool,
             scheduler=rcfg.scheduler, starvation_k=rcfg.starvation_k,
+            disagg_prefill=rcfg.disagg_prefill,
+            prefill_chunk=rcfg.prefill_chunk,
+            prefill_workers=rcfg.prefill_workers,
+            env_stage=rcfg.env_stage, env_workers=rcfg.env_workers,
+            env_inflight_per_tenant=rcfg.env_inflight_per_tenant,
+            tool_retry_max=rcfg.tool_retry_max,
+            tool_retry_base_s=rcfg.tool_retry_base_s,
+            tool_retry_max_s=rcfg.tool_retry_max_s,
+            tool_retry_episode_cap=rcfg.tool_retry_episode_cap,
             paged_kv=rcfg.paged_kv, kv_page_size=rcfg.kv_page_size,
             kv_pool_pages=rcfg.kv_pool_pages,
             resume_restore=rcfg.resume_restore,
@@ -603,6 +633,7 @@ class MARLaaSRuntime:
         self._seg_t0: Optional[float] = None
         last_slot_sample = None
         last_queue_sample = None
+        last_env_sample = None
         last_page_sample = None
         while not self._stop.is_set():
             self._execute_preemptions()
@@ -619,6 +650,11 @@ class MARLaaSRuntime:
             if qd != last_queue_sample:
                 self.rec.record_queue_sample(now, *qd)
                 last_queue_sample = qd
+            if self.rcfg.env_stage:
+                ed = eng.env_depths()
+                if ed != last_env_sample:
+                    self.rec.record_env_sample(now, *ed)
+                    last_env_sample = ed
             if self.rcfg.paged_kv:
                 ps = eng.page_stats()
                 key = (ps["kv_pages_used"], round(ps["kv_page_frag"], 3))
@@ -681,15 +717,24 @@ class MARLaaSRuntime:
                          "kv_hbm_bytes_per_row"):
                 if ps.get(name):
                     self.rec.incr(name, int(ps[name]))
-        # stage-supervision accounting -> summary counters (the engine's
-        # supervisor has no stage registered until the prefill or env stage
-        # is ported, so its counters are empty for now)
+        # stage-supervision accounting -> summary counters (merged before
+        # the halts below: a wedged worker makes a halt raise)
         # supervisor.counters is tick-thread-only (this thread) — it is not
         # the recorder's lock-guarded dict of the same name
         for name, n in eng.supervisor.counters.items():  # noqa: RA102
             if n:
                 self.rec.incr(f"supervisor_{name}", n)
+        if eng._env is not None:
+            for name in ("retries", "recovered", "wedged"):
+                n = getattr(eng._env, name)
+                if n:
+                    self.rec.incr(f"env_{name}", n)
+        if self.rcfg.env_stage:
+            self.rec.record_env_sample(now, *eng.env_depths())
+            eng._env.halt()     # env workers die with the rollout loop
         self._flush_decode_segment(now)
+        if self.rcfg.disagg_prefill:
+            eng._halt_stage()   # prefill workers die with the rollout loop
 
     # -- trainer ---------------------------------------------------------------
     def _train_one(self, tb, trained_version: Optional[int] = None) -> None:

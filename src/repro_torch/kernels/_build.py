@@ -66,12 +66,19 @@ SIGNATURES = {
 
 
 class LaunchCount:
-    """A wrapper's count of kernel launches: a plain integer, ``n``, that the
-    wrapper raises where it launches (by one a call, or by the CUDA kernels
-    its C launcher reports) and a caller may set to 0."""
+    """A wrapper's count of kernel launches: an integer, ``n``, that the
+    wrapper raises with ``add`` where it launches (by one a call, or by the
+    CUDA kernels its C launcher reports) and a caller may read or set to 0.
+    ``add`` holds a lock: the prefill workers launch beside the decode
+    thread, and a bare ``n += k`` from two threads can lose an increment."""
 
     def __init__(self):
         self.n = 0
+        self._count_lock = threading.Lock()
+
+    def add(self, k: int = 1):
+        with self._count_lock:
+            self.n += k
 
 
 class _Builder:

@@ -180,7 +180,7 @@ def gqa_decode(q, cache_k, cache_v, pos, *, softcap: float = 0.0,
         plan.splits, plan.warps,
         torch.cuda.current_stream(q.device).cuda_stream,
         ctypes.addressof(launched))
-    CUDA_LAUNCHES.n += launched.value
+    CUDA_LAUNCHES.add(launched.value)
     _build.check(err, "gqa_decode")
-    LAUNCHES.n += 1
+    LAUNCHES.add(1)
     return out

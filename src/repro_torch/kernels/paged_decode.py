@@ -97,7 +97,7 @@ def paged_gqa_decode(q, kp, vp, tbl, pos, *, softcap: float = 0.0,
         int(window), plan.chunk, plan.splits, plan.warps,
         torch.cuda.current_stream(q.device).cuda_stream,
         ctypes.addressof(launched))
-    CUDA_LAUNCHES.n += launched.value
+    CUDA_LAUNCHES.add(launched.value)
     _build.check(err, "paged_gqa_decode")
-    LAUNCHES.n += 1
+    LAUNCHES.add(1)
     return out

@@ -283,9 +283,9 @@ def _launch(rows, a, b, table, scaling, add, checked):
         x_ptr, a.data_ptr(), b.data_ptr(), table.tmap.data_ptr(), out_ptr,
         *shape, _X_DTYPE_CODE[rows.dtype], int(add), float(scaling), *plan,
         torch._C._cuda_getCurrentRawStream(dev), ctypes.addressof(launched))
-    CUDA_LAUNCHES.n += launched.value
+    CUDA_LAUNCHES.add(launched.value)
     _build.check(err, "sgmv")
-    LAUNCHES.n += 1
+    LAUNCHES.add(1)
 
 
 def sgmv(rows, a, b, ids, *, table: SgmvTable = None):

@@ -181,9 +181,9 @@ def token_logprob_fwd(h, w, targets, softcap: float = 0.0):
         lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), R, d, V,
         w.stride(0), w.stride(1), vsplit, per, float(softcap),
         _DTYPE_CODE[h.dtype], _stream(h), ctypes.addressof(launched))
-    FWD_CUDA_LAUNCHES.n += launched.value
+    FWD_CUDA_LAUNCHES.add(launched.value)
     _build.check(err, "token_logprob forward")
-    FWD_LAUNCHES.n += 1
+    FWD_LAUNCHES.add(1)
     return lp, ent, lse
 
 
@@ -229,9 +229,9 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
             *(t.data_ptr() for t in f32), dpart.data_ptr(), dh.data_ptr(), R,
             d, V, w.stride(0), w.stride(1), vsplit, per, float(softcap),
             _stream(h), ctypes.addressof(launched))
-    BWD_CUDA_LAUNCHES.n += launched.value
+    BWD_CUDA_LAUNCHES.add(launched.value)
     _build.check(err, "token_logprob backward")
-    BWD_LAUNCHES.n += 1
+    BWD_LAUNCHES.add(1)
     return dh
 
 

@@ -4,14 +4,20 @@ real GRPO updates (the port's counterpart of ``examples/multi_tenant_train.py``)
     PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train            # qwen3-0.6b, cuda
     PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
         --preset tiny --device cpu --tasks 2 --steps 1
+    PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
+        --mix agentic --disagg-prefill --env-stage --paged-kv
 
-Tenants (gsm8k / amc12 / agentic search, round-robin) share one frozen base
-model; each owns LoRA adapters and optimizer state in the multi-task
-manager. The rollout thread decodes every tenant's rows together in the
-continuous engine, each row under its own adapter; the trainer thread runs
-one LoRA-only GRPO update per finished round and commits a new version.
-Prints per-task reward curves and the paper's system metrics
-(utilisation, idle share, TTFS, TPTS).
+Tenants (``--mix classic``: gsm8k / amc12 / agentic search; ``--mix
+agentic``: the multi-turn tool-heavy mix, gsm8k / hopsearch / calcrepl /
+guess; round-robin) share one frozen base model; each owns LoRA adapters
+and optimizer state in the multi-task manager. The rollout thread decodes
+every tenant's rows together in the continuous engine, each row under its
+own adapter; the trainer thread runs one LoRA-only GRPO update per finished
+round and commits a new version. ``--disagg-prefill`` moves the prefills to
+worker threads (each on a CUDA stream of its own on the card);
+``--env-stage`` parks tool-calling rows in an env stage of worker threads
+instead of freezing them in their slots. Prints per-task reward curves and
+the paper's system metrics (utilisation, idle share, TTFS, TPTS).
 
 ``--preset qwen3-0.6b`` (the default) runs the published configuration at
 full width and depth in bf16 with random weights from seed 0 and adapters
@@ -36,7 +42,14 @@ from repro_torch.launch.serve import make_adapters
 from repro_torch.models import init_params, tree_leaves
 from repro_torch.models.common import resolve_device
 
-ENVS = ["gsm8k", "amc12", "search"]
+# tenant env rotations: classic = the paper's three archetypes; agentic =
+# multi-turn tool-heavy tenants mixed with plain math (the env stage's
+# workload: pair with --env-stage)
+MIXES = {
+    "classic": ["gsm8k", "amc12", "search"],
+    "agentic": ["gsm8k", "hopsearch", "calcrepl", "guess"],
+}
+AGENTIC_ENVS = {"search", "hopsearch", "calcrepl", "guess"}
 PRESETS = {   # max_new_tokens, max_len, slots, group_size, num_groups
     "tiny": (6, 64, 8, 4, 1),
     "qwen3-0.6b": (32, 256, 16, 4, 2),
@@ -75,6 +88,24 @@ def main(argv=None) -> MARLaaSRuntime:
     ap.add_argument("--min-train-rows", type=int, default=0,
                     help="micro-batch threshold in rows, rounded up to "
                          "complete GRPO groups (0 = a full round)")
+    ap.add_argument("--disagg-prefill", action="store_true",
+                    help="async prefill stage (Fig 5): prefills run on "
+                         "worker threads, decode only splices")
+    ap.add_argument("--prefill-workers", type=int, default=1)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill size (0 = whole prompt)")
+    ap.add_argument("--env-stage", action="store_true",
+                    help="disaggregated env-interaction stage: rows park "
+                         "on tool calls instead of freezing in their slot")
+    ap.add_argument("--env-workers", type=int, default=2)
+    ap.add_argument("--env-inflight-per-tenant", type=int, default=0,
+                    help="max concurrent tool calls per tenant in the env "
+                         "stage (0 = uncapped)")
+    ap.add_argument("--max-turns", type=int, default=0,
+                    help="per-episode tool-turn budget (0 = env default)")
+    ap.add_argument("--mix", default="classic", choices=sorted(MIXES),
+                    help="tenant env rotation; 'agentic' is the multi-turn "
+                         "tool-heavy mix the env stage targets")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -89,14 +120,25 @@ def main(argv=None) -> MARLaaSRuntime:
         max_adapter_slots=max(args.tasks, 1), seed=0, device=str(dev),
         paged_kv=args.paged_kv,
         async_train=args.async_train, max_staleness=args.max_staleness,
-        min_train_rows=args.min_train_rows))
+        min_train_rows=args.min_train_rows,
+        disagg_prefill=args.disagg_prefill,
+        prefill_workers=args.prefill_workers,
+        prefill_chunk=args.prefill_chunk, env_stage=args.env_stage,
+        env_workers=args.env_workers,
+        env_inflight_per_tenant=args.env_inflight_per_tenant,
+        max_turns=args.max_turns))
     adapters = (make_adapters(cfg, args.tasks, seed=0, device=dev,
                               b_scale=0.02)
                 if args.preset != "tiny" else [None] * args.tasks)
+    envs = MIXES[args.mix]
     for i in range(args.tasks):
-        env = ENVS[i % len(ENVS)]
+        env = envs[i % len(envs)]
+        # agentic tenants get twice the budget: their tool turns sample too
         rt.submit_task(TaskSpec(f"{env}-{i}", env, group_size=group,
-                                num_groups=groups, max_new_tokens=max_new,
+                                num_groups=groups,
+                                max_new_tokens=max_new * (2 if env in
+                                                          AGENTIC_ENVS
+                                                          else 1),
                                 target_steps=args.steps), adapters[i])
     rt.run(timeout_s=args.timeout)
 
@@ -108,8 +150,15 @@ def main(argv=None) -> MARLaaSRuntime:
     print(json.dumps({k: round(v, 3) for k, v in
                       summarize(rt.mgr, rt.rec).items()}, indent=2))
     print(f"row accounting: {json.dumps(rt.row_accounting())}")
+    st = rt.cengine.stats
+    if args.disagg_prefill or args.env_stage:
+        print(f"stages: splices={st.splices} prefill_chunks="
+              f"{st.prefill_chunks} decode_stall_s="
+              f"{st.decode_stall_seconds:.3f} parks={st.parks} "
+              f"resumes={st.resumes} tool_errors={st.tool_errors} "
+              f"tool_wait_slot_steps={st.tool_wait_slot_steps} "
+              f"fused_forced_tokens={st.fused_forced_tokens}")
     if args.paged_kv:
-        st = rt.cengine.stats
         print(f"paged KV: restores={st.restores} replays={st.replays} "
               f"prefix_hits={st.prefix_hits} "
               f"prefix_hit_tokens={st.prefix_hit_tokens} "

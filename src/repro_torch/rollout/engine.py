@@ -14,14 +14,17 @@ over the pool and never drains: a finished row (EOS / sampled budget /
 cache capacity) is evicted, its ``RolloutCompletion`` streams back, and
 freed slots are filled from a cross-task request queue, ordered by
 ``rollout/scheduler.py`` (SRPT with priority tiers and a starvation bound,
-or FIFO). The fill is fused: the incoming rows prefill in one batched call
-on the decode stream, and their cache state and first tokens are spliced
-into the pool. Preemption (``preempt_tenant``/``preempt_slots``) evicts
-resident rows mid-decode; a victim re-queues and later either replays
-``prompt + gen`` through the refill with the counter it would have used, or,
-with the paged cache and ``resume_restore``, has its live KV pages copied to
-host and spliced back, with no replay. Either way its tokens equal an
-uninterrupted run's.
+or FIFO). By default the fill is fused: the incoming rows prefill in one
+batched call on the decode thread, and their cache state and first tokens
+are written into the pool. With ``disagg_prefill=True`` the prefill runs on
+``prefill_workers`` threads instead (``rollout/prefill.py``, each on a CUDA
+stream of its own), and the decode thread only splices the finished rows in:
+a copy, never a forward. Preemption (``preempt_tenant``/``preempt_slots``)
+evicts resident rows mid-decode; a victim re-queues and later either replays
+``prompt + gen`` through the prefill path with the counter it would have
+used, or, with the paged cache and ``resume_restore``, has its live KV pages
+kept (on the host or in the pool) and spliced back, with no replay. Either
+way its tokens equal an uninterrupted run's.
 
 Each row runs under its own tenant's LoRA adapter (the SGMV kernel on the
 card) and samples from its own key (``fold_in(PRNGKey(seed), request.seed
@@ -30,7 +33,12 @@ row's tokens depend only on its own (key, counter, logits) and reproduce the
 JAX engine's tokens from the same logits. Rows that emit ``tok.CALL`` are
 frozen in their slot (advance 0) while their tool call runs on a thread
 pool, then force-fed the response; forced tokens do not count against
-``max_new_tokens``.
+``max_new_tokens``. With ``env_stage=True`` such a row is parked instead
+(``rollout/env_stage.py``): its slot is vacated and refilled, its call runs
+on ``env_workers`` threads, and the response re-queues the row as a resume
+job that comes back through the restore or prefill path; with the paged
+cache a resume that replays folds its whole forced block into its prefill
+(response-prefill fusion). The tokens equal the frozen path's.
 
 Paged KV cache (``paged_kv=True``): attention K/V live in a shared pool of
 ``kv_pool_pages`` pages of ``kv_page_size`` tokens (``rollout/kvcache.py``
@@ -69,13 +77,12 @@ packs one task's results for the trainer.
 ``abort_tenant`` ends every in-flight episode of one tenant (the runtime's
 circuit breaker quarantines a tenant with it), ``queue_depths`` and
 ``env_depths`` read the stage queues, and ``supervisor`` is the engine's
-``StageSupervisor``: the names the runtime reads.
+``StageSupervisor``, which watches the prefill and env workers' liveness
+from ``step``: the names the runtime reads.
 
 Not ported yet (each raises ``NotImplementedError`` at construction where
-the JAX engine has a switch for it): the disaggregated prefill workers, the
-env stage (and with it the JAX engine's response-prefill fusion, which only
-its resumes reach), the tracer, chaos injection and stage supervision. So
-the supervisor has no stage registered and its counters stay empty.
+the JAX engine has a switch for it): the tracer, chaos injection and the
+supervisor's wedge detection (ROADMAP.md, §1 item 6).
 """
 from __future__ import annotations
 
@@ -92,18 +99,23 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.supervisor import StageSupervisor
 from repro_torch.data import tokenizer as tok
-from repro_torch.envs.base import CancelToken, Env, call_session
+from repro_torch.envs.base import CancelToken, Env, ToolError, call_session
+from repro_torch.kernels._build import LaunchCount
 from repro_torch.lora.adapters import (batched_ctx, init_stacked_buffer,
                                        stack_adapters, write_adapter_slot)
 from repro_torch.models import (decode_step, forward_prefill_chunk,
                                 forward_seq, init_cache, init_paged_cache,
-                                lm_logits)
+                                lm_logits, tree_map)
 from repro_torch.models.common import resolve_device, synchronize
 from repro_torch.rl.types import RolloutCompletion, TrajectoryBatch
 from repro_torch.rollout import prng
 from repro_torch.rollout.kvcache import (KVSnapshot, PagePool, PrefixIndex,
                                          SnapshotStore, pages_for)
-from repro_torch.rollout.prefill import _bucket_len, _sample_rows
+from repro_torch.rollout.env_stage import EnvStage
+from repro_torch.rollout.prefill import (PrefillKernels, PrefillWorker,
+                                         ReadyRow, _bucket_len,
+                                         _log_softmax_at, _sample_rows,
+                                         effective_chunk)
 from repro_torch.rollout.scheduler import LengthPredictor, SlotScheduler
 
 
@@ -127,14 +139,16 @@ class RolloutRequest:
 
 @dataclass
 class RolloutStats:
-    """Engine counters, the JAX package's fields. ``generate`` fills the
-    first group; the continuous engine fills the extras. The extras of
-    stages not ported yet (disaggregated prefill, env stage) stay 0 and are
-    kept so that both packages' stats compare field by field."""
+    """Engine counters, the JAX package's fields (so that both packages'
+    stats compare field by field). ``generate`` fills the first group; the
+    continuous engine fills the extras."""
     decode_steps: int = 0
     prefill_tokens: int = 0
-    decode_seconds: float = 0.0     # decode-stage device time only
-    prefill_seconds: float = 0.0    # prefill-stage device time
+    decode_seconds: float = 0.0     # decode-stage time only (host clock
+                                    # from the decode stream drained to
+                                    # the step's tokens on the host)
+    prefill_seconds: float = 0.0    # prefill-stage time (fused refill OR
+                                    # prefill-worker calls)
     env_wait_seconds: float = 0.0
     wall_seconds: float = 0.0
     # continuous-engine extras (zero for round-fused generate())
@@ -148,17 +162,22 @@ class RolloutStats:
     preemptions: int = 0           # rows evicted mid-decode and re-queued
     replays: int = 0               # preempted rows re-prefilled into a slot
     replay_tokens: int = 0         # prompt+prefix tokens re-processed
-    # disaggregated-prefill extras (not ported yet: always 0)
-    splices: int = 0
-    splice_seconds: float = 0.0    # decode-side install time (restores)
-    splice_wait_seconds: float = 0.0
-    prefill_chunks: int = 0
-    decode_stall_seconds: float = 0.0   # prefill-stage work executed ON the
-                                        # decode stream (fused refill)
-    # env-stage extras (not ported yet: always 0)
-    parks: int = 0
-    resumes: int = 0
-    tool_errors: int = 0
+    # disaggregated-prefill extras
+    splices: int = 0               # ready rows copied into slots
+    splice_seconds: float = 0.0    # decode-side install time (splices and
+                                   # restores)
+    splice_wait_seconds: float = 0.0    # sum of (install time - prefill
+                                        # ready time): the hand-off latency
+                                        # between the two stages
+    prefill_chunks: int = 0        # prefill-worker calls (>= rows)
+    decode_stall_seconds: float = 0.0   # prefill-stage work executed on the
+                                        # decode thread (fused refill, radix
+                                        # installs); 0 when disaggregated
+    # env-stage extras
+    parks: int = 0                 # rows vacated from their slot on CALL
+    resumes: int = 0               # tool responses turned into resume jobs
+    tool_errors: int = 0           # episodes finished by a permanent tool
+                                   # failure or a spent retry budget
     # paged-KV / snapshot-restore extras (rollout/kvcache.py)
     restores: int = 0              # rows resumed by splicing saved KV pages
                                    # back (NO prefill replay ran)
@@ -174,10 +193,12 @@ class RolloutStats:
     prefix_hit_tokens: int = 0     # prompt tokens those rows did not prefill
     cow_forks: int = 0             # shared pages copied before a write
     device_resident_resumes: int = 0   # restores from pages kept in-pool
-    fused_forced_tokens: int = 0   # response-prefill fusion (env stage; not
-                                   # ported yet: always 0)
+    fused_forced_tokens: int = 0   # forced RESP…ENDRESP tokens folded into
+                                   # a resume's prefill call instead of one
+                                   # decode step each (response fusion)
     tool_wait_slot_steps: int = 0  # sum over decode steps of resident rows
-                                   # frozen on a tool wait
+                                   # frozen on a tool wait (0 with the env
+                                   # stage)
     env_wait_by_task: Dict[str, float] = field(default_factory=dict)
                                    # per-tenant env-interaction wait seconds
 
@@ -193,9 +214,12 @@ class RolloutStats:
         return self.occupied_row_steps / self.capacity_row_steps
 
 
-def _log_softmax_at(logits, idx):
-    return torch.gather(torch.log_softmax(logits, dim=-1), 1,
-                        idx[:, None].long())[:, 0]
+def _sync_stream(device: torch.device):
+    """Wait for the calling thread's current stream only: the prefill
+    workers' kernels run on streams of their own, and the decode thread
+    neither waits for them nor books their time."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _decode_sample_core(cfg, params, adapters, row_ids, cur_tokens, cache,
@@ -254,10 +278,15 @@ def _build_cont_step_fn(cfg: ModelConfig):
 
 def _prefill_first(cfg, params, adapters, tokens, prompt_lens, init_counters,
                    new_row_ids, new_keys, new_temps, forced, forced_mask,
-                   pcache):
+                   pcache, fused=None):
     """Prefill a batch of incoming rows on a fresh scratch cache and pick
     each row's first token: sampled with its key at `init_counters` (0 for
-    a fresh row, ``len(gen)`` for a replayed one), or forced."""
+    a fresh row, ``len(gen)`` for a replayed one), or forced. `fused`
+    (response-prefill fusion): ``(rows, positions, tokens)`` of the forced
+    tokens folded into the sequences, or None. Returns the first tokens
+    [k], their logprobs [k] followed by the fused tokens' (off the logits at
+    the positions that predict them, as a step-wise force-feed records
+    them), and the cache."""
     lora = batched_ctx(adapters, new_row_ids, cfg)
     h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache)
     rows = torch.arange(h.shape[0], device=h.device)
@@ -265,7 +294,12 @@ def _prefill_first(cfg, params, adapters, tokens, prompt_lens, init_counters,
     sampled = _sample_rows(logits, new_keys, init_counters, new_temps)
     first = torch.where(forced_mask > 0, forced.long(),
                         sampled).to(torch.int32)
-    return first, _log_softmax_at(logits, first), pcache
+    lp = _log_softmax_at(logits, first)
+    if fused is not None:
+        f_rows, f_pos, f_toks = fused
+        lp = torch.cat((lp, _log_softmax_at(
+            lm_logits(h[f_rows, f_pos], params, cfg), f_toks)))
+    return first, lp, pcache
 
 
 def _set_row_state(slots, first, counters_next, new_keys, new_temps,
@@ -333,18 +367,24 @@ def _build_refill_fn_paged(cfg: ModelConfig, max_len: int, page: int):
     bucket rounded up to whole pages), and each incoming row's K/V is
     written page by page into the physical pages the host allocator handed
     it (`dest_pages` [k, chunks], sentinel past the row's page count). Only
-    ``ceil(seq_len/page)`` pages per row are consumed. (The JAX engine's
-    response-prefill fusion, reachable only from env-stage resumes, is not
-    ported.)"""
+    ``ceil(seq_len/page)`` pages per row are consumed.
+
+    Response-prefill fusion: an env-stage resume's forced RESP…ENDRESP
+    block is part of ``tokens`` (the host appends it to prompt + prefix), so
+    the whole response prefills in this call instead of one decode step a
+    token; `fused` names the forced tokens (see ``_prefill_first``), and
+    their logprobs follow the rows' in ``lp``."""
 
     def refill(params, adapters, tokens, prompt_lens, init_counters, slots,
                dest_pages, new_row_ids, new_keys, new_temps, forced,
-               forced_mask, cache, cur, counters, keys, temps, row_ids):
+               forced_mask, fused, cache, cur, counters, keys, temps,
+               row_ids):
         pcache = init_cache(cfg, tokens.shape[0], dest_pages.shape[1] * page,
                             dtype=cache["kp"].dtype, device=tokens.device)
         first, lp, pcache = _prefill_first(
             cfg, params, adapters, tokens, prompt_lens, init_counters,
-            new_row_ids, new_keys, new_temps, forced, forced_mask, pcache)
+            new_row_ids, new_keys, new_temps, forced, forced_mask, pcache,
+            fused)
         _paged_scatter(cache, pcache["k"], pcache["v"], dest_pages, page)
         sl = slots.long()
         cache["pos"][sl] = prompt_lens
@@ -354,6 +394,52 @@ def _build_refill_fn_paged(cfg: ModelConfig, max_len: int, page: int):
         return first, lp, cache, state
 
     return refill
+
+
+def _build_splice_fn(cfg: ModelConfig, max_len: int):
+    """Copy-only install of one worker-prefilled row into the dense pool
+    (the decode half of the disaggregated split): the row's width-1 cache
+    goes into the pool at `slot` (entries past the cache's width keep the
+    previous occupant's values, masked and overwritten by decode, as in
+    the fused refill), and the slot's device row state is written. No
+    forward runs on the decode thread."""
+
+    def splice(cache, pcache, slot: int, seq_len: int, first: int,
+               init_counter: int, key, temp: float, row_id: int, cur,
+               counters, keys, temps, row_ids):
+        S = min(pcache["k"].shape[2], max_len)
+        cache["k"][:, slot, :S] = pcache["k"][:, 0, :S]
+        cache["v"][:, slot, :S] = pcache["v"][:, 0, :S]
+        cache["pos"][slot] = seq_len
+        state = _set_row_state(slot, first, init_counter + 1, key, temp,
+                               row_id, cur, counters, keys, temps, row_ids)
+        return cache, state
+
+    return splice
+
+
+def _build_splice_fn_paged(cfg: ModelConfig, page: int):
+    """Paged twin of ``_build_splice_fn``: the row's width-1 worker cache
+    is written page by page into the pool pages the allocator handed it
+    (`dest_pages`, exactly ``ceil(seq_len/page)`` of them). Still a copy,
+    never a forward."""
+
+    def splice(cache, pcache, slot: int, dest_pages, seq_len: int,
+               first: int, init_counter: int, key, temp: float, row_id: int,
+               cur, counters, keys, temps, row_ids):
+        L, _, _, KVH, hd = cache["kp"].shape
+        n = dest_pages.shape[0]
+        dest = dest_pages.long()
+        cache["kp"][:, dest] = pcache["k"][:, 0, :n * page].reshape(
+            L, n, page, KVH, hd).to(cache["kp"].dtype)
+        cache["vp"][:, dest] = pcache["v"][:, 0, :n * page].reshape(
+            L, n, page, KVH, hd).to(cache["vp"].dtype)
+        cache["pos"][slot] = seq_len
+        state = _set_row_state(slot, first, init_counter + 1, key, temp,
+                               row_id, cur, counters, keys, temps, row_ids)
+        return cache, state
+
+    return splice
 
 
 def _build_snap_fn(cfg: ModelConfig):
@@ -465,7 +551,7 @@ class _Row:
                  "forced", "status", "forced_q", "finish_reason", "key",
                  "submit_index", "meta", "submitted_at", "started_at",
                  "replays", "session", "turns", "snap", "dev_pages",
-                 "dev_pos")
+                 "dev_pos", "tool_retries")
 
     def __init__(self, req: RolloutRequest, key=None, submit_index: int = 0,
                  meta=None, submitted_at: float = 0.0):
@@ -485,8 +571,10 @@ class _Row:
         self.submitted_at = submitted_at
         self.started_at = 0.0
         self.replays = 0              # times preempted and re-queued
+        self.tool_retries = 0         # transient tool-error retries spent
+                                      # (per-episode retry cap accounting)
         self.session = None           # per-episode ToolSession (lazy; kept
-                                      # across preemption)
+                                      # across park, preemption and replay)
         self.turns = 0                # tool calls dispatched this episode
         self.snap = None              # host KVSnapshot while preempted
                                       # (paged engine, resume_restore);
@@ -820,17 +908,22 @@ class ContinuousRolloutEngine:
     rows; they resume with the tokens an uninterrupted run gives (see the
     module docstring).
 
+    ``disagg_prefill=True`` moves the prefill of incoming and replayed rows
+    to ``prefill_workers`` threads (``prefill_chunk``-token chunks, 0 for
+    whole sequences); ``env_stage=True`` parks tool-calling rows in an
+    ``EnvStage`` of ``env_workers`` threads (``env_inflight_per_tenant``
+    calls of one tenant at a time, ``tool_retry_*`` for transient tool
+    errors). Both keep the token streams of the fused, freeze-in-slot
+    engine.
+
     The signature is the JAX engine's, less ``use_kernel`` (the port has no
     switch: kernels run for tensors on the card) and plus ``device``
     (default "cuda", which raises when no card is present); ``base_params``
     and the adapters passed to ``set_adapters`` live on ``device``. The
     prefix cache is on by default with ``paged_kv``, as in the JAX engine;
     ``prefix_cache=False`` gives the private-pages engine. The switches of
-    stages not ported yet raise ``NotImplementedError``: ``disagg_prefill``,
-    ``env_stage``, ``tracer``, ``chaos``, ``supervise_wedge_s``. Their
-    companion arguments (``prefill_chunk``,
-    ``prefill_workers``, ``env_workers``, ``env_inflight_per_tenant``,
-    ``tool_retry_*``) are accepted and unused.
+    ROADMAP §1 item 6 raise ``NotImplementedError``: ``tracer``, ``chaos``,
+    ``supervise_wedge_s``.
     """
 
     def __init__(self, cfg: ModelConfig, base_params, *, max_slots: int = 8,
@@ -850,16 +943,13 @@ class ContinuousRolloutEngine:
                  tool_retry_max_s: float = 2.0,
                  tool_retry_episode_cap: int = 0,
                  supervise_wedge_s: float = 0.0, device="cuda"):
-        later = {"disagg_prefill": (disagg_prefill, "4"),
-                 "env_stage": (env_stage, "5"),
-                 "tracer": (tracer is not None, "6"),
-                 "chaos": (chaos is not None, "6"),
-                 "supervise_wedge_s": (supervise_wedge_s > 0, "6")}
-        for name, (on, item) in later.items():
+        later = {"tracer": tracer is not None, "chaos": chaos is not None,
+                 "supervise_wedge_s": supervise_wedge_s > 0}
+        for name, on in later.items():
             if on:
                 raise NotImplementedError(
                     f"ContinuousRolloutEngine: {name} is not ported yet "
-                    f"(ROADMAP.md, §1 item {item})")
+                    f"(ROADMAP.md, §1 item 6)")
         self.cfg = cfg
         self.base_params = base_params
         self.max_slots = max_slots
@@ -907,7 +997,18 @@ class ContinuousRolloutEngine:
         self._snap_fn = None
         self._restore_fn = None
         self.sim_latency = sim_latency
+        self.disagg_prefill = disagg_prefill
+        self.prefill_workers = max(1, prefill_workers)
+        self._env: Optional[EnvStage] = EnvStage(
+            max(1, env_workers),
+            max_inflight_per_tenant=env_inflight_per_tenant,
+            sim_latency=sim_latency, retry_max=tool_retry_max,
+            retry_episode_cap=tool_retry_episode_cap,
+            retry_base_s=tool_retry_base_s, retry_max_s=tool_retry_max_s,
+            seed=seed) if env_stage else None
+        self._prefill_chunk_eff = effective_chunk(cfg, prefill_chunk)
         self.on_stage = on_stage    # optional (phase, task_id, t0, t1) hook
+                                    # (called from worker threads too)
         self._master = prng.prng_key(seed)
         self._rng = np.random.RandomState(seed + 7919)
         self._own_pool = tool_executor is None
@@ -917,6 +1018,12 @@ class ContinuousRolloutEngine:
         self._refill_fn = None
         self._stacked = None                     # [L, T, ...] LoRA buffer
         self._cache = None                       # batch = max_slots
+        # forwards run by each step function (the decode thread's and the
+        # prefill workers'): every forward launches 6 sgmv a layer on the
+        # card. LaunchCount, since the workers add to theirs from their
+        # own threads.
+        self.forward_counts = {k: LaunchCount() for k in (
+            "decode", "refill", "suffix", "prefill_whole", "prefill_chunk")}
 
         N = max_slots
         self._rows: List[Optional[_Row]] = [None] * N
@@ -941,13 +1048,36 @@ class ContinuousRolloutEngine:
         self._completed: Deque[RolloutCompletion] = deque()
         self._n_submitted = 0
         self.stats = RolloutStats()
-        # the stages a supervisor would watch (prefill and env workers) are
-        # not ported: nothing is registered
+        # -- disaggregated prefill stage (workers <-> decode thread) -------
+        # submit(), the workers and the introspection methods run on other
+        # threads than step(). (Named apart from the JAX engine's
+        # _stage_lock: the repo's lock analyzer names locks by class and
+        # attribute.)
+        self._queue_lock = threading.Lock()   # guards: _sched/_ready/
+                                              # _stage_inflight
+        self._ready: Deque[ReadyRow] = deque()
+        self._stage_inflight: List[_Row] = []  # popped by a worker, not yet
+                                               # ready (host refs only)
+        self._stage_stop = threading.Event()
+        self._stage_error: Optional[BaseException] = None
+        self._workers: List[PrefillWorker] = []
+        self._next_pwid = 0     # unique prefill-worker ids across respawns
+        self._pkernels: Optional[PrefillKernels] = None
+        self._splice_fn = None
+        # -- stage supervision: dead workers are found on the step() tick,
+        # their stranded work recovered, and the pool restarted to
+        # complement under bounded backoff (wedge detection is item 6's)
         self.supervisor = StageSupervisor()
-        # submit() and the introspection methods may run on another thread
-        # than step(). (Named apart from the JAX engine's _stage_lock: the
-        # repo's lock analyzer names locks by class and attribute.)
-        self._queue_lock = threading.Lock()   # guards: _sched
+        if env_stage:
+            self.supervisor.register(
+                "env_worker", healthy=self._env.healthy,
+                recover=self._env.recover_dead,
+                restart=self._env._ensure_workers)
+        if disagg_prefill:
+            self.supervisor.register(
+                "prefill_worker", healthy=self._prefill_stage_healthy,
+                recover=self._recover_prefill_claims,
+                restart=self._ensure_stage)
 
     # -- build ----------------------------------------------------------
     def _ensure_built(self):
@@ -964,6 +1094,12 @@ class ContinuousRolloutEngine:
                                                        self.kv_page_size)
             else:
                 self._refill_fn = _build_refill_fn(self.cfg, self.max_len)
+            if self.disagg_prefill:
+                self._splice_fn = (_build_splice_fn_paged(self.cfg,
+                                                          self.kv_page_size)
+                                   if self.paged_kv else
+                                   _build_splice_fn(self.cfg, self.max_len))
+                self._pkernels = PrefillKernels(self.cfg)
         if self._cache is None:
             N, dev = self.max_slots, self.device
             if self.paged_kv:
@@ -990,15 +1126,28 @@ class ContinuousRolloutEngine:
     def set_adapters(self, index: int, tree):
         """Install/replace the LoRA tree at adapter slot `index` of the
         fixed-capacity stacked buffer, in place. The prefix index drops the
-        slot's entries: their K/V was computed under the old weights."""
+        slot's entries: their K/V was computed under the old weights.
+
+        With ``disagg_prefill`` the write is copy-on-write instead: a
+        prefill worker's call may be reading the buffer, so a new buffer is
+        written and, once the calling thread's stream has finished it,
+        swapped in; a call in flight keeps the old one (its worker marks it
+        as used by its stream), as the JAX engine's writes that donate
+        nothing do."""
         if not 0 <= index < self.max_adapters:
             raise ValueError(f"adapter slot {index} out of range "
                              f"[0, {self.max_adapters})")
         self._ensure_built()
         if self._stacked is None:
-            self._stacked = init_stacked_buffer(tree, self.max_adapters,
-                                                self.device)
-        write_adapter_slot(self._stacked, tree, index)
+            buf = init_stacked_buffer(tree, self.max_adapters, self.device)
+        elif self.disagg_prefill:
+            buf = tree_map(torch.clone, self._stacked)
+        else:
+            buf = self._stacked
+        write_adapter_slot(buf, tree, index)
+        if self.disagg_prefill:
+            _sync_stream(self.device)   # the workers' streams read it next
+        self._stacked = buf
         if self._prefix_idx is not None:
             stale = self._prefix_idx.invalidate(index)
             if stale:
@@ -1018,6 +1167,77 @@ class ContinuousRolloutEngine:
             self._sched.push(row, self.stats.refills)
         return row.submit_index
 
+    # -- prefill stage lifecycle ------------------------------------------
+    def _ensure_stage(self):
+        """Start the prefill workers: the full complement after a halt, or
+        replacements for workers that died (survivors keep running). A
+        no-op until the first adapter install: workers have nothing to
+        prefill against before then (queued rows wait)."""
+        if not self.disagg_prefill or self._stacked is None:
+            return
+        self._ensure_built()
+        alive = [w for w in self._workers if w.is_alive()]
+        if len(alive) >= self.prefill_workers:
+            return
+        if not alive:
+            # the workers' streams must see what the calling thread's
+            # stream wrote before them (weights, adapters)
+            synchronize(self.device)
+        self._stage_stop.clear()
+        fresh = []
+        for _ in range(self.prefill_workers - len(alive)):
+            # unique ids across respawns: a replacement must not shadow a
+            # dead worker's claimed-row ownership
+            fresh.append(PrefillWorker(self, self._next_pwid))
+            self._next_pwid += 1
+        self._workers = alive + fresh
+        for w in fresh:
+            w.start()
+
+    def _halt_stage(self):
+        """Stop the prefill workers; their unfinished rows return to the
+        queue (worker teardown pushes them back under the queue lock)."""
+        self._stage_stop.set()
+        for w in self._workers:
+            w.join(timeout=30)
+        self._recover_prefill_claims()
+        self._workers = []
+
+    def _prefill_stage_healthy(self) -> bool:
+        """Supervisor liveness: a full complement of live workers (a stage
+        not started or halted has nothing to supervise, and a worker error
+        is about to raise on the engine thread: restarting first would mask
+        its cause)."""
+        if self._stacked is None or not self._workers:
+            return True
+        if self._stage_error is not None:
+            return True
+        alive = [w for w in self._workers if w.is_alive()]
+        return len(alive) >= self.prefill_workers
+
+    def _recover_prefill_claims(self) -> int:
+        """Requeue the rows a dead prefill worker stranded mid-prefill:
+        still in ``_stage_inflight`` (so not aborted) but never emitted and
+        with no live owner. They prefill again from scratch (prefill is
+        deterministic, so the re-run gives the same tokens)."""
+        n = 0
+        with self._queue_lock:
+            for w in self._workers:
+                if w.is_alive():
+                    continue
+                for row in list(w.claimed):
+                    w.claimed.remove(row)
+                    if row in self._stage_inflight:
+                        self._stage_inflight.remove(row)
+                        self._sched.push(row, self.stats.refills)
+                        n += 1
+        return n
+
+    def _raise_stage_error(self):
+        if self._stage_error is not None:
+            err, self._stage_error = self._stage_error, None
+            raise err
+
     # -- introspection ---------------------------------------------------
     def occupancy(self) -> Tuple[int, int]:
         return sum(r is not None for r in self._rows), self.max_slots
@@ -1026,38 +1246,55 @@ class ContinuousRolloutEngine:
         return frozenset(r.req.task_id for r in self._rows if r is not None)
 
     def queued(self) -> int:
+        """Rows in flight outside the slots: queued, in a prefill worker,
+        ready to splice, or parked in the env stage."""
         with self._queue_lock:
-            return len(self._sched)
+            n = (len(self._sched) + len(self._stage_inflight)
+                 + len(self._ready))
+        if self._env is not None:
+            n += self._env.count()
+        return n
 
     def queue_depths(self) -> Tuple[int, int]:
         """(prefill queue + in-prefill, ready-to-splice) — the two stage
-        queues of the disaggregated layout. The fused refill has no
-        in-prefill or ready rows, so the second is 0."""
+        queues of the disaggregated layout (Fig. 5)."""
         with self._queue_lock:
-            return len(self._sched), 0
+            return (len(self._sched) + len(self._stage_inflight),
+                    len(self._ready))
 
     def env_depths(self) -> Tuple[int, int]:
-        """(queued, executing) depths of the env-interaction stage: (0, 0)
-        with no env stage."""
-        return (0, 0)
+        """(queued, executing) depths of the env-interaction stage."""
+        return self._env.depths() if self._env is not None else (0, 0)
 
     def idle(self) -> bool:
         return self.queued() == 0 and all(r is None for r in self._rows)
 
     def active_tenants(self) -> frozenset:
-        """Tenants with rows resident in slots or queued (incl. preempted
-        rows awaiting resume) — i.e. whose adapter slot must stay
-        resident."""
+        """Tenants with rows resident in slots or anywhere in the pipeline
+        (queued, in prefill, ready to splice, parked in the env stage,
+        preempted rows awaiting resume included): those whose adapter slot
+        must stay resident."""
         with self._queue_lock:
-            queued = self._sched.tenants()
-        return self.occupant_tasks() | queued
+            stage = (frozenset(r.req.task_id for r in self._stage_inflight)
+                     | frozenset(rr.row.req.task_id for rr in self._ready)
+                     | self._sched.tenants())
+        if self._env is not None:
+            stage = stage | self._env.tenants()
+        return self.occupant_tasks() | stage
 
     def queued_progress(self, task_id: str) -> Tuple[int, float]:
-        """(row count, mean sampled tokens) over a tenant's queued rows.
-        Preempted rows carry their generated prefix, so this feeds an
-        admission controller's remaining-budget re-estimate."""
+        """(row count, mean sampled tokens) over a tenant's rows outside the
+        slots (queued, in prefill, ready, parked). Preempted rows carry
+        their generated prefix, so this feeds an admission controller's
+        remaining-budget re-estimate."""
         with self._queue_lock:
             rows = self._sched.rows_for(task_id)
+            rows += [r for r in self._stage_inflight
+                     if r.req.task_id == task_id]
+            rows += [rr.row for rr in self._ready
+                     if rr.row.req.task_id == task_id]
+        if self._env is not None:
+            rows += self._env.rows_for(task_id)
         if not rows:
             return 0, 0.0
         return len(rows), float(sum(r.sampled for r in rows)) / len(rows)
@@ -1110,8 +1347,8 @@ class ContinuousRolloutEngine:
         self._pending_t0.pop(slot, None)
 
     def _complete_parked(self, row: _Row):
-        """Finish an episode that holds no slot (queued: capacity or
-        abort)."""
+        """Finish an episode that holds no slot (queued or parked in the env
+        stage: capacity, tool timeout or abort)."""
         self._drop_snap(row)          # a dead row's snapshot frees its arena
         self._release_dev(row)        # ... and its in-pool parked pages
         self._completed.append(self._completion(row, row.req.prompt, -1))
@@ -1551,14 +1788,22 @@ class ContinuousRolloutEngine:
         return freed
 
     def abort_tenant(self, task_id: str, reason: str = "quarantined") -> int:
-        """Abort EVERY in-flight episode of one tenant — resident rows and
-        queued rows (preempted rows awaiting resume included; a
-        device-parked row's pages return to the pool) — each
-        yielding exactly one completion with ``reason`` as its
-        finish_reason (the runtime counts them as quarantine drops).
-        Resident rows end in slot order, queued rows in pop order; other
-        tenants' rows and scheduling order are untouched."""
+        """Abort EVERY in-flight episode of one tenant — env-parked jobs,
+        resident rows, and queued, in-prefill and ready-to-splice rows
+        (preempted rows awaiting resume included; a device-parked row's
+        pages return to the pool) — each yielding exactly one completion
+        with ``reason`` as its finish_reason (the runtime counts them as
+        quarantine drops). Other tenants' rows and scheduling order are
+        untouched."""
         n = 0
+        if self._env is not None:
+            for job in self._env.cancel_tenant(task_id):
+                row = job.row
+                if row.status == "done":
+                    continue     # expired earlier; already completed
+                row.status, row.finish_reason = "done", reason
+                self._complete_parked(row)
+                n += 1
         for slot, r in enumerate(self._rows):
             if r is not None and r.req.task_id == task_id:
                 r.status, r.finish_reason = "done", reason
@@ -1573,6 +1818,19 @@ class ContinuousRolloutEngine:
                 if row is None:
                     break
                 drained.append(row)
+            # mid-prefill rows: removing them from _stage_inflight makes the
+            # owning worker's eventual _emit a no-op
+            for row in list(self._stage_inflight):
+                if row.req.task_id == task_id:
+                    self._stage_inflight.remove(row)
+                    drained.append(row)
+            keep: Deque[ReadyRow] = deque()
+            for rr in self._ready:
+                if rr.row.req.task_id == task_id:
+                    drained.append(rr.row)
+                else:
+                    keep.append(rr)
+            self._ready = keep
         for row in drained:
             row.status, row.finish_reason = "done", reason
             self._complete_parked(row)
@@ -1699,6 +1957,7 @@ class ContinuousRolloutEngine:
                 self._cache, self._tensor(fresh, torch.int64), len(shared),
                 slot, self._d_cur, self._d_counters, self._d_keys,
                 self._d_temps, self._d_row_ids)
+            self.forward_counts["suffix"].add(1)
             (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
              self._d_row_ids) = state
             first = int(first.cpu()[0])
@@ -1731,7 +1990,7 @@ class ContinuousRolloutEngine:
             action = row.accept(first, lp, 0.0 if was_forced else 1.0,
                                 self.max_len)
             if action == "call":
-                self._dispatch_tool(slot)
+                self._on_call(slot)
             elif action == "done":
                 self._evict(slot)
         if installed:
@@ -1739,6 +1998,24 @@ class ContinuousRolloutEngine:
         return installed > 0
 
     # -- fused refill ------------------------------------------------------
+    def _fusable_forced(self, row: _Row) -> bool:
+        """Response-prefill fusion guard: a forced RESP…ENDRESP block can
+        fold into the row's (re)prefill call only when feeding it step-wise
+        could not end or branch mid-block. Forced tokens never dispatch a
+        CALL (mask 0), so the only early exits are a forced EOS, the
+        max_len capacity trip, and the sampling budget firing at the
+        block's last token."""
+        q = row.forced_q
+        if len(q) <= 1:
+            return False            # a single opener: already one call
+        if tok.EOS in q:
+            return False
+        if row.prompt_len + len(row.gen) + len(q) >= self.max_len:
+            return False
+        if row.sampled >= row.req.max_new_tokens:
+            return False
+        return True
+
     def _refill_free_slots(self) -> bool:
         """Fill every freed slot from the queue with ONE fused call:
         batch-prefill the incoming rows, write their cache state into the
@@ -1764,6 +2041,10 @@ class ContinuousRolloutEngine:
         t0 = time.monotonic()
         incoming: List[Tuple[int, _Row]] = []
         pages_of: List[List[int]] = []
+        # response-prefill fusion (paged path): a resume's whole forced
+        # RESP…ENDRESP block joins the prefilled sequence (its tokens are
+        # known) instead of force-feeding one decode step each
+        fused: List[bool] = []
         seen_keys = set()
         radix = self._radix_on()
         where = None
@@ -1783,12 +2064,17 @@ class ContinuousRolloutEngine:
                 row = self._sched.pop(self.stats.refills, where=where)
                 if row is None:
                     break
+                fuse = self.paged_kv and self._fusable_forced(row)
                 if self.paged_kv:
                     # spill=False: spilling a parked row copies device state
                     # to host, never under the lock; cold index entries
-                    # still evict (host bookkeeping)
+                    # still evict (host bookkeeping). A fused resume's
+                    # forced block is part of its prefill: its pages too
+                    # (the JAX engine allocates the unfused length, ROADMAP
+                    # §3)
+                    n = len(row.req.prompt) + len(row.gen)
                     pages = self._alloc_pages(self._row_pages_needed(
-                        len(row.req.prompt) + len(row.gen)), spill=False)
+                        n + (len(row.forced_q) if fuse else 0)), spill=False)
                     if pages is None:
                         if self._pages.used_pages == 0:
                             self._finish_capacity(row)   # can never fit
@@ -1799,6 +2085,7 @@ class ContinuousRolloutEngine:
                         break
                     pages_of.append(pages)
                 incoming.append((free.pop(0), row))
+                fused.append(fuse)
                 if radix:
                     seen_keys.add(self._group_key(row))
         if not incoming:
@@ -1809,21 +2096,35 @@ class ContinuousRolloutEngine:
                 self._spill_dev_parked()
             return False
         k = len(incoming)
-        seqs = [list(row.req.prompt) + row.gen for _, row in incoming]
+        seqs = [list(row.req.prompt) + row.gen
+                + (row.forced_q if fused[j] else [])
+                for j, (_, row) in enumerate(incoming)]
         S_p = _bucket_len(max(len(s) for s in seqs))
         tokens = np.zeros((k, S_p), np.int32)
         prompt_lens = np.array([len(s) for s in seqs], np.int32)
-        forced = np.zeros((k,), np.int32)
-        fmask = np.zeros((k,), np.int32)
+        init_counters = np.array([len(r.gen) for _, r in incoming], np.int32)
+        forced = np.zeros((k,), np.int32)        # env-stage resumes install
+        fmask = np.zeros((k,), np.int32)         # a forced RESP opener
+        f_rows, f_pos, f_toks = [], [], []       # fusion: the positions
+        f_start = {}                             # whose logits predict each
+                                                 # forced token
         for j, (slot, row) in enumerate(incoming):
             tokens[j, :len(seqs[j])] = seqs[j]
-            if row.forced_q:
+            if fused[j]:
+                L0 = len(row.req.prompt) + len(row.gen)
+                Fj = len(row.forced_q)
+                init_counters[j] = len(row.gen) + Fj
+                f_start[j] = len(f_rows)
+                f_rows += [j] * Fj
+                f_pos += list(range(L0 - 1, L0 - 1 + Fj))
+                f_toks += row.forced_q
+            elif row.forced_q:
                 forced[j] = row.forced_q[0]
                 fmask[j] = 1
         args = [self.base_params, self._stacked,
                 self._tensor(tokens, torch.int32),
                 self._tensor(prompt_lens, torch.int32),
-                self._tensor([len(r.gen) for _, r in incoming], torch.int32),
+                self._tensor(init_counters, torch.int32),
                 self._tensor([s for s, _ in incoming], torch.int64)]
         if self.paged_kv:
             # physical destination pages per (row, chunk); chunks past a
@@ -1834,22 +2135,29 @@ class ContinuousRolloutEngine:
                 dest[j, :len(pages)] = pages
             args.append(self._tensor(dest, torch.int64))
         keys = np.stack([r.key for _, r in incoming]).astype(np.int64)
+        args += [self._tensor([r.req.adapter_index for _, r in incoming],
+                              torch.int32),
+                 self._tensor(keys, torch.int64),
+                 self._tensor([r.req.temperature for _, r in incoming],
+                              torch.float32),
+                 self._tensor(forced, torch.int32),
+                 self._tensor(fmask, torch.int32)]
+        if self.paged_kv:
+            args.append((self._tensor(f_rows, torch.int64),
+                         self._tensor(f_pos, torch.int64),
+                         self._tensor(f_toks, torch.int64))
+                        if f_rows else None)
         # the step functions run eagerly: no trace, so a batch-sized shape
         # recompiles nothing (the analyzer's jit rule does not apply)
         first, lp, self._cache, state = self._refill_fn(  # noqa: RA204
-            *args,
-            self._tensor([r.req.adapter_index for _, r in incoming],
-                         torch.int32),
-            self._tensor(keys, torch.int64),
-            self._tensor([r.req.temperature for _, r in incoming],
-                         torch.float32),
-            self._tensor(forced, torch.int32),
-            self._tensor(fmask, torch.int32), self._cache, self._d_cur,
-            self._d_counters, self._d_keys, self._d_temps, self._d_row_ids)
+            *args, self._cache, self._d_cur, self._d_counters, self._d_keys,
+            self._d_temps, self._d_row_ids)
+        self.forward_counts["refill"].add(1)
         (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
          self._d_row_ids) = state
         first = first.cpu().numpy()
         lp = lp.float().cpu().numpy()
+        flp = lp[k:]                 # the fused forced tokens' logprobs
         now = time.monotonic()
         self.stats.refills += 1
         # the fused refill is prefill-stage work, and because it runs on the
@@ -1867,14 +2175,27 @@ class ContinuousRolloutEngine:
                 self._assign_slot_pages(slot, pages_of[j], len(seqs[j]))
                 self._index_prompt(row, pages_of[j])
             was_forced = fmask[j] == 1
-            if row.gen:                           # preemption replay
+            L_replay = len(row.req.prompt) + len(row.gen)
+            if row.gen:             # preemption replay or env-stage resume
                 self.stats.replays += 1
-                self.stats.replay_tokens += len(seqs[j])
+                self.stats.replay_tokens += L_replay
             else:                                 # fresh row
                 self.stats.prefills += 1
                 row.started_at = now
             self.stats.prefill_tokens += len(seqs[j])
-            if was_forced:
+            if fused[j]:
+                Fj = len(row.forced_q)
+                self.stats.fused_forced_tokens += Fj
+                self.stats.tokens_generated += Fj
+                for t in range(Fj):
+                    # pop BEFORE accept, as the step-wise path does:
+                    # accept's budget check reads forced_q
+                    tk = row.forced_q.pop(0)
+                    if row.accept(tk, float(flp[f_start[j] + t]), 0.0,
+                                  self.max_len) != "continue":
+                        raise AssertionError(
+                            "fusion guard admitted a terminating block")
+            elif was_forced:
                 row.forced_q.pop(0)
             self.stats.tokens_generated += 1
             if not was_forced:
@@ -1882,30 +2203,218 @@ class ContinuousRolloutEngine:
             action = row.accept(int(first[j]), float(lp[j]),
                                 0.0 if was_forced else 1.0, self.max_len)
             if action == "call":
-                self._dispatch_tool(slot)
+                self._on_call(slot)
             elif action == "done":
                 self._evict(slot)
         return True
 
-    # -- tool calls (freeze-in-slot) --------------------------------------
+    # -- disaggregated prefill: the decode-side splice --------------------
+    def _splice_ready_rows(self) -> bool:
+        """Decode-side half of the disaggregated split: install rows the
+        prefill workers finished into freed slots, one copy-only call each
+        (``_splice_fn``). No forward runs on the decode thread. On the card
+        the decode stream first waits on the row's event (its prefill is
+        done on the worker's stream), and the worker's cache is marked as
+        used by the decode stream so that its memory outlives the copy."""
+        free = [s for s in range(self.max_slots) if self._rows[s] is None]
+        if not free:
+            return False
+        ready: List[ReadyRow] = []
+        with self._queue_lock:
+            while free and self._ready:
+                ready.append(self._ready.popleft())
+                free.pop(0)
+        if not ready:
+            return False
+        free = [s for s in range(self.max_slots) if self._rows[s] is None]
+        t0 = time.monotonic()
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        installed = 0
+        for i_rr, rr in enumerate(ready):
+            row = rr.row
+            pages: List[int] = []
+            if self.paged_kv:
+                alloc = self._alloc_pages(self._row_pages_needed(rr.seq_len))
+                if alloc is None:
+                    if self._pages.used_pages == 0:
+                        self._finish_capacity(row)      # can never fit
+                        continue
+                    with self._queue_lock:    # pool pressure: retry later
+                        for back in reversed(ready[i_rr:]):
+                            self._ready.appendleft(back)
+                    break
+                pages = alloc
+            slot = free.pop(0)
+            if stream is not None:
+                stream.wait_event(rr.event)
+            key = self._tensor(row.key.astype(np.int64), torch.int64)
+            if self.paged_kv:
+                self._cache, state = self._splice_fn(  # noqa: RA204
+                    self._cache, rr.pcache, slot,
+                    self._tensor(pages, torch.int64), rr.seq_len, rr.first,
+                    rr.init_counter, key, row.req.temperature,
+                    row.req.adapter_index, self._d_cur, self._d_counters,
+                    self._d_keys, self._d_temps, self._d_row_ids)
+            else:
+                self._cache, state = self._splice_fn(  # noqa: RA204
+                    self._cache, rr.pcache, slot, rr.seq_len, rr.first,
+                    rr.init_counter, key, row.req.temperature,
+                    row.req.adapter_index, self._d_cur, self._d_counters,
+                    self._d_keys, self._d_temps, self._d_row_ids)
+            if stream is not None:
+                for t in (rr.pcache["k"], rr.pcache["v"]):
+                    t.record_stream(stream)
+            (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
+             self._d_row_ids) = state
+            self._mask_sig = None      # slot contents changed
+            now = time.monotonic()
+            installed += 1
+            self._rows[slot] = row
+            self._prompts[slot] = list(row.req.prompt)
+            if self.paged_kv:
+                self._assign_slot_pages(slot, pages, rr.seq_len)
+                self._index_prompt(row, pages)
+            n_fused = len(rr.forced_lps)
+            if rr.forced_first or n_fused:        # env-stage resume splice
+                if rr.forced_first:
+                    row.forced_q.pop(0)
+                if row.gen:                       # the resume re-prefilled
+                    self.stats.replays += 1       # the whole prefix
+                    self.stats.replay_tokens += rr.seq_len - n_fused
+            elif row.gen:                         # preemption replay
+                self.stats.replays += 1
+                self.stats.replay_tokens += rr.seq_len
+            else:                                 # fresh row
+                self.stats.prefills += 1
+                row.started_at = now
+            self.stats.splices += 1
+            self.stats.splice_wait_seconds += max(0.0, now - rr.ready_at)
+            if n_fused:
+                # response-prefill fusion: the worker prefilled the whole
+                # forced block; its tokens are booked here with the
+                # prefill logprobs
+                self.stats.fused_forced_tokens += n_fused
+                self.stats.tokens_generated += n_fused
+                for t in range(n_fused):
+                    tk = row.forced_q.pop(0)
+                    if row.accept(tk, rr.forced_lps[t], 0.0,
+                                  self.max_len) != "continue":
+                        raise AssertionError(
+                            "fusion guard admitted a terminating block")
+            self.stats.tokens_generated += 1
+            if not rr.forced_first:
+                self.stats.sampled_tokens += 1
+            action = row.accept(rr.first, rr.lp,
+                                0.0 if rr.forced_first else 1.0,
+                                self.max_len)
+            if action == "call":
+                self._on_call(slot)
+            elif action == "done":
+                self._evict(slot)
+        if installed == 0:
+            return False
+        now = time.monotonic()
+        self.stats.refills += 1        # one refill event (starvation aging)
+        self.stats.splice_seconds += now - t0
+        if self.on_stage is not None:
+            self.on_stage("splice",
+                          "+".join(sorted({rr.row.req.task_id
+                                           for rr in ready})), t0, now)
+        return True
+
+    # -- tool calls: freeze in the slot, or park in the env stage ---------
+    def _on_call(self, slot: int):
+        """Route a freshly sampled CALL: park the row in the env stage
+        (``env_stage``) or freeze it in its slot."""
+        if self._env is not None:
+            self._park(slot)
+        else:
+            self._dispatch_tool(slot)
+
     def _dispatch_tool(self, slot: int):
-        """A freshly sampled CALL: the row freezes in its slot while the call
-        runs on the pool (the env stage, which parks it instead, is not
-        ported yet)."""
+        """Freeze-in-slot: the row stays resident (advance 0) while the call
+        runs on the pool."""
         self._pending[slot], self._pending_tok[slot] = _submit_tool_call(
             self._rows[slot], self._prompts[slot], self._pool, self._rng,
             self.sim_latency)
         self._pending_t0[slot] = time.monotonic()
 
+    def _park(self, slot: int):
+        """Env-stage path: vacate the slot the moment the row samples CALL.
+        The generated prefix lives host-side, so the slot is refillable at
+        once while an env worker runs the call. With the paged cache the
+        row's resume state is kept: its pages stay in the pool under the
+        prefix cache, else they go to a host snapshot (``resume_restore``),
+        and the resume splices them back instead of replaying."""
+        row = self._rows[slot]
+        row.ensure_session()
+        query = list(self._prompts[slot]) + row.gen
+        latency = row.req.env.sample_env_latency(
+            _RandomShim(self._rng)) if not self.sim_latency else 0.0
+        if self.paged_kv:
+            self._park_or_snap(slot, row)
+        self._rows[slot] = None
+        self._prompts[slot] = None
+        self.stats.parks += 1
+        self._env.submit(row, query, row.req.task_id, latency)
+
+    def _pump_env_stage(self):
+        """Resolve the env stage's response queue: expire timed-out jobs
+        (their rows finish with tool_timeout; they hold no slot), and turn
+        each response into a resume job: the row re-enters the scheduler
+        queue with its force-feed queue pre-loaded, and the restore or
+        prefill path brings it back with the forced RESP opener."""
+        now = time.monotonic()
+        for job in self._env.expire(now, self.tool_timeout_s):
+            row = job.row
+            row.status, row.finish_reason = "done", "tool_timeout"
+            self._complete_parked(row)
+        # drain_resolved() pops the whole resolved batch: process every job
+        # before raising an error, else the siblings' rows would vanish
+        # from all accounting (no slot, no queue, no completion)
+        first_error: Optional[BaseException] = None
+        for job in self._env.drain_resolved():
+            row = job.row
+            if job.error is not None:
+                # a ToolError (permanent, or retries spent) is an expected
+                # episode outcome: the row finishes with tool_error. Any
+                # other error is a fault of the stack and stays fatal.
+                row.status, row.finish_reason = "done", "tool_error"
+                self.stats.tool_errors += 1
+                self._complete_parked(row)
+                if not isinstance(job.error, ToolError):
+                    first_error = first_error or job.error
+                continue
+            tid = row.req.task_id
+            self.stats.add_env_wait(tid, job.resolved_at - job.submitted_at)
+            if self.on_stage is not None:
+                self.on_stage("env", tid, job.submitted_at, job.resolved_at)
+            row.forced_q = [tok.RESP] + list(job.response) + [tok.ENDRESP]
+            row.status = "active"
+            self.stats.resumes += 1
+            with self._queue_lock:
+                self._sched.push(row, self.stats.refills)
+        if first_error is not None:      # raised as fut.result() would
+            raise first_error
+
     # -- scheduler interface ---------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
-        """One engine iteration: resolve tools, restore preempted rows,
-        install radix-sharable rows, fill the other freed slots (fused
-        refill), one decode step over the pool, evict finished rows.
-        Returns True if any device work happened."""
+        """One engine iteration: supervise the stages' workers, resolve the
+        env stage's responses and the frozen tool calls, restore preempted
+        or parked rows, install radix-sharable rows, fill the other freed
+        slots (the splice of worker-prefilled rows with ``disagg_prefill``,
+        else the fused refill), one decode step over the pool, evict
+        finished rows. Returns True if any device work happened."""
         now = time.monotonic()
         progressed = False
+        # stage supervision: find dead workers, recover their stranded
+        # work, restart to complement (a no-op with no stage registered)
+        self.supervisor.tick(now)
+        # env stage: expire and resume parked rows
+        if self._env is not None:
+            self._pump_env_stage()
         # resolve / time out pending tool calls (freeze-in-slot)
         for slot in list(self._pending):
             fut = self._pending[slot]
@@ -1934,8 +2443,29 @@ class ContinuousRolloutEngine:
         if self.paged_kv and self._stacked is not None \
                 and self._radix_fill_rows():
             progressed = True
-        if self._refill_free_slots():
+        # fill freed slots from the queue: the splice of worker-prefilled
+        # rows (decode never runs a prefill forward) or the fused refill
+        if self.disagg_prefill:
+            self._raise_stage_error()
+            if self._stacked is None:
+                with self._queue_lock:
+                    has_queued = len(self._sched) > 0
+                if has_queued:      # the fused refill's fail-fast
+                    raise RuntimeError(
+                        "no adapters installed — call set_adapters()")
+            else:
+                if not self._workers:
+                    self._ensure_stage()  # first start or after a halt;
+                                          # replacements are the
+                                          # supervisor's
+                if self._splice_ready_rows():
+                    progressed = True
+        elif self._refill_free_slots():
             progressed = True
+        if self._env is not None and any(
+                r is not None and r.status == "calling" for r in self._rows):
+            raise AssertionError("env-stage invariant violated: a "
+                                 "tool-waiting row holds a decode slot")
         if self.paged_kv:
             # pre-step growth: allocate the page each active row's next K/V
             # write lands in, or fork it if it is shared (cache-capacity
@@ -1966,12 +2496,13 @@ class ContinuousRolloutEngine:
                              self._tensor(advance, torch.int32))
             self._mask_sig = sig
         d_forced, d_fmask, d_advance = self._d_masks
-        synchronize(self.device)
+        _sync_stream(self.device)
         t0 = time.monotonic()
         nxt, lp, self._cache, self._d_counters = self._step_fn(  # noqa: RA204
             self.base_params, self._stacked, self._d_row_ids, self._d_cur,
             self._cache, self._d_keys, self._d_counters, self._d_temps,
             d_forced, d_fmask, d_advance)
+        self.forward_counts["decode"].add(1)
         self._d_cur = nxt
         nxt = nxt.cpu().numpy()
         lp = lp.float().cpu().numpy()
@@ -1997,7 +2528,7 @@ class ContinuousRolloutEngine:
             if not was_forced:
                 self.stats.sampled_tokens += 1
             if action == "call":
-                self._dispatch_tool(slot)
+                self._on_call(slot)
             elif action == "done":
                 self._evict(slot)
         return True
@@ -2007,8 +2538,9 @@ class ContinuousRolloutEngine:
               ) -> List[RolloutCompletion]:
         """Run until queue and pool are empty (or deadline); returns all
         completions produced during the drain. At the deadline, rows still
-        resident or queued finish with "aborted", so every submitted request
-        yields exactly one completion."""
+        resident, queued, in the prefill stage or parked in the env stage
+        finish with "aborted", so every submitted request yields exactly one
+        completion."""
         out: List[RolloutCompletion] = []
         deadline = time.monotonic() + deadline_s
         while not self.idle() and time.monotonic() < deadline:
@@ -2017,7 +2549,33 @@ class ContinuousRolloutEngine:
             progressed = self.step()
             out.extend(self.drain_completions())
             if not progressed:
-                time.sleep(0.001)     # waiting only on external tools
+                time.sleep(0.001)     # waiting on tools or prefill workers
+        # the workers halt first: their unfinished rows return to the
+        # queue, and ready-but-unspliced rows abort like queued ones. A
+        # worker stuck past the join timeout cannot lose rows either: its
+        # rows are swept into the queue here, and its late emit or teardown
+        # drops rows it no longer owns.
+        if self.queued() > 0 and self.disagg_prefill:
+            self._halt_stage()
+            with self._queue_lock:
+                for rr in self._ready:
+                    self._sched.push(rr.row, self.stats.refills)
+                self._ready.clear()
+                for row in self._stage_inflight:
+                    self._sched.push(row, self.stats.refills)
+                self._stage_inflight.clear()
+        if self._env is not None and self._env.count() > 0:
+            # parked episodes abort like queued ones; late worker results
+            # drop on the cancelled flag. cancel_all also returns cancelled
+            # executing jobs whose rows expire() finished earlier: those
+            # must not complete twice.
+            for job in self._env.cancel_all():
+                row = job.row
+                if row.status == "done":
+                    continue
+                row.status = "done"
+                row.finish_reason = row.finish_reason or "aborted"
+                self._complete_parked(row)
         for slot, r in enumerate(self._rows):
             if r is not None:
                 r.status = "done"
@@ -2053,6 +2611,10 @@ class ContinuousRolloutEngine:
         return results, self.stats
 
     def shutdown(self):
+        if self._workers:
+            self._halt_stage()
+        if self._env is not None:
+            self._env.halt()
         if self._own_pool:
             self._pool.shutdown(wait=False)
 

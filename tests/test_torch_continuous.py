@@ -387,10 +387,30 @@ def test_prompt_larger_than_pool_finishes_capacity(weights):
     dict(chaos=object()), dict(supervise_wedge_s=1.0)])
 def test_later_stages_raise(weights, flag):
     """Each switch of a stage not ported yet raises at construction. The
-    prefix cache with the paged pool is ported: that case builds the engine
-    and serves a GRPO pair through it, the sibling sharing the leader's
-    pages."""
+    prefix cache with the paged pool, the disaggregated prefill and the env
+    stage are ported: those cases build the engine and serve through it (a
+    GRPO pair, the sibling sharing the leader's pages; two rows spliced from
+    the prefill workers; a row with the env stage registered with the
+    supervisor). ``tests/test_torch_disagg.py`` and
+    ``tests/test_torch_env_stage.py`` hold the two stages against the JAX
+    engine."""
     _, pcfg, _, _, pparams, ptrees = weights
+    if flag.get("disagg_prefill") or flag.get("env_stage"):
+        eng = PtContinuous(pcfg, pparams, device="cpu", max_len=32, **flag)
+        eng.set_adapters(0, ptrees[0])
+        _, preqs = _requests(2, 2, lambda i: 4)
+        pos = {eng.submit(r): i for i, r in enumerate(preqs)}
+        # drain() waits for the workers, where _drive would count idle spins
+        comps = {pos[c.submit_index]: c for c in eng.drain(deadline_s=60.0)}
+        assert sorted(comps) == [0, 1]
+        assert all(len(c.tokens) > c.prompt_len for c in comps.values())
+        if flag.get("disagg_prefill"):
+            assert eng.stats.splices == 2 and eng.stats.prefill_seconds > 0
+            assert eng.stats.decode_stall_seconds == 0.0
+        else:
+            assert eng._env is not None and eng.env_depths() == (0, 0)
+        eng.shutdown()
+        return
     if flag.get("prefix_cache"):
         eng = PtContinuous(pcfg, pparams, device="cpu", kv_page_size=4,
                            max_len=32, **flag)

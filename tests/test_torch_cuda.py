@@ -982,3 +982,155 @@ def test_runtime_sync_policies_train_after_generate_on_card(card, policy):
     rt.run(timeout_s=300)
     assert rt.mgr.all_done() and tlp.BWD_LAUNCHES.n == 4
     assert all(st.version == 2 for _, st in rt.mgr.task_items())
+
+
+# -- the disaggregated prefill stage: streams, copy-on-write, counts -------
+
+def _stage_engine(cfg, params, adapters, **kw):
+    eng = ContinuousRolloutEngine(cfg, params, max_slots=2, max_adapters=2,
+                                  max_len=64, disagg_prefill=True,
+                                  device="cuda", **kw)
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    eng._ensure_built()
+    return eng
+
+
+def test_worker_stream_splice_equals_one_stream(card):
+    """A row prefilled by a worker on its own stream (event recorded after
+    its last kernel, the decode stream waiting on it before the copy) and
+    spliced into the paged pool leaves the same pool bytes, first token and
+    logprob as the same row prefilled on the decode stream itself, on
+    qwen3-0.6b reduced in fp32."""
+    from repro_torch.rollout.prefill import PrefillWorker, _Job
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    adapters = make_adapters(cfg, 2, seed=0, device="cuda", b_scale=0.2)
+    req = make_requests(1, 1, max_new_tokens=4, seed=5)[0]
+    out = []
+    for own_stream in (True, False):
+        eng = _stage_engine(cfg, params, adapters, paged_kv=True,
+                            prefix_cache=False, kv_page_size=8)
+        eng.submit(req)
+        w = PrefillWorker(eng, 0)
+        if not own_stream:
+            w.stream = torch.cuda.current_stream()
+        assert (w.stream != torch.cuda.current_stream()) == own_stream
+        row = w._try_pop()
+        assert row is not None
+        torch.cuda.synchronize()
+        with torch.no_grad(), torch.cuda.stream(w.stream):
+            assert w._advance(_Job(row))
+        rr = eng._ready[0]
+        assert rr.event is not None
+        first, lp = rr.first, rr.lp
+        with torch.no_grad():
+            assert eng._splice_ready_rows()
+        slot = next(s for s, r in enumerate(eng._rows) if r is row)
+        pages = torch.tensor(eng._slot_pages[slot], device="cuda")
+        torch.cuda.synchronize()
+        out.append((first, lp, eng._cache["kp"][:, pages].cpu(),
+                    eng._cache["vp"][:, pages].cpu(),
+                    int(eng._cache["pos"][slot])))
+        eng.check_page_invariants()
+        eng.shutdown()
+    (f1, l1, k1, v1, p1), (f2, l2, k2, v2, p2) = out
+    assert (f1, p1) == (f2, p2) and l1 == l2
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_set_adapters_copy_on_write_under_inflight_worker(card):
+    """A worker is held inside its prefill call of a row on adapter slot 0
+    (before its kernels) while the decode thread installs another tree at
+    slot 0: the call keeps the old buffer, so the row's first token and
+    logprob equal those of a run with no install; the new tree reaches the
+    stacked buffer the decode thread reads."""
+    import threading
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    adapters = make_adapters(cfg, 3, seed=0, device="cuda", b_scale=0.2)
+    req = make_requests(1, 1, max_new_tokens=3, seed=6)[0]
+    firsts = []
+    for install in (False, True):
+        eng = _stage_engine(cfg, params, adapters[:2])
+        whole, entered, go = eng._pkernels.whole, threading.Event(), \
+            threading.Event()
+
+        def held(*a, whole=whole, entered=entered, go=go, **kw):
+            entered.set()
+            assert go.wait(60)
+            return whole(*a, **kw)
+        eng._pkernels.whole = held
+        eng.submit(req)
+        while not entered.is_set():
+            eng.step()
+        old = eng._stacked
+        if install:
+            eng.set_adapters(0, adapters[2])
+            assert eng._stacked is not old
+            assert all(torch.equal(buf[:, 0], leaf) for buf, leaf in zip(
+                tree_leaves(eng._stacked), tree_leaves(adapters[2])))
+            assert all(torch.equal(buf[:, 0], leaf) for buf, leaf in zip(
+                tree_leaves(old), tree_leaves(adapters[0])))
+        go.set()
+        comps = eng.drain(deadline_s=120.0)
+        assert len(comps) == 1
+        firsts.append((comps[0].tokens[comps[0].prompt_len],
+                       comps[0].gen_logprobs[0]))
+        eng.shutdown()
+    assert firsts[0] == firsts[1]
+
+
+def test_launch_counts_exact_with_two_threads(card):
+    """Two threads launch sgmv at once, each on its own stream, 400 times:
+    the wrapper's counts (calls and CUDA launches) rise by exactly 800."""
+    import threading
+    x = torch.randn(16, 1024, device="cuda")
+    a = torch.randn(4, 1024, 16, device="cuda") / 32
+    b = torch.randn(4, 16, 1024, device="cuda") * 0.1
+    ids = torch.tensor([0, 1, 2, 3] * 4, dtype=torch.int32, device="cuda")
+    sgmv.sgmv(x, a, b, ids)                 # builds before the threads run
+    n0, c0 = sgmv.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n
+    start = threading.Barrier(2)
+
+    def launch():
+        with torch.no_grad(), torch.cuda.stream(torch.cuda.Stream()):
+            start.wait()
+            for _ in range(400):
+                sgmv.sgmv(x, a, b, ids)
+            torch.cuda.current_stream().synchronize()
+    threads = [threading.Thread(target=launch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert (sgmv.LAUNCHES.n - n0, sgmv.CUDA_LAUNCHES.n - c0) == (800, 800)
+
+
+def test_kernels_build_once_under_two_threads(card):
+    """The first launch may come from a prefill worker while the decode
+    thread launches too: two threads asking a fresh builder for the sgmv
+    library at once run one build and get the same library."""
+    import threading
+    from repro_torch.kernels import _build
+    builder, calls = _build._Builder(), []
+    build_all = builder._build_all
+
+    def counted():
+        calls.append(threading.get_ident())
+        build_all()
+    builder._build_all = counted
+    libs, start = [], threading.Barrier(2)
+
+    def first_launch():
+        start.wait()
+        libs.append(builder.library("sgmv"))
+    threads = [threading.Thread(target=first_launch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert len(calls) == 1 and len(libs) == 2 and libs[0] is libs[1]

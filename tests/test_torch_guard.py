@@ -27,7 +27,8 @@ SLICE_MODULES = [
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.common", "repro_torch.models.mlp",
     "repro_torch.models.model", "repro_torch.rollout.engine",
-    "repro_torch.rollout.kvcache", "repro_torch.rollout.prefill",
+    "repro_torch.rollout.env_stage", "repro_torch.rollout.kvcache",
+    "repro_torch.rollout.prefill",
     "repro_torch.rollout.prng", "repro_torch.rollout.scheduler",
     "repro_torch.kernels.token_logprob", "repro_torch.rl.grpo",
     "repro_torch.rl.types", "repro_torch.train.optimizer",

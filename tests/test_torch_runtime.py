@@ -466,8 +466,27 @@ def test_switches_not_ported_raise(weights, flag, item):
     """Each switch of a stage not ported yet raises. ``paged_kv=True`` with
     the default prefix cache (ROADMAP item 3) is ported: the runtime builds
     its engine with the cache on and admission charges shared prompt pages
-    once."""
+    once. So are the disaggregated prefill (item 4) and the env stage (item
+    5): the runtime hands their switches and knobs to its engine
+    (``tests/test_torch_disagg.py`` and ``tests/test_torch_env_stage.py``
+    run them against the JAX runtime)."""
     _, pcfg, _, pparams, _ = weights
+    if item == "item 4":
+        rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(
+            device="cpu", prefill_workers=2, prefill_chunk=9, **flag))
+        eng = rt.cengine
+        assert eng.disagg_prefill and eng.prefill_workers == 2
+        assert eng._prefill_chunk_eff == 16 and eng._env is None
+        return
+    if item == "item 5":
+        rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(
+            device="cpu", env_workers=3, env_inflight_per_tenant=1,
+            tool_retry_max=5, **flag))
+        env = rt.cengine._env
+        assert not rt.cengine.disagg_prefill and env is not None
+        assert (env.n_workers, env.max_inflight_per_tenant,
+                env.retry_max) == (3, 1, 5)
+        return
     if item == "item 3":
         rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(device="cpu", **flag))
         assert rt.cengine.prefix_cache and rt.acfg.prefix_shared
