@@ -122,6 +122,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     parting at near-ties. Prints decode ms/step (median, p90), prefill
     time and where it ran, splice time and wait, stall, occupancy, parks,
     wall and peak memory.
+13. fault tolerance and tracing: phase 10 run D's settings (2 gsm8k and 2
+    hopsearch tenants, the biased sampler, paged pool with the prefix cache,
+    the asynchronous trainer at max_staleness 1, one prefill worker and two
+    env workers, prompt streams pinned). Run T is run D traced: run D's
+    checks and exact launches, every episode from `submitted` to
+    `committed` or `dropped`, the trace exported and read back by
+    `python -m repro_torch.obs.report`, its components summing to each
+    episode's latency within 1%; prints decode ms/step (median, p90) beside
+    run D's, the per-tenant end-to-end p50/p95 and the bottleneck
+    component. Run R is run T under chaos (a prefill worker and an env
+    worker killed, a transient tool error, snapshot drops where a snapshot
+    is taken), a snapshot after every commit (the newest 2 kept) and a
+    crash after the sixth commit, driven through `run_with_recovery`: every
+    tenant at its target, one restart, the chaos sites fired, supervisor
+    restarts, an exact row account across the restart (orphans counted),
+    page invariants after every step of both incarnations, the newest
+    snapshot's adapters and AdamW state bit-equal to the crashed runtime's
+    committed trees and the adopted ones bit-equal to the snapshot, exact
+    launches over both incarnations; prints the bytes of a snapshot, the
+    seconds of a save and of its hold of the manager lock, decode ms/step
+    inside and outside saves, and the last commit beside run D's.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -185,6 +206,21 @@ P12_MODES["DER"] = dict(P12_MODES["DE"], resume_restore=False)
 P12_MODES["DED"] = dict(P12_MODES["DE"], paged_kv=False, prefill_chunk=8)
 P12_FP32_MODES = ("F", "DE", "DER", "DED")
 P12_FP32_NEW = 32       # new tokens a row in phase 12's fp32 card check
+# phase 13: run T is run D traced; run R is run T with chaos, a snapshot after
+# every commit and a crash after P13_FAIL_AFTER commits, through
+# run_with_recovery
+P13_RUNS = {"T": dict(RT_RUNS["D"], trace=True)}
+RT_RUN_ENVS["T"] = RT_RUN_ENVS["D"]
+ALL_RUNS = dict(RT_RUNS, **P13_RUNS)
+P13_CHAOS = dict(seed=0, prefill_worker_kill=1.0, env_worker_kill=1.0,
+                 tool_error_transient=1.0, snapshot_drop=1.0,
+                 max_faults_per_site=1)
+P13_FAIL_AFTER, P13_KEEP = 6, 2   # crash after the 6th commit; snapshots kept
+# snapshot_drop fires only where a row's pages go to a host snapshot
+# (engine._snapshot_row): the prefix cache parks rows in the pool, and run D's
+# dense-equivalent pool never spills one, so the site is never reached (the
+# CPU run of the same schedule gives 0)
+P13_SNAPSHOT_DROPS = 0
 P11_PROMPTS, P11_GROUP, P11_HEADER = 2, 4, 128   # phase 11: 4 tenants x 2 prompts
 P11_MAX_NEW, P11_LATE_AT = 64, 4                 # x groups of 4 = 32 rows
 P11_SMALL_POOL = 48     # pages: less than the resident set plus the index
@@ -1714,7 +1750,7 @@ def biased_sampler(torch):
 
 
 def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
-    """Phase 10, one run: MARLaaSRuntime with RT_RUNS[run] over the run's
+    """Phase 10, one run: MARLaaSRuntime with ALL_RUNS[run] over the run's
     tenants (RT_ENVS, or RT_RUN_ENVS[run] with the biased sampler), each
     rewarded by a graded verifier, each tenant's prompt stream pinned. The
     engine's step and the trainer's step are wrapped to time each engine
@@ -1731,10 +1767,11 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     from repro_torch.models import tree_leaves
 
     envs = RT_RUN_ENVS.get(run, RT_ENVS)
+    gc.collect()            # earlier phases' engines: out of the peak
     rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
         policy="marlaas", device=device, max_slots=RT_SLOTS,
         max_adapter_slots=len(envs), max_len=MAX_LEN, seed=0,
-        **RT_RUNS[run]))
+        **ALL_RUNS[run]))
     adapters = make_adapters(cfg, len(envs), seed=20, device=device,
                              b_scale=B_SCALE)
     tids = [f"{env}-{i}" for i, env in enumerate(envs)]
@@ -1822,7 +1859,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
         raise AssertionError(f"phase 10 {run}: forwards {forwards}, "
                              f"{decode_steps} decode steps")
     n_sgmv = 6 * cfg.num_layers * sum(forwards.values())
-    attn = "paged_gqa_decode" if RT_RUNS[run].get("paged_kv") else "gqa_decode"
+    attn = "paged_gqa_decode" if ALL_RUNS[run].get("paged_kv") else "gqa_decode"
     want = {"gqa_decode": 0, "paged_gqa_decode": 0, "sgmv": n_sgmv,
             "sgmv_cuda": n_sgmv, "token_logprob_fwd": commits,
             "token_logprob_bwd": commits}
@@ -1847,7 +1884,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             raise AssertionError(f"phase 10 {run}: {eng._pages.used_pages} pages "
                                  f"held, {eng._prefix_idx.held_pages} by the index; "
                                  f"{st_.prefix_hits} prefix hits")
-    if run == "D":
+    if run in ("D", "T"):
         st_, waits = eng.stats, rt.rec.env_wait_by_task()
         agentic = {tid for tid, env in zip(tids, envs) if env == "hopsearch"}
         if not (st_.parks > 0 and st_.tool_wait_slot_steps == 0
@@ -1873,13 +1910,14 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     summary = summarize(rt.mgr, rt.rec)
     counters_ = rt.rec.counters_snapshot()
     drops = rt.mgr.drop_counters()
-    rec = dict(run=run, config=RT_RUNS[run], envs=envs, **RT_SPEC,
+    rec = dict(run=run, config=ALL_RUNS[run], envs=envs, **RT_SPEC,
                slots=RT_SLOTS, max_len=MAX_LEN, wall_to_last_commit_s=wall,
                commits=commits, rows=acc, decode_steps=decode_steps,
                prefill_forwards=prefill_forwards, forwards=forwards,
                decode_ms_per_step=1e3 * eng.stats.decode_seconds / decode_steps,
                decode_only_steps=len(pure),
                decode_step_ms_median=_median(d_in + d_out),
+               decode_step_ms_p90=_pct(d_in + d_out, 0.9),
                decode_step_ms_median_in_train=_median(d_in),
                decode_step_ms_median_outside_train=_median(d_out),
                decode_steps_in_train=len(d_in), decode_steps_outside_train=len(d_out),
@@ -1910,8 +1948,8 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             prefill_s=st_.prefill_seconds, decode_stall_s=st_.decode_stall_seconds,
             splice_s=st_.splice_seconds, splice_wait_s=st_.splice_wait_seconds,
             env_wait_by_task=rt.rec.env_wait_by_task())
-    log(f"[10 runtime {run}] {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
-        f"steps ({RT_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, "
+    log(f"[{13 if run in P13_RUNS else 10} runtime {run}] {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
+        f"steps ({ALL_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, "
         f"{commits} commits, rows {acc}; {decode_steps} decode steps "
         f"({prefill_forwards} prefill forwards {forwards}), "
         f"decode {rec['decode_step_ms_median']:.2f} ms/step median "
@@ -1927,6 +1965,8 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"phase 10 {run}: launches {got}, want {want}")
+    if rt.tracer is not None:
+        rec["trace"] = trace_checks(rt, run, card)
     return rec
 
 
@@ -2434,6 +2474,323 @@ def stage_phase(torch, cfg, params, adapters, counters, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tracing, chaos and restart from a checkpoint
+# ---------------------------------------------------------------------------
+
+def trace_checks(rt, run, card):
+    """Run T's trace: every episode from `submitted` to `committed` or
+    `dropped`, none lost to the ring buffer; the Chrome export written and
+    read back by the port's report command, whose components sum to each
+    episode's latency within 1%. Returns the report's figures."""
+    import tempfile
+    from repro_torch.obs import report
+    tr = rt.tracer
+    seqs = {t: tr.state_sequence(t) for t in tr.components()}
+    bad = {t: q for t, q in seqs.items()
+           if q[0] != "submitted" or q[-1] not in ("committed", "dropped")}
+    issued = sum(st.rollout_rows_total for _, st in rt.mgr.task_items())
+    if bad or len(seqs) != issued or tr.dropped_events:
+        raise AssertionError(f"phase 13 {run}: {len(seqs)} traced episodes of "
+                             f"{issued}, {tr.dropped_events} events dropped, "
+                             f"malformed {list(bad.items())[:3]}")
+    with tempfile.TemporaryDirectory() as d:
+        path, out = Path(d) / "trace.json", Path(d) / "report.json"
+        tr.dump_json(str(path))
+        trace_bytes = path.stat().st_size
+        if report.main([str(path), "--json", str(out)]) != 0:
+            raise AssertionError(f"phase 13 {run}: the report found no episode")
+        res = json.loads(out.read_text())
+    if res["episodes"] != len(seqs) or not res["max_relative_residual"] <= 0.01:
+        raise AssertionError(f"phase 13 {run}: report episodes {res['episodes']}, "
+                             f"residual {res['max_relative_residual']}")
+    terminals = {}
+    for q in seqs.values():
+        terminals[q[-1]] = terminals.get(q[-1], 0) + 1
+    tenants = {tid: dict(episodes=t["episodes"], e2e_p50_s=t["e2e_p50"],
+                         e2e_p95_s=t["e2e_p95"], bottleneck=t["bottleneck"],
+                         components_mean_s=t["components_mean"])
+               for tid, t in res["tenants"].items()}
+    comp_total = {}
+    for t in res["tenants"].values():
+        for k, v in t["components_mean"].items():
+            comp_total[k] = comp_total.get(k, 0.0) + v * t["episodes"]
+    bottleneck = max(comp_total, key=comp_total.get)
+    out = dict(episodes=len(seqs), terminals=terminals,
+               max_relative_residual=res["max_relative_residual"],
+               trace_bytes=trace_bytes, tenants=tenants,
+               bottleneck=bottleneck,
+               component_share={k: v / sum(comp_total.values())
+                                for k, v in sorted(comp_total.items())},
+               flow_kinds=sorted({k for t in seqs for k in tr.flow_kinds_of(t)}))
+    log(f"[13 trace {run}] {len(seqs)} episodes {terminals}, residual "
+        f"{100 * res['max_relative_residual']:.4f}% of E2E, trace "
+        f"{trace_bytes} bytes; per tenant E2E p50/p95 "
+        + ", ".join(f"{tid} {t['e2e_p50_s']:.2f}/{t['e2e_p95_s']:.2f} s "
+                    f"({t['bottleneck']})" for tid, t in tenants.items())
+        + f"; bottleneck over all episodes {bottleneck} "
+        f"({100 * out['component_share'][bottleneck]:.1f}% of episode time) on {card}")
+    return out
+
+
+def _same_tree(np, store, a, b):
+    """Bit-equal trees (tensors on any device or numpy leaves), dtypes too."""
+    fa, fb = store.tree_to_flat(a), store.tree_to_flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def recovery_run(torch, cfg, params, counters, card, ckpt_dir, device="cuda"):
+    """Phase 13 run R: run T's runtime with P13_CHAOS, a snapshot after every
+    commit (P13_KEEP kept) and a crash after P13_FAIL_AFTER commits, through
+    run_with_recovery. Class-level wraps (undone at the end) reach both
+    incarnations: each engine step is timed and followed by the page
+    invariants; each commit's trees are kept; each save and its hold of the
+    manager lock are timed; the adoption compares the snapshot with the
+    crashed runtime's committed trees and the adopted trees with the
+    snapshot, then pins the prompt streams and graded envs again. Raises on
+    any miss; returns the record."""
+    import numpy as np
+    from repro_torch.checkpoint import store
+    from repro_torch.core import runtime as rt_mod
+    from repro_torch.core.chaos import ChaosConfig
+    from repro_torch.core.manager import MultiTaskManager, TaskSpec
+    from repro_torch.core.runtime import (FailureInjector, MARLaaSRuntime,
+                                          RuntimeConfig)
+    from repro_torch.launch.serve import make_adapters
+    from repro_torch.models import tree_leaves
+    from repro_torch.rollout.engine import ContinuousRolloutEngine as Eng
+
+    envs = RT_RUN_ENVS["T"]
+    tids = [f"{env}-{i}" for i, env in enumerate(envs)]
+    gc.collect()
+    rcfg = RuntimeConfig(policy="marlaas", device=device, max_slots=RT_SLOTS,
+                         max_adapter_slots=len(envs), max_len=MAX_LEN, seed=0,
+                         checkpoint_dir=ckpt_dir, checkpoint_every=1,
+                         checkpoint_keep_last=P13_KEEP,
+                         chaos=ChaosConfig(**P13_CHAOS), **P13_RUNS["T"])
+    rt = MARLaaSRuntime(cfg, params, rcfg, failure=FailureInjector(
+        fail_after_commits=P13_FAIL_AFTER))
+    adapters = make_adapters(cfg, len(envs), seed=20, device=device,
+                             b_scale=B_SCALE)
+
+    def pin(r):
+        for i, tid in enumerate(tids):
+            r.envs[tid] = graded_env(r.envs[tid])
+            r.datagens[tid] = random.Random(100 + i)
+        r.mgr.rebind_episode_envs(r.envs)
+    for tid, env, tree in zip(tids, envs, adapters):
+        rt.submit_task(TaskSpec(tid, env, **RT_SPEC), tree)
+    pin(rt)
+    committed = {(tid, 0): (st.adapters, st.opt_state)
+                 for tid, st in rt.mgr.task_items()}
+    steps, commit_times, saves, holds, snap_calls, fresh = [], [], [], [], [0], []
+    engines = []
+    orig = dict(commit=MultiTaskManager.commit, step=Eng.step,
+                snap=Eng._snapshot_row, save=rt_mod.save_checkpoint,
+                payload=store._write_payload,
+                adopt=MARLaaSRuntime.adopt_checkpoint)
+
+    def commit(self, tid, adapters_, opt, version, **kw):
+        out = orig["commit"](self, tid, adapters_, opt, version, **kw)
+        committed[(tid, self.state(tid).version)] = (adapters_, opt)
+        commit_times.append(time.monotonic())
+        return out
+
+    def step(self):
+        if self not in engines:
+            engines.append(self)
+        fc = self.forward_counts
+        d0, f0 = self.stats.decode_steps, fc["refill"].n + fc["suffix"].n
+        t0 = time.monotonic()
+        out = orig["step"](self)
+        steps.append((t0, time.monotonic(), self.stats.decode_steps - d0,
+                      fc["refill"].n + fc["suffix"].n - f0, id(self)))
+        self.check_page_invariants()
+        return out
+
+    def snapshot_row(self, slot, row):
+        snap_calls[0] += 1
+        return orig["snap"](self, slot, row)
+
+    def save(directory, mgr, *a, **kw):
+        t0 = time.monotonic()
+        path = orig["save"](directory, mgr, *a, **kw)
+        t1 = time.monotonic()
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        saves.append((t0, t1, nbytes))
+        return path
+
+    def payload(tmp, mgr, tag):
+        t0 = time.monotonic()
+        out = orig["payload"](tmp, mgr, tag)
+        holds.append(time.monotonic() - t0)
+        return out
+
+    def adopt(self, path):
+        snap = store.load_checkpoint(path, MultiTaskManager())
+        for tid, st in snap.task_items():
+            ad, opt = committed[(tid, st.version)]
+            if not (_same_tree(np, store, st.adapters, ad)
+                    and _same_tree(np, store, st.opt_state, opt)):
+                raise AssertionError(f"phase 13 R: snapshot {path} differs from "
+                                     f"{tid}'s committed v{st.version} trees")
+        orig["adopt"](self, path)
+        for tid, st in self.mgr.task_items():
+            want = snap.state(tid)
+            if not (_same_tree(np, store, st.adapters, want.adapters)
+                    and _same_tree(np, store, st.opt_state, want.opt_state)
+                    and all(t.device.type == device for t in
+                            tree_leaves(st.adapters) + tree_leaves(st.opt_state))):
+                raise AssertionError(f"phase 13 R: {tid}'s adopted trees differ "
+                                     f"from the snapshot")
+        pin(self)
+        fresh.append((self, path, {tid: st.version
+                                   for tid, st in snap.task_items()}))
+
+    MultiTaskManager.commit, Eng.step, Eng._snapshot_row = commit, step, snapshot_row
+    rt_mod.save_checkpoint, store._write_payload = save, payload
+    MARLaaSRuntime.adopt_checkpoint = adopt
+    undo = biased_sampler(torch)
+    torch.cuda.synchronize()
+    count_all(counters, reset=True)
+    t0 = time.monotonic()
+    try:
+        fin = rt.run_with_recovery(timeout_s=900)
+    finally:
+        undo()
+        MultiTaskManager.commit, Eng.step = orig["commit"], orig["step"]
+        Eng._snapshot_row = orig["snap"]
+        rt_mod.save_checkpoint, store._write_payload = orig["save"], orig["payload"]
+        MARLaaSRuntime.adopt_checkpoint = orig["adopt"]
+    launches = count_all(counters)
+    torch.cuda.synchronize()
+    wall = max(commit_times) - t0
+    if len(fresh) != 1 or fresh[0][0] is not fin or fin is rt:
+        raise AssertionError(f"phase 13 R: {len(fresh)} adoptions")
+    restarts = fin.rec.counters_snapshot().get("checkpoint_restarts", 0)
+    versions = {tid: st.version for tid, st in fin.mgr.task_items()}
+    if restarts != 1 or not fin.mgr.all_done() or set(versions.values()) != {
+            RT_SPEC["target_steps"]}:
+        raise AssertionError(f"phase 13 R: restarts {restarts}, versions {versions}")
+    chaos = {"crashed": rt.chaos.counts(), "restarted": fin.chaos.counts()}
+    fired = {site: chaos["crashed"].get(site, 0) + chaos["restarted"].get(site, 0)
+             for site in ("prefill_worker_kill", "env_worker_kill",
+                          "tool_error_transient", "snapshot_drop")}
+    if not all(fired[s_] for s_ in ("prefill_worker_kill", "env_worker_kill",
+                                   "tool_error_transient")) \
+            or fired["snapshot_drop"] != min(1, snap_calls[0]) \
+            or fired["snapshot_drop"] != P13_SNAPSHOT_DROPS:
+        raise AssertionError(f"phase 13 R: chaos fired {chaos}, "
+                             f"{snap_calls[0]} snapshots taken")
+    sup = {}
+    for r in (rt, fin):
+        for k, v in r.rec.counters_snapshot().items():
+            if k.startswith(("supervisor_", "env_re", "chaos_")):
+                sup[k] = sup.get(k, 0) + v
+    if not (sup.get("supervisor_prefill_worker_restarts", 0)
+            + sup.get("supervisor_env_worker_restarts", 0)) >= 1:
+        raise AssertionError(f"phase 13 R: supervisor counters {sup}")
+    acc = fin.row_accounting()
+    if acc["completed"] != (acc["trained"] + acc["stale_dropped"]
+                            + acc["discarded_tails"] + acc["failed"]
+                            + acc["quarantine_dropped"] + acc["orphaned"]) \
+            or acc["failed"] or acc["quarantine_dropped"]:
+        raise AssertionError(f"phase 13 R: row accounting {acc}")
+    commits = len(commit_times)
+    forwards = {}
+    decode_steps = 0
+    for e in engines:
+        decode_steps += e.stats.decode_steps
+        for k, c in e.forward_counts.items():
+            forwards[k] = forwards.get(k, 0) + c.n
+    n_sgmv = 6 * cfg.num_layers * sum(forwards.values())
+    want = {"gqa_decode": 0, "paged_gqa_decode": cfg.num_layers * decode_steps,
+            "sgmv": n_sgmv, "sgmv_cuda": n_sgmv, "token_logprob_fwd": commits,
+            "token_logprob_bwd": commits}
+    got = {k: launches[k] for k in want}
+    if len(engines) != 2 or forwards["decode"] != decode_steps or got != want:
+        raise AssertionError(f"phase 13 R: {len(engines)} engines, forwards "
+                             f"{forwards}, {decode_steps} decode steps; launches "
+                             f"{got}, want {want}")
+    pure = [(a, b) for a, b, d, f, _ in steps if d == 1 and f == 0]
+    in_save = [1e3 * (b - a) for a, b in pure
+               if any(a < s1 and s0 < b for s0, s1, _ in saves)]
+    out_save = [1e3 * (b - a) for a, b in pure
+                if not any(a < s1 and s0 < b for s0, s1, _ in saves)]
+    save_s = [s1 - s0 for s0, s1, _ in saves]
+    # the rollout thread between two engine steps (feeding, completions:
+    # manager calls, which wait while a save holds the manager lock)
+    gaps = [(p[1], q[0]) for p, q in zip(steps, steps[1:]) if p[4] == q[4]]
+    gap_in = [1e3 * (b - a) for a, b in gaps
+              if any(a < s1 and s0 < b for s0, s1, _ in saves)]
+    gap_out = [1e3 * (b - a) for a, b in gaps
+               if not any(a < s1 and s0 < b for s0, s1, _ in saves)]
+    stall = [max([min(b, s1) - max(a, s0) for a, b in gaps
+                  if a < s1 and s0 < b], default=0.0) for s0, s1, _ in saves]
+    rec = dict(config=dict(P13_RUNS["T"], chaos=P13_CHAOS, checkpoint_every=1,
+                           checkpoint_keep_last=P13_KEEP,
+                           fail_after_commits=P13_FAIL_AFTER),
+               wall_to_last_commit_s=wall, commits=commits, restarts=restarts,
+               adopted=Path(fresh[0][1]).name, adopted_versions=fresh[0][2],
+               chaos=chaos, snapshots_taken=snap_calls[0], fault_counters=sup,
+               rows=acc, decode_steps=decode_steps, forwards=forwards,
+               saves=len(saves), snapshot_bytes=[b for _, _, b in saves],
+               save_s_median=_median(save_s), save_s_max=max(save_s),
+               lock_hold_s_median=_median(holds), lock_hold_s_max=max(holds),
+               decode_step_ms_median_in_save=_median(in_save),
+               decode_step_ms_median_outside_save=_median(out_save),
+               decode_steps_in_save=len(in_save),
+               decode_steps_outside_save=len(out_save),
+               decode_step_ms_p90=_pct(in_save + out_save, 0.9),
+               rollout_gap_ms_median_in_save=_median(gap_in),
+               rollout_gap_ms_max_in_save=max(gap_in, default=float("nan")),
+               rollout_gap_ms_median_outside_save=_median(gap_out),
+               rollout_gap_ms_max_outside_save=max(gap_out, default=float("nan")),
+               rollout_stall_s_per_save=stall,
+               launches=launches, card=card)
+    log(f"[13 recovery R] {commits} commits over 2 incarnations (crash after "
+        f"{P13_FAIL_AFTER}, adopted {rec['adopted']} {fresh[0][2]}), every tenant "
+        f"at v{RT_SPEC['target_steps']}, restarts {restarts}; last commit at "
+        f"{wall:.2f} s; chaos {chaos} ({snap_calls[0]} host snapshots taken); "
+        f"fault counters {sup}; rows {acc}; {len(saves)} saves of "
+        f"{_median([b for _, _, b in saves]) / 1e6:.1f} MB, "
+        f"{rec['save_s_median']:.3f} s median ({rec['save_s_max']:.3f} max), "
+        f"manager lock held {rec['lock_hold_s_median']:.3f} s median "
+        f"({rec['lock_hold_s_max']:.3f} max); decode "
+        f"{rec['decode_step_ms_median_in_save']:.2f} ms/step in {len(in_save)} "
+        f"steps inside saves, {rec['decode_step_ms_median_outside_save']:.2f} in "
+        f"{len(out_save)} outside; the rollout thread between steps "
+        f"{rec['rollout_gap_ms_median_in_save']:.2f} ms median "
+        f"({rec['rollout_gap_ms_max_in_save']:.1f} max) inside saves, "
+        f"{rec['rollout_gap_ms_median_outside_save']:.2f} "
+        f"({rec['rollout_gap_ms_max_outside_save']:.1f} max) outside, its longest "
+        f"wait a save {_median(stall):.3f} s median ({max(stall):.3f} max); "
+        f"launches {got} on {card}")
+    return rec
+
+
+def fault_phase(torch, cfg, params, counters, card, d_rec, device="cuda"):
+    """Phase 13: run T (run D traced) and run R (chaos, snapshots, a crash
+    and run_with_recovery), each beside phase 10's run D of this call."""
+    import tempfile
+    t_rec = runtime_phase(torch, cfg, params, counters, card, "T", device)
+    with tempfile.TemporaryDirectory() as d:
+        r_rec = recovery_run(torch, cfg, params, counters, card, d, device)
+    cost = t_rec["decode_step_ms_median"] / d_rec["decode_step_ms_median"] - 1
+    log(f"[13 T vs D] decode ms/step median {t_rec['decode_step_ms_median']:.2f} vs "
+        f"{d_rec['decode_step_ms_median']:.2f} ({100 * cost:+.1f}%), p90 "
+        f"{t_rec['decode_step_ms_p90']:.2f} vs {d_rec['decode_step_ms_p90']:.2f}; "
+        f"last commit {t_rec['wall_to_last_commit_s']:.2f} s vs "
+        f"{d_rec['wall_to_last_commit_s']:.2f} s; R's last commit "
+        f"{r_rec['wall_to_last_commit_s']:.2f} s on {card}")
+    return dict(T=t_rec, R=r_rec, D=dict(
+        decode_step_ms_median=d_rec["decode_step_ms_median"],
+        decode_step_ms_p90=d_rec["decode_step_ms_p90"],
+        wall_to_last_commit_s=d_rec["wall_to_last_commit_s"]),
+        tracing_cost_decode_median=cost)
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -2617,6 +2974,11 @@ def main(argv):
     p12_launch = {k: sum(r["launches"][k] for r in stages["modes"].values())
                   for k in counters}
 
+    # -- phase 13: tracing, chaos and restart from a checkpoint --------------
+    faults = fault_phase(torch, cfg, params, counters, card, runtime["D"])
+    p13_launch = {k: faults["T"]["launches"][k] + faults["R"]["launches"][k]
+                  for k in counters}
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
@@ -2627,6 +2989,7 @@ def main(argv):
     print(json.dumps({"runtime": runtime}), flush=True)
     print(json.dumps({"prefix_cache": prefix}), flush=True)
     print(json.dumps({"stages": stages}), flush=True)
+    print(json.dumps({"faults": faults}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -2646,7 +3009,8 @@ def main(argv):
         kernel_entry("sgmv", "src/repro_torch/kernels/csrc/sgmv.cu",
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
-                     + p11_launch["sgmv"] + p12_launch["sgmv"],
+                     + p11_launch["sgmv"] + p12_launch["sgmv"]
+                     + p13_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -2654,7 +3018,9 @@ def main(argv):
                             for r in runtime},
                          "prefix cache (11)": p11_launch["sgmv"],
                          **{f"stages {m} (12)": r["launches"]["sgmv"]
-                            for m, r in stages["modes"].items()}},
+                            for m, r in stages["modes"].items()},
+                         **{f"faults {r} (13)": faults[r]["launches"]["sgmv"]
+                            for r in ("T", "R")}},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -2663,19 +3029,25 @@ def main(argv):
                           sgmv_library_ms=sgmv_main["a_library_ms"])),
         kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases,
-                     n_fwd + rt_launch["token_logprob_fwd"],
+                     n_fwd + rt_launch["token_logprob_fwd"]
+                     + p13_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
-                         for r in runtime}},
+                         for r in runtime}, **{
+                         f"faults {r} (13)": faults[r]["launches"]["token_logprob_fwd"]
+                         for r in ("T", "R")}},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
         kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases,
-                     n_bwd + rt_launch["token_logprob_bwd"],
+                     n_bwd + rt_launch["token_logprob_bwd"]
+                     + p13_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
-                         for r in runtime}},
+                         for r in runtime}, **{
+                         f"faults {r} (13)": faults[r]["launches"]["token_logprob_bwd"]
+                         for r in ("T", "R")}},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
@@ -2685,14 +3057,17 @@ def main(argv):
                      cont["launches"]["paged_gqa_decode"]
                      + rt_launch["paged_gqa_decode"]
                      + p11_launch["paged_gqa_decode"]
-                     + p12_launch["paged_gqa_decode"],
+                     + p12_launch["paged_gqa_decode"]
+                     + p13_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
                             for r in runtime},
                          "prefix cache (11)": p11_launch["paged_gqa_decode"],
                          **{f"stages {m} (12)": r["launches"]["paged_gqa_decode"]
-                            for m, r in stages["modes"].items() if m != "DED"}},
+                            for m, r in stages["modes"].items() if m != "DED"},
+                         **{f"faults {r} (13)": faults[r]["launches"]["paged_gqa_decode"]
+                            for r in ("T", "R")}},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

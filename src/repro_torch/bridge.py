@@ -60,7 +60,9 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
 
 
 def lora_from_jax(tree, device="cuda"):
-    """A JAX adapter tree (``init_lora``, numpy leaves) on ``device``."""
+    """A JAX adapter tree (``init_lora``, numpy leaves) on ``device``; any
+    tree of dicts with numpy leaves, such as a checkpoint's adapters or
+    optimizer state, converts alike, dtypes kept."""
     return _convert(tree, resolve_device(device))
 
 

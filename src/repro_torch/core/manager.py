@@ -685,11 +685,14 @@ class MultiTaskManager:
 
     def _purge_task_queues(self, task_id: str) -> None:   # held: _mgr_lock
         """A finished task trains no more: discard its ready groups and
-        partial rows (counted — nothing may leak silently)."""
-        n = sum(len(g.rows) for g in self.episodes.pop(task_id, ()))
+        partial rows (counted — nothing may leak silently), and end their
+        traces as dropped. (The JAX manager counts them but leaves their
+        traces at `completed`: ROADMAP §3.)"""
+        rows = [r for g in self.episodes.pop(task_id, ()) for r in g.rows]
         for key in [k for k in self._partial if k[0] == task_id]:
-            n += len(self._partial.pop(key))
-        self.discarded_tail_rows += n
+            rows += self._partial.pop(key)
+        self.discarded_tail_rows += len(rows)
+        self._trace_drop(rows, "tail_drop")
         self._failed_groups = {k for k in self._failed_groups
                                if k[0] != task_id}
 

@@ -57,9 +57,15 @@ engines run the decode and SGMV kernels and the trainer the
 With ``paged_kv`` the engine runs the copy-on-write prefix cache by
 default, as the JAX runtime does, and admission charges a GRPO group's full
 prompt pages once (``prefix_shared``).
-The switches of stages not ported yet raise ``NotImplementedError``:
-``trace``, an enabled ``chaos``, checkpoints, ``adopt_checkpoint`` and
-``run_with_recovery`` (ROADMAP §1 item 6).
+
+Tracing and fault tolerance, as in the JAX runtime: ``trace`` gives every
+submission a trace id and sends lifecycle marks and stage spans to
+``runtime.tracer`` (``repro_torch.obs``); ``chaos`` builds one
+``ChaosInjector`` shared by the engine's stages and the checkpoint store;
+``checkpoint_every`` writes an atomic manager snapshot
+(``repro_torch.checkpoint``) from the trainer thread after every that many
+commits; ``adopt_checkpoint`` restores one into a fresh runtime and
+``run_with_recovery`` restarts from the newest one when a run dies.
 """
 from __future__ import annotations
 
@@ -74,6 +80,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge import lora_from_jax
+from repro_torch.checkpoint.store import (latest_checkpoint, load_checkpoint,
+                                          save_checkpoint)
 from repro_torch.configs import ModelConfig
 from repro_torch.envs.tasks import make_env
 from repro_torch.lora.adapters import init_lora
@@ -85,7 +94,7 @@ from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import (TrainConfig, batch_from_trajectory,
                                           init_opt_state, make_train_step)
 from .admission import AdmissionConfig, AdmissionController
-from .chaos import ChaosConfig
+from .chaos import ChaosConfig, ChaosInjector
 from .manager import MultiTaskManager, TaskSpec
 from .metrics import MetricsRecorder
 from .supervisor import (ABANDONED, CLOSED, HALF_OPEN, OPEN,  # noqa: F401
@@ -95,10 +104,7 @@ from .supervisor import (ABANDONED, CLOSED, HALF_OPEN, OPEN,  # noqa: F401
 @dataclass
 class RuntimeConfig:
     """The JAX runtime's configuration, with ``device`` in place of
-    ``use_kernel``, and the fields of the stages this port runs. The
-    switches of stages not ported yet are kept and raise at construction
-    when set; their companion knobs (stage supervision's wedge timeout,
-    checkpoint retention, trace capacity) come with ROADMAP §1 item 6."""
+    ``use_kernel``."""
     policy: str = "marlaas"           # marlaas | multilora_sync | single_disagg
     rollout_mode: str = "continuous"  # continuous (slot engine) | round (fused)
     max_slots: int = 8                # decode slots in the continuous engine
@@ -153,11 +159,23 @@ class RuntimeConfig:
     seed: int = 0
     rollout_pool_devices: int = 1     # metric bookkeeping
     train_pool_devices: int = 1
-    checkpoint_dir: Optional[str] = None      # not ported
-    checkpoint_every: int = 0                 # not ported
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0         # commits between snapshots (0 = off)
     env_threads: int = 4
-    trace: bool = False               # episode tracing (not ported)
-    chaos: Optional[ChaosConfig] = None   # fault injection (not ported)
+    trace: bool = False               # end-to-end episode tracing: every
+                                      # submission gets a trace id and
+                                      # per-stage lifecycle marks + track
+                                      # spans land in `runtime.tracer`
+                                      # (repro_torch.obs); off by default —
+                                      # the hot loops then carry only an
+                                      # `is None` check
+    trace_capacity: int = 1_000_000   # tracer ring-buffer size (events);
+                                      # overflow drops oldest and counts
+    chaos: Optional[ChaosConfig] = None   # deterministic fault injection:
+                                      # seeded per-site streams kill stage
+                                      # workers, fail tool calls, drop
+                                      # snapshots, tear checkpoints — None
+                                      # = no injector object at all
     tool_retry_max: int = 3           # per-tool-call transient retries
                                       # (exponential backoff + jitter on the
                                       # env-stage queue, no worker blocked)
@@ -165,19 +183,15 @@ class RuntimeConfig:
     tool_retry_max_s: float = 2.0     # backoff ceiling
     tool_retry_episode_cap: int = 0   # total retries per episode across its
                                       # turns (0 = uncapped)
+    supervisor_wedge_s: float = 0.0   # env worker with no heartbeat for
+                                      # this long while executing is poisoned
+                                      # and replaced (0 = liveness only)
     breaker_fail_threshold: int = 5   # consecutive tool-error episodes that
                                       # trip a tenant's circuit breaker open
     breaker_cooldown_s: float = 2.0   # open -> half-open probe delay
     breaker_max_trips: int = 3        # re-trips before the tenant is
                                       # abandoned (drained + marked done)
-
-
-def _not_ported(rcfg: RuntimeConfig) -> Dict[str, tuple]:
-    """The switches of stages the port has not yet (ROADMAP §1 item 6)."""
-    return {"trace": rcfg.trace,
-            "chaos": rcfg.chaos is not None and rcfg.chaos.enabled,
-            "checkpoint_dir / checkpoint_every": bool(
-                rcfg.checkpoint_dir or rcfg.checkpoint_every)}
+    checkpoint_keep_last: int = 0     # snapshot retention (0 = keep all)
 
 
 class FailureInjector:
@@ -214,11 +228,6 @@ class MARLaaSRuntime:
                  acfg: Optional[AdmissionConfig] = None,
                  train_cfg: Optional[TrainConfig] = None,
                  failure: Optional[FailureInjector] = None):
-        for name, on in _not_ported(rcfg).items():
-            if on:
-                raise NotImplementedError(
-                    f"MARLaaSRuntime: {name} is not ported yet "
-                    f"(ROADMAP.md, §1 item 6)")
         self.device = resolve_device(rcfg.device)
         self.cfg = cfg
         self.base_params = base_params
@@ -246,8 +255,11 @@ class MARLaaSRuntime:
         self.admission = AdmissionController(cfg, self.acfg)
         self.rec = MetricsRecorder({"rollout": rcfg.rollout_pool_devices,
                                     "train": rcfg.train_pool_devices})
-        self.tracer = None                 # tracing is not ported
-        self.chaos = None                  # nor chaos injection
+        self.tracer = None
+        if rcfg.trace:
+            from repro_torch.obs import Tracer
+            self.tracer = Tracer(capacity=rcfg.trace_capacity)
+        self.mgr.tracer = self.tracer      # staleness/tail drops mark traces
         self.engine = RolloutEngine(cfg, base_params, max_len=rcfg.max_len,
                                     seed=rcfg.seed, device=self.device)
         self.envs: Dict[str, object] = {}
@@ -257,6 +269,12 @@ class MARLaaSRuntime:
         self._train_cfg_base = train_cfg or TrainConfig()
         self._train_steps: Dict[int, object] = {}   # group_size -> step fn
         self._tool_pool = ThreadPoolExecutor(max_workers=rcfg.env_threads)
+        # deterministic chaos: one injector shared by every stage (engine
+        # worker kills, env-stage tool faults, snapshot drops) and the
+        # checkpoint store (torn publishes)
+        self.chaos: Optional[ChaosInjector] = (
+            ChaosInjector(rcfg.chaos)
+            if rcfg.chaos is not None and rcfg.chaos.enabled else None)
         self.cengine = ContinuousRolloutEngine(
             cfg, base_params, max_slots=rcfg.max_slots,
             max_adapters=rcfg.max_adapter_slots, max_len=rcfg.max_len,
@@ -276,7 +294,8 @@ class MARLaaSRuntime:
             resume_restore=rcfg.resume_restore,
             snapshot_budget_bytes=rcfg.snapshot_budget_bytes,
             prefix_cache=rcfg.prefix_cache, on_stage=self._on_stage,
-            device=self.device)
+            tracer=self.tracer, chaos=self.chaos,
+            supervise_wedge_s=rcfg.supervisor_wedge_s, device=self.device)
         # ONE source of truth for counters: summarize() merges the engine's
         # RolloutStats int fields with the recorder's explicit counters
         self.rec.attach_rollout_stats(self.cengine.stats)
@@ -482,6 +501,12 @@ class MARLaaSRuntime:
             for i, r in enumerate(reqs):
                 meta = {"task_id": tid, "version": version,
                         "group": (round_no, i // group_size)}
+                if self.tracer is not None:
+                    # trace is born at submission: the gap until the engine
+                    # pops it off its queue is the admission-wait component
+                    tr = self.tracer.new_trace(tid)
+                    meta["trace_id"] = tr
+                    self.tracer.mark(tr, "submitted")
                 self.cengine.submit(r, meta=meta)
             fed = True
         return fed
@@ -511,6 +536,12 @@ class MARLaaSRuntime:
             self.rec.record("rollout", "decode", name,
                             self._seg_t0, now,
                             self.rcfg.rollout_pool_devices)
+            if self.tracer is not None:
+                # the fused decode stream as one Perfetto track: each slice
+                # is a contiguous occupant-set run (same data the recorder
+                # books as decode busy time)
+                self.tracer.span(("rollout", "decode"), name,
+                                 self._seg_t0, now)
         self._seg_t0 = now
         self._seg_tasks = frozenset()
 
@@ -585,10 +616,18 @@ class MARLaaSRuntime:
         batch.sort(key=lambda c: c.submit_index)
         tb = to_trajectory_batch(batch, tid, comp.version, spec.group_size,
                                  pad_to=self.rcfg.max_len)
+        if self.tracer is not None:
+            tb.meta["trace_ids"] = self._trace_ids_of(batch)
         self.mgr.enqueue(tb)
         self.rec.record_train_backlog(time.monotonic(),
                                       self.mgr.dispatchable_rows())
         return True
+
+    @staticmethod
+    def _trace_ids_of(completions) -> List[int]:
+        """Trace ids riding a batch's completion metas (traced rows only)."""
+        return [c.meta["trace_id"] for c in completions
+                if isinstance(c.meta, dict) and "trace_id" in c.meta]
 
     def _poll_breaker(self, rounds: Dict[tuple, list]):
         """Apply pending circuit-breaker transitions (rollout thread only —
@@ -598,6 +637,9 @@ class MARLaaSRuntime:
         now = time.monotonic()
         for tid, state in self.breaker.poll(now):
             self.rec.record_breaker_sample(now, tid, state)
+            if self.tracer is not None:
+                self.tracer.instant(("supervisor", "breaker"),
+                                    f"{tid}:{state}", now)
             if state == OPEN:
                 self.rec.incr("quarantine_trips")
                 self.mgr.quarantine(tid)
@@ -729,6 +771,10 @@ class MARLaaSRuntime:
                 n = getattr(eng._env, name)
                 if n:
                     self.rec.incr(f"env_{name}", n)
+        if self.chaos is not None:
+            for site, n in self.chaos.counts().items():
+                if n:
+                    self.rec.incr(f"chaos_{site}", n)
         if self.rcfg.env_stage:
             self.rec.record_env_sample(now, *eng.env_depths())
             eng._env.halt()     # env workers die with the rollout loop
@@ -750,7 +796,12 @@ class MARLaaSRuntime:
         # only under the decoupled-PPO correction (min(exp(old_lp -
         # behavior_lp), is_cap), recorded at sample time)
         batch = batch_from_trajectory(tb, tc, self.device)
+        trace_ids = (tb.meta.get("trace_ids", ())
+                     if self.tracer is not None else ())
         t0 = time.monotonic()
+        if self.tracer is not None:
+            for tr in trace_ids:
+                self.tracer.mark(tr, "train", t0)
         new_adapters, new_opt, metrics = step_fn(self.base_params, st.adapters,
                                                  st.opt_state, batch)
         synchronize(self.device)       # the interval is the step's device time
@@ -759,11 +810,25 @@ class MARLaaSRuntime:
                         self.rcfg.train_pool_devices)
         self.mgr.commit(tb.task_id, new_adapters, new_opt, trained_version,
                         reward_mean=float(np.mean(tb.rewards)))
+        if self.tracer is not None:
+            t_commit = self.tracer.now()
+            self.tracer.span(("train", "trainer"), tb.task_id, t0, t_commit,
+                             flow_in=0, flow_out=0)
+            for tr in trace_ids:
+                self.tracer.mark(tr, "committed", t_commit)
         self.mgr.rows_trained += tb.num_rows
         self.rec.record_train_backlog(time.monotonic(),
                                       self.mgr.dispatchable_rows())
         if self.failure:
             self.failure.on_commit()
+        if (self.rcfg.checkpoint_dir and self.rcfg.checkpoint_every and
+                self.mgr.total_steps_done()
+                % self.rcfg.checkpoint_every == 0):
+            # the committed trees are new tensors (a commit never writes in
+            # place), so the copy to host reads a tree no thread writes
+            save_checkpoint(self.rcfg.checkpoint_dir, self.mgr,
+                            keep_last_n=self.rcfg.checkpoint_keep_last,
+                            chaos=self.chaos)
 
     def _train_loop(self):
         try:
@@ -819,6 +884,8 @@ class MARLaaSRuntime:
             spec = self.mgr.spec_for(tid)
             tb = to_trajectory_batch(rows, tid, newest, spec.group_size,
                                      pad_to=self.rcfg.max_len)
+            if self.tracer is not None:
+                tb.meta["trace_ids"] = self._trace_ids_of(rows)
             if self.mgr.version_of(tid) - oldest > 0:
                 self.rec.incr("stale_rows_trained", len(rows))
             # commit is checked against the OLDEST behaviour version in the
@@ -981,19 +1048,48 @@ class MARLaaSRuntime:
         }
 
     def adopt_checkpoint(self, path) -> None:
-        """Restore manager state from a snapshot: needs the checkpoint
-        store, not ported yet."""
-        raise NotImplementedError("MARLaaSRuntime.adopt_checkpoint: the "
-                                  "checkpoint store is not ported yet "
-                                  "(ROADMAP.md, §1 item 6)")
+        """Restore manager state from a snapshot (either package's) into
+        THIS (fresh) runtime: tasks come back at their committed versions
+        with their adapters and optimizer state, put on the runtime's
+        device, and re-issue the next round; surviving completed-episode
+        queues rebind live env handles (envs don't serialize), and
+        per-tenant datagens are rebuilt exactly as `submit_task` would
+        (from the salted str hash, as the JAX runtime does: a caller that
+        needs fixed prompt streams pins them again)."""
+        load_checkpoint(path, self.mgr)
+        for tid, st in self.mgr.task_items():
+            st.adapters = lora_from_jax(st.adapters, self.device)
+            st.opt_state = lora_from_jax(st.opt_state, self.device)
+            self.envs[tid] = make_env(st.spec.env_name)
+            self.datagens[tid] = random.Random(
+                hash((self.rcfg.seed, tid)) % (2 ** 31))
+        self.mgr.rebind_episode_envs(self.envs)
 
     def run_with_recovery(self, timeout_s: float = 600.0,
                           max_restarts: int = 2) -> "MARLaaSRuntime":
-        """Run, restarting from the newest checkpoint on a crash: needs the
-        checkpoint store, not ported yet."""
-        raise NotImplementedError("MARLaaSRuntime.run_with_recovery: the "
-                                  "checkpoint store is not ported yet "
-                                  "(ROADMAP.md, §1 item 6)")
+        """Run to completion, restarting from the newest valid checkpoint
+        when a stage escalation (or injected crash) kills the run — the
+        supervisor's last resort when restart-in-place can't help. Returns
+        the runtime instance that finished (a fresh one after a restart:
+        engine state is not trusted after a crash, only checkpoints are)."""
+        rt = self
+        for attempt in range(max_restarts + 1):
+            try:
+                rt.run(timeout_s)
+                return rt
+            except BaseException:
+                if attempt >= max_restarts or not rt.rcfg.checkpoint_dir:
+                    raise
+                path = latest_checkpoint(rt.rcfg.checkpoint_dir)
+                if path is None:
+                    raise               # nothing to restart from
+                fresh = MARLaaSRuntime(rt.cfg, rt.base_params, rt.rcfg,
+                                       rt.acfg, rt._train_cfg_base,
+                                       failure=None)
+                fresh.adopt_checkpoint(path)
+                fresh.rec.incr("checkpoint_restarts")
+                rt = fresh
+        return rt
 
     def _run_async(self, timeout_s):
         rt = threading.Thread(target=self._rollout_loop, daemon=True,

@@ -6,6 +6,10 @@ real GRPO updates (the port's counterpart of ``examples/multi_tenant_train.py``)
         --preset tiny --device cpu --tasks 2 --steps 1
     PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
         --mix agentic --disagg-prefill --env-stage --paged-kv
+    PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
+        --mix agentic --disagg-prefill --env-stage --paged-kv \\
+        --checkpoint-dir ck --trace-out trace.json \\
+        --chaos-prefill-kill 1 --chaos-env-kill 1 --chaos-max-faults 1
 
 Tenants (``--mix classic``: gsm8k / amc12 / agentic search; ``--mix
 agentic``: the multi-turn tool-heavy mix, gsm8k / hopsearch / calcrepl /
@@ -18,6 +22,10 @@ worker threads (each on a CUDA stream of its own on the card);
 ``--env-stage`` parks tool-calling rows in an env stage of worker threads
 instead of freezing them in their slots. Prints per-task reward curves and
 the paper's system metrics (utilisation, idle share, TTFS, TPTS).
+``--checkpoint-dir`` snapshots the manager every 5 commits; the
+``--chaos-*`` flags inject faults (worker kills, tool errors, dropped
+snapshots, torn checkpoints) from one seeded script; ``--trace-out`` writes
+a Perfetto-loadable trace and prints the critical-path latency report.
 
 ``--preset qwen3-0.6b`` (the default) runs the published configuration at
 full width and depth in bf16 with random weights from seed 0 and adapters
@@ -34,6 +42,7 @@ import json
 import torch
 
 from repro_torch.configs import REGISTRY, reduced
+from repro_torch.core.chaos import ChaosConfig
 from repro_torch.core.manager import TaskSpec
 from repro_torch.core.metrics import summarize
 from repro_torch.core.runtime import MARLaaSRuntime, RuntimeConfig
@@ -73,6 +82,7 @@ def main(argv=None) -> MARLaaSRuntime:
     ap.add_argument("--preset", default="qwen3-0.6b", choices=sorted(PRESETS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--timeout", type=float, default=3600.0)
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--paged-kv", action="store_true",
                     help="paged KV-cache block pool (16-token pages) instead "
                          "of a dense [slots, max_len] cache, with the "
@@ -106,7 +116,50 @@ def main(argv=None) -> MARLaaSRuntime:
     ap.add_argument("--mix", default="classic", choices=sorted(MIXES),
                     help="tenant env rotation; 'agentic' is the multi-turn "
                          "tool-heavy mix the env stage targets")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="deterministic fault-injection seed; each site "
+                         "gets an independent RNG stream, so the same seed "
+                         "replays the same fault script")
+    ap.add_argument("--chaos-prefill-kill", type=float, default=0.0,
+                    metavar="P", help="P(kill a prefill worker per job "
+                                      "pickup); the supervisor recovers "
+                                      "the job and respawns with backoff")
+    ap.add_argument("--chaos-env-kill", type=float, default=0.0,
+                    metavar="P", help="P(kill an env-stage worker per "
+                                      "tool-call pickup)")
+    ap.add_argument("--chaos-tool-transient", type=float, default=0.0,
+                    metavar="P", help="P(transient tool error per call); "
+                                      "retried with exponential backoff")
+    ap.add_argument("--chaos-tool-permanent", type=float, default=0.0,
+                    metavar="P", help="P(permanent tool error per call); "
+                                      "fails the episode and counts "
+                                      "toward the tenant's circuit "
+                                      "breaker")
+    ap.add_argument("--chaos-snapshot-drop", type=float, default=0.0,
+                    metavar="P", help="P(drop a parked-row KV snapshot); "
+                                      "resume falls back to token replay")
+    ap.add_argument("--chaos-torn-checkpoint", type=float, default=0.0,
+                    metavar="P", help="P(tear a checkpoint mid-publish); "
+                                      "restart must fall back to the "
+                                      "previous valid snapshot")
+    ap.add_argument("--chaos-max-faults", type=int, default=0,
+                    metavar="N", help="cap each site at N faults total "
+                                      "(0 = uncapped)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="end-to-end episode tracing: write a Perfetto-"
+                         "loadable Chrome trace JSON here and print the "
+                         "critical-path latency report (per-tenant "
+                         "p50/p95/p99 and the dominant bottleneck stage)")
     args = ap.parse_args(argv)
+    chaos = ChaosConfig(
+        seed=args.chaos_seed,
+        prefill_worker_kill=args.chaos_prefill_kill,
+        env_worker_kill=args.chaos_env_kill,
+        tool_error_transient=args.chaos_tool_transient,
+        tool_error_permanent=args.chaos_tool_permanent,
+        snapshot_drop=args.chaos_snapshot_drop,
+        torn_checkpoint=args.chaos_torn_checkpoint,
+        max_faults_per_site=args.chaos_max_faults)
 
     dev = resolve_device(args.device)
     cfg = base_config(args.preset)
@@ -126,7 +179,10 @@ def main(argv=None) -> MARLaaSRuntime:
         prefill_chunk=args.prefill_chunk, env_stage=args.env_stage,
         env_workers=args.env_workers,
         env_inflight_per_tenant=args.env_inflight_per_tenant,
-        max_turns=args.max_turns))
+        max_turns=args.max_turns, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=5 if args.checkpoint_dir else 0,
+        chaos=chaos if chaos.enabled else None,
+        trace=bool(args.trace_out)))
     adapters = (make_adapters(cfg, args.tasks, seed=0, device=dev,
                               b_scale=0.02)
                 if args.preset != "tiny" else [None] * args.tasks)
@@ -150,6 +206,13 @@ def main(argv=None) -> MARLaaSRuntime:
     print(json.dumps({k: round(v, 3) for k, v in
                       summarize(rt.mgr, rt.rec).items()}, indent=2))
     print(f"row accounting: {json.dumps(rt.row_accounting())}")
+    if rt.chaos is not None:
+        c = rt.rec.counters_snapshot()
+        fault = {k: v for k, v in sorted(c.items())
+                 if k.startswith(("chaos_", "supervisor_", "quarantine_"))
+                 or k in ("env_retries", "env_recovered", "env_wedged")}
+        print(f"chaos: injected={dict(rt.chaos.counts())}")
+        print(f"fault handling: {json.dumps(fault)}")
     st = rt.cengine.stats
     if args.disagg_prefill or args.env_stage:
         print(f"stages: splices={st.splices} prefill_chunks="
@@ -165,6 +228,14 @@ def main(argv=None) -> MARLaaSRuntime:
               f"cow_forks={st.cow_forks} "
               f"device_resident_resumes={st.device_resident_resumes} "
               f"pool={rt.cengine.page_stats()}")
+    if args.trace_out:
+        from repro_torch.obs.report import (analyze, format_report,
+                                            load_episodes)
+        trace = rt.tracer.dump_json(args.trace_out)
+        print(f"\ntrace written to {args.trace_out} "
+              f"(open at ui.perfetto.dev; "
+              f"{rt.tracer.dropped_events} events dropped)")
+        print(format_report(analyze(load_episodes(trace))))
     return rt
 
 

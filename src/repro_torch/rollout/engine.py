@@ -80,9 +80,13 @@ circuit breaker quarantines a tenant with it), ``queue_depths`` and
 ``StageSupervisor``, which watches the prefill and env workers' liveness
 from ``step``: the names the runtime reads.
 
-Not ported yet (each raises ``NotImplementedError`` at construction where
-the JAX engine has a switch for it): the tracer, chaos injection and the
-supervisor's wedge detection (ROADMAP.md, §1 item 6).
+Fault tolerance and tracing, as in the JAX engine: ``tracer`` (a
+``repro_torch.obs.Tracer``) gets each episode's lifecycle marks and each
+slot's, worker's and stage's spans, from timestamps the untraced code
+already takes (a traced step launches and synchronises exactly what an
+untraced one does); ``chaos`` (a ``ChaosInjector``) kills prefill and env
+workers, fails tool calls and drops snapshots; ``supervise_wedge_s`` makes
+the supervision tick poison an env worker that has run one job that long.
 """
 from __future__ import annotations
 
@@ -921,9 +925,9 @@ class ContinuousRolloutEngine:
     (default "cuda", which raises when no card is present); ``base_params``
     and the adapters passed to ``set_adapters`` live on ``device``. The
     prefix cache is on by default with ``paged_kv``, as in the JAX engine;
-    ``prefix_cache=False`` gives the private-pages engine. The switches of
-    ROADMAP §1 item 6 raise ``NotImplementedError``: ``tracer``, ``chaos``,
-    ``supervise_wedge_s``.
+    ``prefix_cache=False`` gives the private-pages engine. ``tracer``,
+    ``chaos`` and ``supervise_wedge_s`` are the JAX engine's (see the module
+    docstring).
     """
 
     def __init__(self, cfg: ModelConfig, base_params, *, max_slots: int = 8,
@@ -943,13 +947,6 @@ class ContinuousRolloutEngine:
                  tool_retry_max_s: float = 2.0,
                  tool_retry_episode_cap: int = 0,
                  supervise_wedge_s: float = 0.0, device="cuda"):
-        later = {"tracer": tracer is not None, "chaos": chaos is not None,
-                 "supervise_wedge_s": supervise_wedge_s > 0}
-        for name, on in later.items():
-            if on:
-                raise NotImplementedError(
-                    f"ContinuousRolloutEngine: {name} is not ported yet "
-                    f"(ROADMAP.md, §1 item 6)")
         self.cfg = cfg
         self.base_params = base_params
         self.max_slots = max_slots
@@ -999,16 +996,23 @@ class ContinuousRolloutEngine:
         self.sim_latency = sim_latency
         self.disagg_prefill = disagg_prefill
         self.prefill_workers = max(1, prefill_workers)
+        self._chaos = chaos          # ChaosInjector or None (fault drills)
         self._env: Optional[EnvStage] = EnvStage(
             max(1, env_workers),
             max_inflight_per_tenant=env_inflight_per_tenant,
             sim_latency=sim_latency, retry_max=tool_retry_max,
             retry_episode_cap=tool_retry_episode_cap,
             retry_base_s=tool_retry_base_s, retry_max_s=tool_retry_max_s,
-            seed=seed) if env_stage else None
+            seed=seed, chaos=chaos) if env_stage else None
         self._prefill_chunk_eff = effective_chunk(cfg, prefill_chunk)
         self.on_stage = on_stage    # optional (phase, task_id, t0, t1) hook
                                     # (called from worker threads too)
+        # episode tracer (repro_torch.obs): None by default — every hook
+        # site below guards on it, so an untraced run pays one pointer
+        # compare per episode event (install/park/evict), never per token
+        self._tracer = tracer
+        self._slot_tr_t0 = [0.0] * max_slots    # residency span starts
+        self._slot_tr_flow = [0] * max_slots    # incoming hand-off arrows
         self._master = prng.prng_key(seed)
         self._rng = np.random.RandomState(seed + 7919)
         self._own_pool = tool_executor is None
@@ -1064,13 +1068,15 @@ class ContinuousRolloutEngine:
         self._next_pwid = 0     # unique prefill-worker ids across respawns
         self._pkernels: Optional[PrefillKernels] = None
         self._splice_fn = None
-        # -- stage supervision: dead workers are found on the step() tick,
-        # their stranded work recovered, and the pool restarted to
-        # complement under bounded backoff (wedge detection is item 6's)
-        self.supervisor = StageSupervisor()
+        # -- stage supervision: dead or wedged workers are found on the
+        # step() tick, their stranded work recovered, and the pool
+        # restarted to complement under bounded backoff; past the restart
+        # budget the supervisor raises on the engine thread
+        self.supervise_wedge_s = supervise_wedge_s   # 0 = liveness only
+        self.supervisor = StageSupervisor(tracer=tracer)
         if env_stage:
             self.supervisor.register(
-                "env_worker", healthy=self._env.healthy,
+                "env_worker", healthy=self._env_stage_healthy,
                 recover=self._env.recover_dead,
                 restart=self._env._ensure_workers)
         if disagg_prefill:
@@ -1163,9 +1169,55 @@ class ContinuousRolloutEngine:
         row = _Row(req, key, self._n_submitted, meta=meta,
                    submitted_at=time.monotonic())
         self._n_submitted += 1
+        if self._tracer is not None:
+            # the episode's trace id rides row.meta, the one piece of host
+            # state that survives park, preemption and snapshot or replay
+            # resume (it carries the behaviour version for the same reason)
+            if not isinstance(row.meta, dict):
+                row.meta = {}           # engine-direct callers pass no meta
+            trace = row.meta.get("trace_id")
+            if trace is None:
+                trace = self._tracer.new_trace(req.task_id)
+                row.meta["trace_id"] = trace
+            self._tracer.mark(trace, "queued", row.submitted_at)
         with self._queue_lock:
             self._sched.push(row, self.stats.refills)
         return row.submit_index
+
+    # -- episode tracing helpers (all no-ops when tracer is None) ---------
+    def _trace_of(self, row: _Row):
+        m = row.meta
+        return m.get("trace_id") if isinstance(m, dict) else None
+
+    def _tr_install(self, slot: int, row: _Row, t_now: float,
+                    t_pre: float = None, pre_state: str = None):
+        """Row entered a decode slot: open its residency span, consume any
+        pending hand-off arrow (env resume / preempt reinstall), and mark
+        the lifecycle transition(s)."""
+        tr = self._tracer
+        if tr is None:
+            return
+        trace = self._trace_of(row)
+        if t_pre is not None and pre_state is not None:
+            tr.mark(trace, pre_state, t_pre)
+        tr.mark(trace, "decode", t_now)
+        self._slot_tr_t0[slot] = t_now
+        m = row.meta
+        self._slot_tr_flow[slot] = (m.pop("_flow_in", 0)
+                                    if isinstance(m, dict) else 0)
+
+    def _tr_vacate(self, slot: int, row: _Row, t_now: float,
+                   flow_out: int = 0):
+        """Row left its slot (evict/park/preempt): emit the residency span
+        on the slot's track, with flow arrows binding it to the hand-off
+        source/destination across threads."""
+        tr = self._tracer
+        if tr is None:
+            return
+        tr.span(("rollout", f"slot-{slot}"), row.req.task_id,
+                self._slot_tr_t0[slot], t_now, trace=self._trace_of(row),
+                flow_in=self._slot_tr_flow[slot], flow_out=flow_out)
+        self._slot_tr_flow[slot] = 0
 
     # -- prefill stage lifecycle ------------------------------------------
     def _ensure_stage(self):
@@ -1203,6 +1255,12 @@ class ContinuousRolloutEngine:
         self._recover_prefill_claims()
         self._workers = []
 
+    # -- stage supervision callables (engine thread only) -----------------
+    def _env_stage_healthy(self) -> bool:
+        if self.supervise_wedge_s > 0:
+            self._env.mark_wedged(self.supervise_wedge_s)
+        return self._env.healthy()
+
     def _prefill_stage_healthy(self) -> bool:
         """Supervisor liveness: a full complement of live workers (a stage
         not started or halted has nothing to supervise, and a worker error
@@ -1219,12 +1277,20 @@ class ContinuousRolloutEngine:
         """Requeue the rows a dead prefill worker stranded mid-prefill:
         still in ``_stage_inflight`` (so not aborted) but never emitted and
         with no live owner. They prefill again from scratch (prefill is
-        deterministic, so the re-run gives the same tokens)."""
+        deterministic, so the re-run gives the same tokens). A chaos-killed
+        worker's stream may still be writing its stranded caches: this
+        thread's stream waits on the event it recorded as it died before
+        the caches are dropped."""
         n = 0
         with self._queue_lock:
             for w in self._workers:
                 if w.is_alive():
                     continue
+                if w.death_event is not None:
+                    torch.cuda.current_stream(self.device).wait_event(
+                        w.death_event)
+                    w.death_event = None
+                w.stranded = []
                 for row in list(w.claimed):
                     w.claimed.remove(row)
                     if row in self._stage_inflight:
@@ -1311,6 +1377,9 @@ class ContinuousRolloutEngine:
         is stamped per row from the submit meta, which lives on the row and
         so survives preemption."""
         meta = row.meta if isinstance(row.meta, dict) else {}
+        finished_at = time.monotonic()
+        if self._tracer is not None:
+            self._tracer.mark(self._trace_of(row), "completed", finished_at)
         return RolloutCompletion(
             task_id=row.req.task_id, prompt_len=row.prompt_len,
             tokens=list(prompt) + row.gen, gen_logprobs=row.lps,
@@ -1319,11 +1388,13 @@ class ContinuousRolloutEngine:
             version=int(meta.get("version", -1)),
             sampled_tokens=row.sampled, forced_tokens=row.forced,
             submit_index=row.submit_index, submitted_at=row.submitted_at,
-            started_at=row.started_at, finished_at=time.monotonic(),
+            started_at=row.started_at, finished_at=finished_at,
             finished_step=self.stats.decode_steps, meta=row.meta)
 
     def _evict(self, slot: int):
         row = self._rows[slot]
+        if self._tracer is not None:
+            self._tr_vacate(slot, row, time.monotonic())
         self._completed.append(self._completion(row, self._prompts[slot],
                                                 slot))
         self.stats.completions += 1
@@ -1383,6 +1454,12 @@ class ContinuousRolloutEngine:
         worst case. Under host memory pressure the snapshot is dropped and
         the row replays from tokens instead (same output, recomputed)."""
         if not self.resume_restore:
+            return
+        if self._chaos is not None and self._chaos.fire("snapshot_drop"):
+            # simulated host-memory pressure: the row falls back to token
+            # replay (same output, recomputed prefix)
+            row.snap = None
+            self.stats.snapshot_drops += 1
             return
         pos = self._slot_pos[slot]
         n_pg = self._row_pages_needed(pos)
@@ -1541,6 +1618,7 @@ class ContinuousRolloutEngine:
                 now = time.monotonic()
                 self._rows[slot] = row
                 self._prompts[slot] = list(row.req.prompt)
+                self._tr_install(slot, row, now, t0, "restore")
                 # ownership transfer back: the slot adopts the refcounts
                 self._assign_slot_pages(slot, row.dev_pages, row.dev_pos)
                 self._dev_parked.remove(row)
@@ -1582,6 +1660,7 @@ class ContinuousRolloutEngine:
             now = time.monotonic()
             self._rows[slot] = row
             self._prompts[slot] = list(row.req.prompt)
+            self._tr_install(slot, row, now, t0, "restore")
             self._assign_slot_pages(slot, pages, snap.pos)
             self._drop_snap(row)
             self.stats.restores += 1
@@ -1748,6 +1827,13 @@ class ContinuousRolloutEngine:
         row.replays += 1
         if self.paged_kv:
             self._park_or_snap(slot, row)
+        if self._tracer is not None:
+            fid = self._tracer.next_flow("preempt")
+            now = time.monotonic()
+            self._tr_vacate(slot, row, now, flow_out=fid)
+            self._tracer.mark(self._trace_of(row), "preempted", now)
+            if isinstance(row.meta, dict):
+                row.meta["_flow_in"] = fid    # consumed at reinstall
         self._rows[slot] = None
         self._prompts[slot] = None
         self.stats.preemptions += 1
@@ -1967,6 +2053,7 @@ class ContinuousRolloutEngine:
             installed += 1
             self._rows[slot] = row
             self._prompts[slot] = list(row.req.prompt)
+            self._tr_install(slot, row, now, t0, "prefill")
             self._assign_slot_pages(slot, shared + fresh, L)
             self._index_prompt(row, shared + fresh)
             self.stats.prefix_hits += 1
@@ -2168,9 +2255,15 @@ class ContinuousRolloutEngine:
             self.on_stage("prefill",
                           "+".join(sorted({r.req.task_id
                                            for _, r in incoming})), t0, now)
+        if self._tracer is not None:
+            self._tracer.span(("prefill", "fused"),
+                              "+".join(sorted({r.req.task_id
+                                               for _, r in incoming})),
+                              t0, now)
         for j, (slot, row) in enumerate(incoming):
             self._rows[slot] = row
             self._prompts[slot] = list(row.req.prompt)
+            self._tr_install(slot, row, now, t0, "prefill")
             if self.paged_kv:
                 self._assign_slot_pages(slot, pages_of[j], len(seqs[j]))
                 self._index_prompt(row, pages_of[j])
@@ -2272,6 +2365,7 @@ class ContinuousRolloutEngine:
             installed += 1
             self._rows[slot] = row
             self._prompts[slot] = list(row.req.prompt)
+            self._tr_install(slot, row, now)
             if self.paged_kv:
                 self._assign_slot_pages(slot, pages, rr.seq_len)
                 self._index_prompt(row, pages)
@@ -2321,6 +2415,10 @@ class ContinuousRolloutEngine:
             self.on_stage("splice",
                           "+".join(sorted({rr.row.req.task_id
                                            for rr in ready})), t0, now)
+        if self._tracer is not None:
+            self._tracer.span(("rollout", "splice"),
+                              "+".join(sorted({rr.row.req.task_id
+                                               for rr in ready})), t0, now)
         return True
 
     # -- tool calls: freeze in the slot, or park in the env stage ---------
@@ -2339,6 +2437,11 @@ class ContinuousRolloutEngine:
             self._rows[slot], self._prompts[slot], self._pool, self._rng,
             self.sim_latency)
         self._pending_t0[slot] = time.monotonic()
+        if self._tracer is not None:
+            # freeze-in-slot: the row stays resident, so the env window is
+            # a lifecycle state only (no park hand-off)
+            self._tracer.mark(self._trace_of(self._rows[slot]), "env",
+                              self._pending_t0[slot])
 
     def _park(self, slot: int):
         """Env-stage path: vacate the slot the moment the row samples CALL.
@@ -2354,10 +2457,17 @@ class ContinuousRolloutEngine:
             _RandomShim(self._rng)) if not self.sim_latency else 0.0
         if self.paged_kv:
             self._park_or_snap(slot, row)
+        fid = 0
+        if self._tracer is not None:
+            fid = self._tracer.next_flow("park")
+            now = time.monotonic()
+            self._tr_vacate(slot, row, now, flow_out=fid)
+            self._tracer.mark(self._trace_of(row), "parked", now)
         self._rows[slot] = None
         self._prompts[slot] = None
         self.stats.parks += 1
-        self._env.submit(row, query, row.req.task_id, latency)
+        job = self._env.submit(row, query, row.req.task_id, latency)
+        job.flow = fid
 
     def _pump_env_stage(self):
         """Resolve the env stage's response queue: expire timed-out jobs
@@ -2382,6 +2492,8 @@ class ContinuousRolloutEngine:
                 # other error is a fault of the stack and stays fatal.
                 row.status, row.finish_reason = "done", "tool_error"
                 self.stats.tool_errors += 1
+                if self._tracer is not None:
+                    self._tracer.mark(self._trace_of(row), "tool_error")
                 self._complete_parked(row)
                 if not isinstance(job.error, ToolError):
                     first_error = first_error or job.error
@@ -2390,6 +2502,20 @@ class ContinuousRolloutEngine:
             self.stats.add_env_wait(tid, job.resolved_at - job.submitted_at)
             if self.on_stage is not None:
                 self.on_stage("env", tid, job.submitted_at, job.resolved_at)
+            if self._tracer is not None:
+                # env worker span + the two hand-off arrows: park→env
+                # (job.flow, opened at _park) and env→resume (opened
+                # here, consumed when the row reinstalls into a slot)
+                trace = self._trace_of(row)
+                fid = self._tracer.next_flow("resume")
+                self._tracer.span(("env", f"worker-{job.worker}"), tid,
+                                  job.started_at, job.resolved_at,
+                                  trace=trace, flow_in=job.flow,
+                                  flow_out=fid)
+                self._tracer.mark(trace, "env", job.started_at)
+                self._tracer.mark(trace, "resume_queued", job.resolved_at)
+                if isinstance(row.meta, dict):
+                    row.meta["_flow_in"] = fid
             row.forced_q = [tok.RESP] + list(job.response) + [tok.ENDRESP]
             row.status = "active"
             self.stats.resumes += 1
@@ -2426,6 +2552,11 @@ class ContinuousRolloutEngine:
                 self.stats.add_env_wait(tid, now - t0w)
                 if self.on_stage is not None:
                     self.on_stage("env", tid, t0w, now)
+                if self._tracer is not None:
+                    trace = self._trace_of(row)
+                    self._tracer.span(("env", "pool"), tid, t0w, now,
+                                      trace=trace)
+                    self._tracer.mark(trace, "decode", now)
                 row.forced_q = [tok.RESP] + list(resp) + [tok.ENDRESP]
                 row.status = "active"
                 del self._pending[slot], self._pending_t0[slot]

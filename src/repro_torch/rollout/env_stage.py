@@ -26,10 +26,10 @@ jobs and flags executing ones, whose late responses are dropped. A
 queue side (``EnvJob.not_before``); a ``PermanentToolError`` or a spent retry
 budget surfaces as ``job.error`` and the engine finishes the row with
 ``finish_reason="tool_error"``. ``healthy``/``mark_wedged``/``recover_dead``
-feed the engine's ``StageSupervisor``. No device work happens here.
-
-The JAX stage's chaos hooks (a worker kill, injected tool faults) come with
-chaos injection (ROADMAP.md, §1 item 6): ``chaos`` must be None until then.
+feed the engine's ``StageSupervisor``. A ``ChaosInjector`` (``chaos``)
+kills workers mid-job (``env_worker_kill``: the job stays stranded until the
+supervisor recovers it) and injects tool faults (``_chaos_tool_fault``). No
+device work happens here.
 """
 
 from __future__ import annotations
@@ -42,8 +42,9 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
 from repro_torch.core.supervisor import join_or_raise
-from repro_torch.envs.base import (CancelToken, ToolError,
-                                   TransientToolError, call_session)
+from repro_torch.envs.base import (CancelToken, PermanentToolError,
+                                   ToolError, TransientToolError,
+                                   call_session)
 
 
 @dataclass
@@ -64,9 +65,12 @@ class EnvJob:
     # completion for nothing
     cancel: CancelToken = field(default_factory=CancelToken)
     state: str = "queued"        # queued | executing | done
-    worker: int = -1             # executing worker's id
+    worker: int = -1             # executing worker's id (tracer track)
+    flow: int = 0                # park→env hand-off arrow (repro_torch.obs)
     attempts: int = 0            # tries so far (retry accounting)
     not_before: float = 0.0      # retry backoff: ineligible until then
+    chaos_transient_left: int = 0  # injected consecutive transient fails
+    chaos_permanent: bool = False  # injected permanent endpoint failure
 
     @property
     def cancelled(self) -> bool:
@@ -85,9 +89,11 @@ class EnvWorker(threading.Thread):
         self.last_beat = time.monotonic()   # liveness heartbeat (supervisor)
         self.poisoned = False    # marked wedged: excluded from the pool
                                  # complement, its job already recovered
+        self.chaos_killed = False
 
     def run(self):
         stage = self.stage
+        chaos = stage.chaos
         while True:
             self.last_beat = time.monotonic()
             job = stage._pop_eligible(worker=self)
@@ -95,6 +101,12 @@ class EnvWorker(threading.Thread):
                 if stage._stop.is_set():
                     return
                 continue
+            if chaos is not None and chaos.fire("env_worker_kill"):
+                # simulated abrupt death: no _finish, no cleanup — the job
+                # stays stranded in _executing (inflight count held) until
+                # the supervisor's recover_dead() re-queues it
+                self.chaos_killed = True
+                return
             if job.latency > 0 and job.attempts == 0 \
                     and not stage.sim_latency:
                 # interruptible: a timeout/abort wakes the worker NOW
@@ -103,6 +115,7 @@ class EnvWorker(threading.Thread):
             resp: List[int] = []
             try:
                 if not job.cancelled:
+                    stage._chaos_tool_fault(job)
                     resp = list(call_session(job.row.session, job.query,
                                              job.cancel))
             except ToolError as e:
@@ -133,9 +146,6 @@ class EnvStage:
                  retry_max: int = 3, retry_episode_cap: int = 0,
                  retry_base_s: float = 0.05, retry_max_s: float = 2.0,
                  seed: int = 0, chaos=None):
-        if chaos is not None:
-            raise NotImplementedError("EnvStage: chaos injection is not "
-                                      "ported yet (ROADMAP.md, §1 item 6)")
         if n_workers < 1:
             raise ValueError("env stage needs at least one worker")
         self.n_workers = n_workers
@@ -145,6 +155,7 @@ class EnvStage:
         self.retry_episode_cap = retry_episode_cap  # per episode (0 = off)
         self.retry_base_s = retry_base_s
         self.retry_max_s = retry_max_s
+        self.chaos = chaos                      # ChaosInjector or None
         self._rng = random.Random(seed)         # retry jitter only — never
                                                 # touches token sampling
         # guards: _queue/_executing/_done/_inflight (named apart from the
@@ -244,7 +255,9 @@ class EnvStage:
                 clone = EnvJob(row=job.row, query=job.query,
                                task_id=job.task_id, latency=0.0,
                                submitted_at=job.submitted_at,
-                               attempts=job.attempts)
+                               attempts=job.attempts, flow=job.flow,
+                               chaos_transient_left=job.chaos_transient_left,
+                               chaos_permanent=job.chaos_permanent)
                 self._queue.appendleft(clone)
                 self.recovered += 1
             self._env_cond.notify_all()
@@ -362,6 +375,27 @@ class EnvStage:
         return out
 
     # -- worker side ------------------------------------------------------
+    def _chaos_tool_fault(self, job: EnvJob):
+        """Injected tool failures (worker thread). One decision per job at
+        its first attempt: permanent beats transient; a transient hit
+        fails ``transient_fail_count`` consecutive attempts then lets the
+        real call through (retry-then-succeed, bit-identical stream)."""
+        chaos = self.chaos
+        if chaos is None:
+            return
+        if (job.attempts == 0 and not job.chaos_permanent
+                and job.chaos_transient_left == 0):
+            if chaos.fire("tool_error_permanent"):
+                job.chaos_permanent = True
+            elif chaos.fire("tool_error_transient"):
+                job.chaos_transient_left = chaos.cfg.transient_fail_count
+        if job.chaos_permanent:
+            raise PermanentToolError(
+                f"chaos: tool endpoint down for {job.task_id}")
+        if job.chaos_transient_left > 0:
+            job.chaos_transient_left -= 1
+            raise TransientToolError("chaos: transient tool failure")
+
     def _schedule_retry(self, job: EnvJob) -> bool:
         """Queue-side retry with exponential backoff + jitter. False once
         the per-call (``retry_max``) or per-episode

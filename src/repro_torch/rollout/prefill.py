@@ -38,6 +38,14 @@ resume that runs as one whole-sequence call folds its entire forced
 ``RESP … ENDRESP`` block into the prefill (response-prefill fusion): the
 logprob of each forced token comes off the hidden state at the position
 that predicts it, and the first token is a true sample past the block.
+
+Chaos (``prefill_worker_kill``): a killed worker returns at once and strands
+its claimed rows, whose chunked jobs may still have kernels in flight on its
+stream. It records an event on that stream as it dies; the supervisor's
+recovery (``engine._recover_prefill_claims``) makes the decode thread's
+stream wait on the event and only then drops the stranded caches and
+requeues the rows, so the dead stream's writes are ordered before any
+reuse. The rows prefill again from scratch on a live worker's stream.
 """
 from __future__ import annotations
 
@@ -214,6 +222,10 @@ class PrefillWorker(threading.Thread):
         self.claimed: List = []  # rows popped but not yet emitted (mutated
                                  # under eng._queue_lock); requeued by the
                                  # supervisor if this worker dies
+        self.chaos_killed = False
+        self.death_event = None  # chaos kill: recorded on self.stream
+        self.stranded: List[_Job] = []   # chaos kill: the jobs (and their
+                                         # caches) left for the recovery
         dev = engine.device
         self.stream = (torch.cuda.Stream(device=dev) if dev.type == "cuda"
                        else None)
@@ -256,6 +268,8 @@ class PrefillWorker(threading.Thread):
             if row is not None:
                 eng._stage_inflight.append(row)
                 self.claimed.append(row)
+        if row is not None and eng._tracer is not None:
+            eng._tracer.mark(eng._trace_of(row), "prefill")
         return row
 
     def _emit(self, job: _Job, first: int, lp: float,
@@ -271,6 +285,8 @@ class PrefillWorker(threading.Thread):
                          forced_first=bool(job.row.forced_q)
                          and not job.fused,
                          forced_lps=forced_lps or [], event=event)
+        if eng._tracer is not None:
+            eng._tracer.mark(eng._trace_of(job.row), "ready", ready.ready_at)
         with eng._queue_lock:
             if job.row in self.claimed:
                 self.claimed.remove(job.row)
@@ -320,6 +336,12 @@ class PrefillWorker(threading.Thread):
             job.spent += now - t0
             if eng.on_stage is not None:
                 eng.on_stage("prefill", row.req.task_id, t0, now)
+            if eng._tracer is not None:
+                # one span per (chunk or whole-sequence) call, on this
+                # worker's own track
+                eng._tracer.span(
+                    ("prefill", f"worker-{self.worker_id}"),
+                    row.req.task_id, t0, now, trace=eng._trace_of(row))
             return done
 
         if C == 0 or job.L <= C:
@@ -367,6 +389,17 @@ class PrefillWorker(threading.Thread):
         self._emit(job, first, lp)
         return True
 
+    def _die(self, jobs: Deque[_Job]):
+        """Simulated abrupt death (chaos): no requeue. The claimed rows
+        stay stranded in ``_stage_inflight`` until the supervisor's
+        recovery requeues them; the event on this stream lets the recovery
+        order the stream's in-flight writes before the caches are freed."""
+        self.chaos_killed = True
+        self.stranded = list(jobs)
+        if self.stream is not None:
+            self.death_event = torch.cuda.Event()
+            self.death_event.record(self.stream)
+
     # -- main loop ---------------------------------------------------------
     def run(self):
         eng = self.eng
@@ -379,6 +412,10 @@ class PrefillWorker(threading.Thread):
                 while not eng._stage_stop.is_set():
                     self.last_beat = time.monotonic()
                     row = self._try_pop()
+                    if row is not None and eng._chaos is not None \
+                            and eng._chaos.fire("prefill_worker_kill"):
+                        self._die(jobs)
+                        return
                     if row is not None:
                         # response-prefill fusion: fold a resume's whole
                         # forced block into the prefill when the job runs as
@@ -405,11 +442,13 @@ class PrefillWorker(threading.Thread):
                 # hand unfinished rows back so that abort/drain accounting
                 # sees them (rows drain() already swept out of
                 # _stage_inflight were aborted there: dropping them keeps
-                # one completion each)
-                with eng._queue_lock:
-                    for job in jobs:
-                        if job.row in eng._stage_inflight:
-                            eng._stage_inflight.remove(job.row)
-                            eng._sched.push(job.row, eng.stats.refills)
-                        if job.row in self.claimed:
-                            self.claimed.remove(job.row)
+                # one completion each); a chaos-killed worker strands its
+                # rows on purpose: the supervisor's recovery is under test
+                if not self.chaos_killed:
+                    with eng._queue_lock:
+                        for job in jobs:
+                            if job.row in eng._stage_inflight:
+                                eng._stage_inflight.remove(job.row)
+                                eng._sched.push(job.row, eng.stats.refills)
+                            if job.row in self.claimed:
+                                self.claimed.remove(job.row)

@@ -14,9 +14,10 @@ Scenarios, from the JAX package's tests: continuous equals one-shot
 (``:101``), forced tool tokens are budget-exempt (``:137``), preemption
 replay with ``resume_restore=False`` (``:186``), preemption at any step with
 snapshot restore (``test_paged_kv.py:173``, attention), pool exhaustion
-(``:340``) and a prompt larger than the pool (``:368``). Each stage the port
-does not have yet raises ``NotImplementedError`` at construction; the paged
-engine's default prefix cache runs."""
+(``:340``) and a prompt larger than the pool (``:368``). Each later stage's
+switch builds the engine and serves through it: the paged engine's default
+prefix cache, the prefill workers, the env stage, the tracer, chaos
+injection and the env stage's wedge detection."""
 import dataclasses
 import random
 
@@ -38,6 +39,8 @@ from repro.models import init_params
 from repro.rollout.engine import (ContinuousRolloutEngine, RolloutEngine,
                                   RolloutRequest)
 from repro_torch import bridge
+from repro_torch.core.chaos import ChaosConfig, ChaosInjector
+from repro_torch.obs import Tracer
 from repro_torch.configs import REGISTRY as PT_REGISTRY, reduced as pt_reduced
 from repro_torch.envs.base import Env as PtEnv
 from repro_torch.envs.tasks import make_env as pt_make_env
@@ -383,18 +386,61 @@ def test_prompt_larger_than_pool_finishes_capacity(weights):
 
 @pytest.mark.parametrize("flag", [
     dict(disagg_prefill=True), dict(env_stage=True),
-    dict(paged_kv=True, prefix_cache=True), dict(tracer=object()),
-    dict(chaos=object()), dict(supervise_wedge_s=1.0)])
+    dict(paged_kv=True, prefix_cache=True), dict(tracer=Tracer()),
+    dict(chaos=ChaosInjector(ChaosConfig(seed=0, prefill_worker_kill=1.0,
+                                         max_faults_per_site=1)),
+         disagg_prefill=True),
+    dict(supervise_wedge_s=1.0, env_stage=True)])
 def test_later_stages_raise(weights, flag):
-    """Each switch of a stage not ported yet raises at construction. The
-    prefix cache with the paged pool, the disaggregated prefill and the env
-    stage are ported: those cases build the engine and serve through it (a
-    GRPO pair, the sibling sharing the leader's pages; two rows spliced from
-    the prefill workers; a row with the env stage registered with the
-    supervisor). ``tests/test_torch_disagg.py`` and
-    ``tests/test_torch_env_stage.py`` hold the two stages against the JAX
-    engine."""
+    """Each later stage's switch builds the engine, which serves through
+    it: a GRPO pair over the prefix cache, the sibling sharing the leader's
+    pages; two rows spliced from the prefill workers; two rows with the env
+    stage registered with the supervisor; two traced rows, each episode
+    from ``queued`` to ``completed``; two rows whose first prefill worker
+    is killed, the supervisor requeueing its row and restarting it; the
+    env stage's wedge check on every supervision tick.
+    ``tests/test_torch_disagg.py``, ``tests/test_torch_env_stage.py``,
+    ``tests/test_torch_obs.py`` and ``tests/test_torch_faults.py`` hold them
+    against the JAX engine."""
     _, pcfg, _, _, pparams, ptrees = weights
+    if "tracer" in flag:
+        eng = PtContinuous(pcfg, pparams, device="cpu", max_len=32, **flag)
+        eng.set_adapters(0, ptrees[0])
+        _, preqs = _requests(2, 2, lambda i: 4)
+        comps = _drive(eng, preqs)
+        tr = flag["tracer"]
+        assert sorted(tr.components()) == [0, 1]
+        for c in comps.values():
+            seq = tr.state_sequence(c.meta["trace_id"])
+            assert seq[:3] == ["queued", "prefill", "decode"]
+            assert seq[-1] == "completed"
+        return
+    if "supervise_wedge_s" in flag:
+        eng = PtContinuous(pcfg, pparams, device="cpu", max_len=32, **flag)
+        eng.set_adapters(0, ptrees[0])
+        calls = []
+        mark = eng._env.mark_wedged
+        eng._env.mark_wedged = lambda s: calls.append(s) or mark(s)
+        _, preqs = _requests(2, 2, lambda i: 4)
+        comps = _drive(eng, preqs)
+        assert sorted(comps) == [0, 1] and calls and set(calls) == {1.0}
+        assert eng._env.wedged == 0
+        eng.shutdown()
+        return
+    if "chaos" in flag:
+        eng = PtContinuous(pcfg, pparams, device="cpu", max_len=32, **flag)
+        eng.set_adapters(0, ptrees[0])
+        _, preqs = _requests(2, 2, lambda i: 4)
+        pos = {eng.submit(r): i for i, r in enumerate(preqs)}
+        comps = {pos[c.submit_index]: c for c in eng.drain(deadline_s=60.0)}
+        assert sorted(comps) == [0, 1]
+        assert flag["chaos"].counts() == {"prefill_worker_kill": 1}
+        sup = eng.supervisor.counters
+        assert sup["prefill_worker_restarts"] >= 1
+        assert sup["prefill_worker_jobs_recovered"] == 1
+        assert eng.stats.splices == 2
+        eng.shutdown()
+        return
     if flag.get("disagg_prefill") or flag.get("env_stage"):
         eng = PtContinuous(pcfg, pparams, device="cpu", max_len=32, **flag)
         eng.set_adapters(0, ptrees[0])
@@ -422,8 +468,6 @@ def test_later_stages_raise(weights, flag):
         assert eng.prefix_cache and eng.stats.prefix_hits == 1
         assert eng._pages.used_pages == eng._prefix_idx.held_pages > 0
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        PtContinuous(pcfg, pparams, device="cpu", **flag)
 
 
 def test_paged_engine_defaults_raise_and_dense_default_runs(weights):

@@ -1134,3 +1134,133 @@ def test_kernels_build_once_under_two_threads(card):
     for t in threads:
         t.join(600)
     assert len(calls) == 1 and len(libs) == 2 and libs[0] is libs[1]
+
+
+# -- tracing, chaos and checkpoints on the card -----------------------------
+
+def test_checkpoint_roundtrip_of_card_trees_is_bit_equal(card, tmp_path):
+    """A manager holding fp32 adapter and AdamW trees on the card: the
+    store copies them to host (the int32 step too) and the loaded numpy
+    trees, put back on the card, are bit-equal to the originals."""
+    from repro_torch.bridge import lora_from_jax
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.manager import MultiTaskManager, TaskSpec
+    from repro_torch.train.optimizer import adamw_init
+    cfg = _qwen3_reduced()
+    ad = make_adapters(cfg, 1, seed=3, device="cuda", b_scale=0.2)[0]
+    opt = adamw_init(ad)
+    opt = {"m": tree_map(lambda t: torch.randn_like(t), opt["m"]),
+           "v": tree_map(lambda t: torch.rand_like(t), opt["v"]),
+           "step": torch.tensor(7, dtype=torch.int32, device="cuda")}
+    m = MultiTaskManager()
+    m.submit(TaskSpec("t", "gsm8k"), ad, opt)
+    path = save_checkpoint(str(tmp_path), m, step_tag="s")
+    st = load_checkpoint(path, MultiTaskManager()).state("t")
+    for want, got in ((ad, st.adapters), (opt, st.opt_state)):
+        back = lora_from_jax(got, "cuda")
+        wl, gl = tree_leaves(want), tree_leaves(back)
+        assert len(wl) == len(gl) > 0
+        for a, b in zip(wl, gl):
+            assert b.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)
+
+
+def test_chaos_killed_worker_reprefill_gives_unkilled_pool_bytes(card):
+    """A worker runs the first 8-token chunk of a row on its own stream
+    (behind a spin kernel, so the chunk is still in flight) and dies by
+    chaos, stranding the row; the recovery orders the dead stream before
+    freeing its cache and requeues the row, which a second worker
+    re-prefills on another stream. The spliced pool pages, first token and
+    logprob equal those of a run with no kill (qwen3-0.6b reduced, fp32)."""
+    from collections import deque
+    from repro_torch.core.chaos import ChaosConfig, ChaosInjector
+    from repro_torch.rollout.prefill import PrefillWorker, _Job
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    adapters = make_adapters(cfg, 2, seed=0, device="cuda", b_scale=0.2)
+    req = make_requests(1, 1, max_new_tokens=4, seed=5)[0]
+    req.prompt = list(req.prompt) + [7] * (20 - len(req.prompt))
+    out = []
+    for kill in (False, True):
+        eng = _stage_engine(cfg, params, adapters, paged_kv=True,
+                            prefix_cache=False, kv_page_size=8,
+                            prefill_chunk=8, chaos=ChaosInjector(ChaosConfig(
+                                seed=0, prefill_worker_kill=1.0,
+                                max_faults_per_site=1)) if kill else None)
+        eng.submit(req)
+        w = PrefillWorker(eng, 0)
+        row = w._try_pop()
+        assert row is not None
+        job = _Job(row)
+        if kill:
+            with torch.no_grad(), torch.cuda.stream(w.stream):
+                torch.cuda._sleep(50_000_000)       # keep the chunk in flight
+                assert not w._advance(job)          # chunk 1 of 3
+            assert eng._chaos.fire("prefill_worker_kill")
+            w._die(deque([job]))
+            eng._workers = [w]                      # never started: dead
+            assert w.death_event is not None and w.stranded
+            assert eng._recover_prefill_claims() == 1
+            assert w.death_event is None and not w.stranded
+            w = PrefillWorker(eng, 1)
+            assert w.stream != eng._workers[0].stream
+            row = w._try_pop()
+            assert row is not None and row.req is req
+            job = _Job(row)
+        with torch.no_grad(), torch.cuda.stream(w.stream):
+            while not w._advance(job):
+                pass
+        with torch.no_grad():
+            assert eng._splice_ready_rows()
+        slot = next(s for s, r in enumerate(eng._rows) if r is row)
+        pages = torch.tensor(eng._slot_pages[slot], device="cuda")
+        torch.cuda.synchronize()
+        rr_first = row.gen[0]
+        out.append((rr_first, row.lps[0], eng._cache["kp"][:, pages].cpu(),
+                    eng._cache["vp"][:, pages].cpu(),
+                    int(eng._cache["pos"][slot])))
+        eng.check_page_invariants()
+        eng._workers = []
+        eng.shutdown()
+    (f1, l1, k1, v1, p1), (f2, l2, k2, v2, p2) = out
+    assert (f1, p1) == (f2, p2) and l1 == l2
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_traced_engine_launches_what_the_untraced_one_does(card):
+    """The same requests through the paged engine with and without a
+    tracer: equal kernel launches (paged decode, sgmv calls and CUDA
+    launches), equal forwards, equal tokens; the tracer saw every
+    episode."""
+    from repro_torch.obs import Tracer
+    cfg = _qwen3_reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    adapters = make_adapters(cfg, 2, seed=0, device="cuda", b_scale=0.2)
+    reqs = make_requests(2, 2, max_new_tokens=6, seed=9)
+    runs = []
+    for tracer in (None, Tracer()):
+        eng = ContinuousRolloutEngine(cfg, params, max_slots=4,
+                                      max_adapters=2, max_len=64,
+                                      paged_kv=True, kv_page_size=8,
+                                      tracer=tracer, device="cuda")
+        for i, a in enumerate(adapters):
+            eng.set_adapters(i, a)
+        counts = (paged.LAUNCHES, sgmv.LAUNCHES, sgmv.CUDA_LAUNCHES,
+                  gqa.LAUNCHES)
+        before = [c.n for c in counts]
+        for r in reqs:
+            eng.submit(r)
+        comps = eng.drain(deadline_s=120.0)
+        torch.cuda.synchronize()
+        runs.append(([c.n - b for c, b in zip(counts, before)],
+                     {k: c.n for k, c in eng.forward_counts.items()},
+                     sorted((c.submit_index, list(c.tokens)) for c in comps)))
+        if tracer is not None:
+            assert len(tracer.components()) == len(reqs)
+            assert all(tracer.state_sequence(t)[-1] == "completed"
+                       for t in tracer.components())
+        eng.shutdown()
+    assert runs[0] == runs[1]
+    assert runs[0][0][0] > 0 and runs[0][0][1] > 0

@@ -30,11 +30,14 @@ path.
   paged: equal completions and finish reasons, and the other tenant's
   rows as in a run without the abort.
 - A commit's adapter tree shares no storage with the tree the rollout
-  thread holds; ``RuntimeConfig()`` raises without a card; every switch not
-  ported raises ``NotImplementedError`` (the paged pool's default prefix
-  cache, ported, builds); the ``multi_tenant_train`` entry point runs on the
-  CPU."""
+  thread holds; ``RuntimeConfig()`` raises without a card; each later
+  stage's switch reaches the engine (the prefix cache, the prefill workers,
+  the env stage) or runs (tracing, chaos, checkpoints, ``adopt_checkpoint``
+  and ``run_with_recovery``: ``tests/test_torch_obs.py`` and
+  ``tests/test_torch_faults.py`` hold them against the JAX package); the
+  ``multi_tenant_train`` entry point runs on the CPU."""
 import dataclasses
+import os
 import random
 
 import numpy as np
@@ -62,7 +65,8 @@ from repro_torch import bridge
 from repro_torch.configs import REGISTRY as PT_REGISTRY, reduced as pt_reduced
 from repro_torch.core.chaos import ChaosConfig
 from repro_torch.core.manager import TaskSpec
-from repro_torch.core.runtime import MARLaaSRuntime, RuntimeConfig
+from repro_torch.core.runtime import (FailureInjector, MARLaaSRuntime,
+                                      RuntimeConfig)
 from repro_torch.envs.tasks import REGISTRY as P_ENVS
 from repro_torch.models import tree_leaves
 from repro_torch.rollout.engine import (ContinuousRolloutEngine as PContinuous,
@@ -457,20 +461,26 @@ def test_default_config_needs_a_card(weights):
 
 @pytest.mark.parametrize("flag,item", [
     (dict(disagg_prefill=True), "item 4"), (dict(env_stage=True), "item 5"),
-    (dict(paged_kv=True), "item 3"), (dict(trace=True), "item 6"),
-    (dict(chaos=ChaosConfig(torn_checkpoint=0.5)), "item 6"),
-    (dict(checkpoint_dir="ck", checkpoint_every=1), "item 6")],
+    (dict(paged_kv=True), "item 3"), (dict(trace=True), "trace"),
+    (dict(chaos=ChaosConfig(seed=1, torn_checkpoint=1.0,
+                            max_faults_per_site=1),
+          env_stage=True, supervisor_wedge_s=30.0), "chaos"),
+    (dict(checkpoint_every=1, checkpoint_keep_last=1), "checkpoint")],
     ids=["disagg_prefill", "env_stage", "prefix_cache", "trace", "chaos",
          "checkpoint"])
-def test_switches_not_ported_raise(weights, flag, item):
-    """Each switch of a stage not ported yet raises. ``paged_kv=True`` with
-    the default prefix cache (ROADMAP item 3) is ported: the runtime builds
-    its engine with the cache on and admission charges shared prompt pages
-    once. So are the disaggregated prefill (item 4) and the env stage (item
-    5): the runtime hands their switches and knobs to its engine
+def test_switches_not_ported_raise(weights, flag, item, tmp_path):
+    """Each later stage's switch reaches the runtime's engine, or runs.
+    ``paged_kv=True`` builds the engine with the prefix cache on and
+    admission charges shared prompt pages once; the runtime hands the
+    prefill workers' and the env stage's switches and knobs to its engine
     (``tests/test_torch_disagg.py`` and ``tests/test_torch_env_stage.py``
-    run them against the JAX runtime)."""
-    _, pcfg, _, pparams, _ = weights
+    run them against the JAX runtime). ``trace``: one tracer shared by the
+    runtime, the manager, the engine and its supervisor, and a one-step run
+    traces every episode to its commit. ``chaos``: one injector shared by
+    the engine, its env stage and the checkpoint store, and a torn snapshot
+    fails the run (the newest complete snapshot then is the one before).
+    Checkpoints: one snapshot a commit, the older pruned."""
+    _, pcfg, _, pparams, trees = weights
     if item == "item 4":
         rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(
             device="cpu", prefill_workers=2, prefill_chunk=9, **flag))
@@ -492,19 +502,75 @@ def test_switches_not_ported_raise(weights, flag, item):
         assert rt.cengine.prefix_cache and rt.acfg.prefix_shared
         assert rt.cengine._prefix_idx is not None
         return
-    with pytest.raises(NotImplementedError, match=item):
-        MARLaaSRuntime(pcfg, pparams, RuntimeConfig(device="cpu", **flag))
+    ckpt = str(tmp_path / "ck")
+    rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(
+        device="cpu", max_len=48, seed=3, checkpoint_dir=ckpt, **flag))
+    rt.submit_task(TaskSpec(task_id="gsm-0", env_name="gsm8k", group_size=2,
+                            num_groups=1, max_new_tokens=4,
+                            target_steps=2),
+                   bridge.lora_from_jax(trees[0], "cpu"))
+    if item == "trace":
+        tr = rt.tracer
+        assert tr is not None and rt.mgr.tracer is tr
+        assert rt.cengine._tracer is tr and rt.cengine.supervisor.tracer is tr
+        rt.run(timeout_s=300)
+        seqs = [tr.state_sequence(t) for t in tr.components()]
+        assert len(seqs) == 4
+        assert all(q[0] == "submitted" and q[-1] == "committed"
+                   for q in seqs)
+        return
+    if item == "chaos":
+        assert rt.chaos is not None
+        assert rt.cengine._chaos is rt.chaos
+        assert rt.cengine._env.chaos is rt.chaos
+        assert rt.cengine.supervise_wedge_s == 30.0
+        rt.rcfg.checkpoint_every = 1
+        with pytest.raises(Exception, match="torn checkpoint"):
+            rt.run(timeout_s=300)
+        assert rt.chaos.counts() == {"torn_checkpoint": 1}
+        from repro_torch.checkpoint import latest_checkpoint
+        assert latest_checkpoint(ckpt) is None   # the only one is torn
+        return
+    rt.run(timeout_s=300)
+    snaps = sorted(os.listdir(ckpt))
+    assert snaps == ["LATEST", "step_00000002"]
 
 
-def test_checkpoint_entry_points_raise_and_disabled_chaos_runs(weights):
-    _, pcfg, _, pparams, _ = weights
+def test_checkpoint_entry_points_raise_and_disabled_chaos_runs(weights,
+                                                               tmp_path):
+    """A disabled ``ChaosConfig`` builds no injector; ``adopt_checkpoint``
+    restores a snapshot into a fresh runtime (trees on its device, bit-equal
+    to the snapshot's) and ``run_with_recovery`` restarts a crashed run from
+    its newest snapshot and finishes it."""
+    _, pcfg, _, pparams, trees = weights
     rt = MARLaaSRuntime(pcfg, pparams, RuntimeConfig(device="cpu",
                                                      chaos=ChaosConfig()))
     assert rt.chaos is None and rt.tracer is None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.adopt_checkpoint("ck")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.run_with_recovery()
+    ckpt = str(tmp_path / "ck")
+    rcfg = RuntimeConfig(device="cpu", max_len=48, seed=3,
+                         checkpoint_dir=ckpt, checkpoint_every=1)
+    rt = MARLaaSRuntime(pcfg, pparams, rcfg,
+                        failure=FailureInjector(fail_after_commits=2))
+    rt.submit_task(TaskSpec(task_id="gsm-0", env_name="gsm8k", group_size=2,
+                            num_groups=1, max_new_tokens=4, target_steps=3),
+                   bridge.lora_from_jax(trees[0], "cpu"))
+    fin = rt.run_with_recovery(timeout_s=300)
+    assert fin is not rt and fin.mgr.all_done()
+    assert fin.mgr.state("gsm-0").version == 3
+    assert fin.rec.counters_snapshot()["checkpoint_restarts"] == 1
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.manager import MultiTaskManager
+    path = os.path.join(ckpt, "step_00000001")
+    want = load_checkpoint(path, MultiTaskManager()).state("gsm-0")
+    fresh = MARLaaSRuntime(pcfg, pparams, rcfg)
+    fresh.adopt_checkpoint(path)
+    got = fresh.mgr.state("gsm-0")
+    assert got.version == 1 and got.status == "admitted"
+    for a, b in zip(tree_leaves(got.adapters) + tree_leaves(got.opt_state),
+                    tree_leaves(bridge.lora_from_jax(want.adapters, "cpu"))
+                    + tree_leaves(bridge.lora_from_jax(want.opt_state, "cpu"))):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 def test_multi_tenant_train_entry_point(capsys):
