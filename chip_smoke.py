@@ -143,6 +143,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     launches over both incarnations; prints the bytes of a snapshot, the
     seconds of a save and of its hold of the manager lock, decode ms/step
     inside and outside saves, and the last commit beside run D's.
+14. families: the moe, ssm and hybrid families at full published width in
+    bf16 (random weights from seed 0, drawn on the card layer by layer;
+    adapters with b ~ N(0, 0.02^2) in every subtree). First each kernel at
+    their shapes against its plain version: both decode kernels at rep 1
+    (deepseek-moe 16/16 heads of 128, zamba2 32/32 heads of 64; bf16 and
+    fp32, timed in bf16), sgmv at the SSD projections (zamba2 2048->8384
+    and 4096->2048, mamba2 1536->6448 and 3072->1536), zamba2's shared MLP
+    and deepseek-moe's shared experts, token_logprob forward and backward
+    at V=32000 (d 2048), 50280 (d 1536, a ragged last tile) and 102400
+    (d 2048, the untied head). (a) zamba2-1.2b through the runtime at run
+    D's settings (run Z: paged pool, asynchronous trainer, one prefill
+    worker, the env stage, 2 gsm8k and 2 hopsearch tenants): run D's
+    checks, page invariants after every step, no prefix hit (the cache
+    holds recurrent state), paged_gqa_decode 6 launches a decode step (one
+    a shared-block invocation), sgmv 112 a forward (ssm_in and ssm_out on
+    38 layers, q/k/v/o/mlp on 6 invocations), token_logprob 1 + 1 a commit;
+    then a served round and 4 of its rows teacher-forced in fp32 on the card
+    against the CPU. (b) mamba2-780m at phase 8's settings (tenant-1
+    preempted: its rows' ssm/conv state snapshots to host and restores; no
+    decode-attention launch; the largest snapshot of a row printed), one
+    GRPO step, the fp32 check on 4 of its rows. (c) deepseek-moe-16b:
+    phase 4's served round (gqa_decode 28 launches a step), phase 8's run
+    (paged_gqa_decode 28) on two engines (equal streams, logprob bits and
+    drops), one GRPO step, the assignments dropped at the config's capacity
+    factor 1.25 in each (live tokens only in decode), the peak memory, and
+    the fp32 check on its first P14_MOE_TF_LAYERS layers.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -211,7 +237,10 @@ P12_FP32_NEW = 32       # new tokens a row in phase 12's fp32 card check
 # run_with_recovery
 P13_RUNS = {"T": dict(RT_RUNS["D"], trace=True)}
 RT_RUN_ENVS["T"] = RT_RUN_ENVS["D"]
-ALL_RUNS = dict(RT_RUNS, **P13_RUNS)
+# phase 14 (a): run D's settings on zamba2-1.2b
+P14_RUNS = {"Z": dict(RT_RUNS["D"])}
+RT_RUN_ENVS["Z"] = RT_RUN_ENVS["D"]
+ALL_RUNS = dict(RT_RUNS, **P13_RUNS, **P14_RUNS)
 P13_CHAOS = dict(seed=0, prefill_worker_kill=1.0, env_worker_kill=1.0,
                  tool_error_transient=1.0, snapshot_drop=1.0,
                  max_faults_per_site=1)
@@ -225,6 +254,10 @@ P11_PROMPTS, P11_GROUP, P11_HEADER = 2, 4, 128   # phase 11: 4 tenants x 2 promp
 P11_MAX_NEW, P11_LATE_AT = 64, 4                 # x groups of 4 = 32 rows
 P11_SMALL_POOL = 48     # pages: less than the resident set plus the index
 P11_FP32_NEW = 32       # new tokens a row in phase 11's fp32 card check
+P14_HYBRID, P14_SSM, P14_MOE = "zamba2-1.2b", "mamba2-780m", "deepseek-moe-16b"
+P14_MOE_TF_LAYERS = 4   # phase 14 (c): depth of the fp32 card-vs-CPU check (the
+                        # full 28 layers hold 67.6 GB in fp32, too much for the
+                        # host's memory beside the card's copy)
 
 
 def log(msg):
@@ -595,7 +628,7 @@ def sgmv_plan_sweep(sgmv, plan, d, dout, fn, sets):
     return out
 
 
-def check_sgmv(torch, sgmv, ref, g, S_p):
+def check_sgmv(torch, sgmv, ref, g, S_p, specs=None):
     """Both epilogues of the sgmv kernel against their plain versions: sgmv
     (the fp32 product) and sgmv_add_ (the scaled delta added into y in place,
     as the serving path calls it). Cases: the six projections at decode
@@ -608,15 +641,17 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     their plain versions, the library yardstick (a gather and two bmm; for
     sgmv_add_ also the scale and the add), the eager call (sgmv_add_ as the
     batched LoraCtx calls it: adapters checked once a forward, autograd
-    off; sgmv as a user calls it, with its checks) and the bound."""
+    off; sgmv as a user calls it, with its checks) and the bound.
+    `specs` replaces the case list (phase 14's projections)."""
     r = 16
     bf16 = torch.bfloat16
-    specs = [(16, 4, d, dout, bf16, "decode") for d, dout in SGMV_PAIRS]
-    specs += [(16 * S_p, 4, d, dout, bf16, "prefill") for d, dout in SGMV_PAIRS]
-    specs += [(16, 4, 1024, 6144, torch.float32, "decode fp32"),
-              (16, 16, 1024, 6144, bf16, "one row a slot"),
-              (2048, 4, 1024, 6144, bf16, "continuous prefill"),
-              (8, 4, 1024, 6144, bf16, "radix suffix")]
+    if specs is None:
+        specs = [(16, 4, d, dout, bf16, "decode") for d, dout in SGMV_PAIRS]
+        specs += [(16 * S_p, 4, d, dout, bf16, "prefill") for d, dout in SGMV_PAIRS]
+        specs += [(16, 4, 1024, 6144, torch.float32, "decode fp32"),
+                  (16, 16, 1024, 6144, bf16, "one row a slot"),
+                  (2048, 4, 1024, 6144, bf16, "continuous prefill"),
+                  (8, 4, 1024, 6144, bf16, "radix suffix")]
 
     def gathered_bmm(x, a, b, ids):
         il = ids.long()
@@ -732,7 +767,7 @@ def check_sgmv(torch, sgmv, ref, g, S_p):
     return cases
 
 
-def check_token_logprob(torch, tlp, ref, g, R_main):
+def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
     """Forward and backward kernels against their plain versions. Timed at
     the smoke's training batch (R_main token rows) and a production
     micro-batch (PROD_ROWS), qwen3-0.6b widths in bf16 with the tied
@@ -748,17 +783,22 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
     must stay within tlp.SCRATCH_LIMIT and its launches must match its plan
     (two products per vocab chunk and a reduce). The bf16 records also
     carry their plans (forward: vocab slices and blocks; backward: vocab
-    chunk, K-splits, planned scratch) and, where timed, the TFLOP/s."""
+    chunk, K-splits, planned scratch) and, where timed, the TFLOP/s.
+    `cases` (R, d, V, dtype, softcap, layout, timed) replaces the case list
+    (phase 14's widths and vocabularies); none of them is then the main
+    case."""
     import torch.nn.functional as F
     d, V = 1024, 151936
     fwd_cases, bwd_cases = [], []
-    for R, Vc, dt, cap, layout, timed in (
-            (R_main, V, torch.bfloat16, 0.0, "tied", True),
-            (PROD_ROWS, V, torch.bfloat16, 0.0, "tied", True),
-            (300, 5003, torch.float32, 0.0, "tied", False),
-            (300, 5003, torch.bfloat16, 30.0, "tied", False),
-            (300, 5003, torch.float32, 30.0, "untied", False),
-            (300, 5003, torch.bfloat16, 0.0, "untied", False)):
+    main_cases = cases is None
+    if cases is None:
+        cases = [(R_main, d, V, torch.bfloat16, 0.0, "tied", True),
+                 (PROD_ROWS, d, V, torch.bfloat16, 0.0, "tied", True),
+                 (300, d, 5003, torch.float32, 0.0, "tied", False),
+                 (300, d, 5003, torch.bfloat16, 30.0, "tied", False),
+                 (300, d, 5003, torch.float32, 30.0, "untied", False),
+                 (300, d, 5003, torch.bfloat16, 0.0, "untied", False)]
+    for R, d, Vc, dt, cap, layout, timed in cases:
         h = torch.randn(R, d, generator=g, device="cuda").to(dt)
         if layout == "tied":     # the embedding table [V, d] read as W = table.T
             w = (torch.randn(Vc, d, generator=g, device="cuda") * 0.02).to(dt).T
@@ -808,7 +848,7 @@ def check_token_logprob(torch, tlp, ref, g, R_main):
                                  f"(tol {tol}), dh err {b_err:.3e} (tol "
                                  f"{dh_tol} x {dh_scale:.3e})")
         shape = dict(R=R, d=d, V=Vc, dtype=str(dt).split(".")[1], softcap=cap,
-                     layout=layout, main=R == R_main and timed)
+                     layout=layout, main=main_cases and R == R_main and timed)
         fc = dict(shape, max_abs_err=f_err, tol=tol, cuda_launches_per_call=n_fwd)
         bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale,
                   cuda_launches_per_call=n_bwd, scratch_bytes=scratch)
@@ -1291,6 +1331,24 @@ def grpo_requests(env, rng, task_id):
     return reqs
 
 
+def sgmv_per_forward(cfg):
+    """sgmv launches a forward of `cfg`: one an adapted projection, as
+    ``applicable_targets`` names them, in every layer, and in the hybrid's
+    shared block at each of its invocations (qwen3-0.6b: 6 x 28 = 168)."""
+    from repro_torch.lora.adapters import applicable_targets
+    from repro_torch.models.model import n_attn_layers
+    t = applicable_targets(cfg)
+    return (len(t["layers"]) * cfg.num_layers
+            + (len(t["shared"]) * n_attn_layers(cfg) if t["shared"] else 0))
+
+
+def attn_per_step(cfg):
+    """Decode-attention launches a decode step: one an attention layer (the
+    hybrid's shared-block invocations; none for ssm)."""
+    from repro_torch.models.model import n_attn_layers
+    return n_attn_layers(cfg)
+
+
 def count_all(kernel_modules, reset=False):
     """Every kernel wrapper's launch count (set to 0 first with reset)."""
     counts = {}
@@ -1301,8 +1359,8 @@ def count_all(kernel_modules, reset=False):
     return counts
 
 
-def train_phase(torch, cfg, params, counters, card):
-    """Phase 6: TRAIN_ITERS iterations of generate -> to_trajectory_batch ->
+def train_phase(torch, cfg, params, counters, card, iters=TRAIN_ITERS, tag="6"):
+    """Phase 6: `iters` iterations of generate -> to_trajectory_batch ->
     make_train_step at full size, one tenant. Returns the record, the last
     batch, and the adapter and optimizer state that step started from."""
     from repro_torch.envs.tasks import make_env
@@ -1323,7 +1381,7 @@ def train_phase(torch, cfg, params, counters, card):
     env, rng = make_env("gsm8k"), random.Random(7)
     steps = []
     count_all(counters, reset=True)
-    for it in range(TRAIN_ITERS):
+    for it in range(iters):
         results, st = engine.generate(grpo_requests(env, rng, "tenant-0"), [lora])
         for r in results:
             if not all(math.isfinite(lp) and lp <= 0 for lp in r["gen_logprobs"]):
@@ -1365,7 +1423,7 @@ def train_phase(torch, cfg, params, counters, card):
                    **{k: m[k] for k in ("loss", "pg_loss", "kl", "entropy",
                                         "grad_norm")})
         steps.append(rec)
-        log(f"[6 train] step {it}: {tb.num_rows} rows x {S - 1} positions "
+        log(f"[{tag} train] {cfg.name} step {it}: {tb.num_rows} rows x {S - 1} positions "
             f"({loss_tokens:.0f} loss tokens), train {rec['train_ms']:.1f} ms = "
             f"{rec['trained_tokens_per_s']:.1f} trained tok/s, peak "
             f"{rec['peak_mem_gib']:.2f} GiB; loss {m['loss']:.6f} kl {m['kl']:.6f} "
@@ -1505,14 +1563,16 @@ def train_check_bf16(torch, cfg, params, tb, start, tc):
 # phases 8 and 9: the continuous engine over the paged KV pool
 # ---------------------------------------------------------------------------
 
-def continuous_phase(torch, cfg, params, adapters, counters, card):
+def continuous_phase(torch, cfg, params, adapters, counters, card, tag="8"):
     """Phase 8: ContinuousRolloutEngine over the paged pool at full size,
     CONT_PER_TENANT gsm8k requests per tenant on CONT_SLOTS slots. The last
     tenant's requests arrive after decode step PREEMPT_AT with priority 1:
     tenant-1 is preempted to make room (its rows snapshot to host and restore
     when slots free), so prefills and restores happen mid-decode. Checks the
     engine's invariants after every step and the kernels' launch counts over
-    the run. Returns the record and the completions."""
+    the run (``attn_per_step`` and ``sgmv_per_forward`` of `cfg`), and records
+    the largest host snapshot a row took. Returns the record and the
+    completions."""
     import numpy as np
     from repro_torch.launch.serve import make_requests
     from repro_torch.rollout.engine import ContinuousRolloutEngine
@@ -1535,6 +1595,12 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
         forwards["n"] += 1
         return refill(*a)
     eng._refill_fn = counted_refill
+    snap_bytes, try_add = [], eng._snap_store.try_add
+
+    def sized_add(snap):
+        snap_bytes.append(snap.nbytes)
+        return try_add(snap)
+    eng._snap_store.try_add = sized_add
     for r in reqs:
         if r not in late:
             eng.submit(r)
@@ -1552,12 +1618,12 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
             # make room for it, snapshot to host and restore when slots free
             preempted = eng.preempt_tenant("tenant-1")
             if not preempted:
-                raise AssertionError("phase 8: tenant-1 had no resident row")
+                raise AssertionError(f"phase {tag}: tenant-1 had no resident row")
             for r in late:
                 eng.submit(r)
         comps += eng.drain_completions()
         if steps > 50 * CONT_MAX_NEW:
-            raise AssertionError("phase 8: the engine did not drain")
+            raise AssertionError(f"phase {tag}: the engine did not drain")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = count_all(counters)
@@ -1566,25 +1632,25 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
     pages = eng.page_stats()
     idx = sorted(c.submit_index for c in comps)
     if idx != list(range(len(reqs))):
-        raise AssertionError(f"phase 8: completions {idx}")
+        raise AssertionError(f"phase {tag}: completions {idx}")
     if not (st.preemptions > 0 and st.restores > 0 and st.replays == 0):
-        raise AssertionError(f"phase 8: preemptions {st.preemptions} restores "
+        raise AssertionError(f"phase {tag}: preemptions {st.preemptions} restores "
                              f"{st.restores} replays {st.replays}")
     if pages["kv_pages_peak"] > POOL_PAGES or pages["kv_pages_used"] != 0:
-        raise AssertionError(f"phase 8: pages {pages}")
-    n_sgmv = 6 * cfg.num_layers * (st.decode_steps + forwards["n"])
-    want = {"paged_gqa_decode": cfg.num_layers * st.decode_steps, "gqa_decode": 0,
-            "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
+        raise AssertionError(f"phase {tag}: pages {pages}")
+    n_sgmv = sgmv_per_forward(cfg) * (st.decode_steps + forwards["n"])
+    want = {"paged_gqa_decode": attn_per_step(cfg) * st.decode_steps,
+            "gqa_decode": 0, "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
     got = {k: launches[k] for k in want}
     if got != want:
-        raise AssertionError(f"phase 8: launches {got}, want {want}")
+        raise AssertionError(f"phase {tag}: launches {got}, want {want}")
     for c in comps:
         gen = c.tokens[c.prompt_len:]
         if not 1 <= len(gen) <= CONT_MAX_NEW or \
                 not all(0 <= t < cfg.vocab_size for t in gen):
-            raise AssertionError(f"phase 8: row of {len(gen)} tokens")
+            raise AssertionError(f"phase {tag}: row of {len(gen)} tokens")
         if not all(np.isfinite(lp) and lp <= 0 for lp in c.gen_logprobs):
-            raise AssertionError("phase 8: non-finite or positive logprob")
+            raise AssertionError(f"phase {tag}: non-finite or positive logprob")
     decode_tokens = st.occupied_row_steps
     rec = dict(requests=len(reqs), slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
                page=PAGE, pool_pages=POOL_PAGES, max_new_tokens=CONT_MAX_NEW,
@@ -1598,9 +1664,11 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
                preempted_rows=preempted, preemptions=st.preemptions,
                restores=st.restores, snapshots=st.snapshots, replays=st.replays,
                replay_tokens_saved=st.replay_tokens_saved,
+               snapshot_bytes_per_row_max=max(snap_bytes, default=0),
+               snapshot_drops=st.snapshot_drops,
                kv_pages_peak=pages["kv_pages_peak"], wall_s=wall,
                peak_mem_gib=peak_gib, launches=launches, card=card)
-    log(f"[8 continuous] {len(reqs)} requests ({TENANTS} tenants) on {CONT_SLOTS} slots, "
+    log(f"[{tag} continuous] {cfg.name}: {len(reqs)} requests ({TENANTS} tenants) on {CONT_SLOTS} slots, "
         f"paged pool {POOL_PAGES} pages x {PAGE} tokens, max_len {CONT_MAX_LEN}: "
         f"{st.decode_steps} decode steps, {decode_tokens} decode tokens in "
         f"{st.decode_seconds:.3f} s = {rec['decode_tokens_per_s']:.1f} tok/s "
@@ -1608,7 +1676,8 @@ def continuous_phase(torch, cfg, params, adapters, counters, card):
         f"({forwards['n']} prefill forwards, {st.prefill_seconds:.3f} s), slot "
         f"utilization {st.slot_utilization():.3f}, kv_pages_peak "
         f"{pages['kv_pages_peak']:.0f}, {preempted} rows preempted -> "
-        f"{st.restores} restores, {st.replays} replays; peak memory "
+        f"{st.restores} restores, {st.replays} replays, a row's snapshot "
+        f"{rec['snapshot_bytes_per_row_max'] / 2**20:.1f} MiB at most; peak memory "
         f"{peak_gib:.2f} GiB; wall {wall:.2f} s; launches {got} on {card}")
     return rec, comps
 
@@ -1813,6 +1882,8 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
         out = step()
         steps.append((t0, time.monotonic(), eng.stats.decode_steps - d0,
                       on_decode_thread() - f0))
+        if run in P14_RUNS:      # outside the timed interval
+            eng.check_page_invariants()
         return out
     eng.step = timed_step
     train_step, metrics = rt._train_step_for(rt.mgr.spec_for(tids[0])), []
@@ -1858,12 +1929,12 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     if forwards["decode"] != decode_steps:
         raise AssertionError(f"phase 10 {run}: forwards {forwards}, "
                              f"{decode_steps} decode steps")
-    n_sgmv = 6 * cfg.num_layers * sum(forwards.values())
+    n_sgmv = sgmv_per_forward(cfg) * sum(forwards.values())
     attn = "paged_gqa_decode" if ALL_RUNS[run].get("paged_kv") else "gqa_decode"
     want = {"gqa_decode": 0, "paged_gqa_decode": 0, "sgmv": n_sgmv,
             "sgmv_cuda": n_sgmv, "token_logprob_fwd": commits,
             "token_logprob_bwd": commits}
-    want[attn] = cfg.num_layers * decode_steps
+    want[attn] = attn_per_step(cfg) * decode_steps
     got = {k: launches[k] for k in want}
     if run == "A":
         if commits != len(RT_ENVS) * RT_SPEC["target_steps"] or acc != dict(
@@ -1880,11 +1951,13 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     else:
         st_ = eng.stats
         if eng._pages.used_pages != eng._prefix_idx.held_pages \
-                or (run == "C" and st_.prefix_hits == 0):
+                or (run == "C" and st_.prefix_hits == 0) \
+                or (run in P14_RUNS and (st_.prefix_hits or st_.cow_forks
+                                         or eng._prefix_idx.held_pages)):
             raise AssertionError(f"phase 10 {run}: {eng._pages.used_pages} pages "
                                  f"held, {eng._prefix_idx.held_pages} by the index; "
                                  f"{st_.prefix_hits} prefix hits")
-    if run in ("D", "T"):
+    if run in ("D", "T") or run in P14_RUNS:
         st_, waits = eng.stats, rt.rec.env_wait_by_task()
         agentic = {tid for tid, env in zip(tids, envs) if env == "hopsearch"}
         if not (st_.parks > 0 and st_.tool_wait_slot_steps == 0
@@ -1948,7 +2021,8 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             prefill_s=st_.prefill_seconds, decode_stall_s=st_.decode_stall_seconds,
             splice_s=st_.splice_seconds, splice_wait_s=st_.splice_wait_seconds,
             env_wait_by_task=rt.rec.env_wait_by_task())
-    log(f"[{13 if run in P13_RUNS else 10} runtime {run}] {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
+    phase = 13 if run in P13_RUNS else "14a" if run in P14_RUNS else 10
+    log(f"[{phase} runtime {run}] {cfg.name}: {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
         f"steps ({ALL_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, "
         f"{commits} commits, rows {acc}; {decode_steps} decode steps "
         f"({prefill_forwards} prefill forwards {forwards}), "
@@ -2791,6 +2865,322 @@ def fault_phase(torch, cfg, params, counters, card, d_rec, device="cuda"):
         tracing_cost_decode_median=cost)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the moe, ssm and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+P14_SGMV = ((P14_HYBRID, "ssm_in", 2048, 8384), (P14_HYBRID, "ssm_out", 4096, 2048),
+            (P14_HYBRID, "shared mlp_in", 2048, 16384),
+            (P14_HYBRID, "shared mlp_out", 8192, 2048),
+            (P14_SSM, "ssm_in", 1536, 6448), (P14_SSM, "ssm_out", 3072, 1536),
+            (P14_MOE, "shared-expert mlp_in", 2048, 5632),
+            (P14_MOE, "shared-expert mlp_out", 2816, 2048))
+P14_VOCAB = ((P14_HYBRID, 2048, 32000, "tied"), (P14_SSM, 1536, 50280, "tied"),
+             (P14_MOE, 2048, 102400, "untied"))
+P14_DECODE = ((P14_MOE, 16, 128), (P14_HYBRID, 32, 64))   # (arch, H = KVH, hd)
+
+
+def check_family_decode(torch, gqa, paged, ref, g):
+    """Both decode kernels at phase 14's rep-1 shapes (deepseek-moe's MHA,
+    16 heads of 128, and zamba2's shared block, 32 heads of 64): B=16, a
+    512-token cache (contiguous; paged in 16-token pages handed out in a
+    random order), pos 1 to 512, bf16 and fp32. Each against its plain
+    version, two calls with the same bits, one CUDA launch a call; the bf16
+    cases timed (kernel, plain, library, eager call, bound)."""
+    B, S, page = 16, 512, 16
+    out = {"gqa_decode": [], "paged_gqa_decode": []}
+    for arch, H, hd in P14_DECODE:
+        for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+            dname = str(dt).split(".")[1]
+            timed = dt == torch.bfloat16
+            q, pos, tbl = _paged_case(torch, g, B, H, H, hd, page, S // page,
+                                      B * S // page, 1, S, dt)
+            elt = q.element_size()
+            n_copy = copies_for(2 * B * S * H * hd * elt) if timed else 1
+            caches = [(torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt),
+                       torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt))
+                      for _ in range(n_copy)]
+            pools = [(torch.cat([k.reshape(-1, page, H, hd),
+                                 torch.zeros(1, page, H, hd, device="cuda", dtype=dt)]),
+                      torch.cat([v.reshape(-1, page, H, hd),
+                                 torch.zeros(1, page, H, hd, device="cuda", dtype=dt)]))
+                     for k, v in caches]
+            keys = int(pos.long().sum())
+            pages_read = int(((pos.long() + page - 1) // page).sum())
+            idx = torch.arange(S, device="cuda")
+            mask = (idx[None, :] < pos.long()[:, None])[:, None, None, :]
+            for kname, mod in (("gqa_decode", gqa), ("paged_gqa_decode", paged)):
+                if kname == "gqa_decode":
+                    sets = [(q, k, v, pos) for k, v in caches]
+                    kern, plain = gqa.gqa_decode, ref.gqa_decode_ref
+
+                    def lib(q, k, v, p):
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+                            attn_mask=mask)
+                    nbytes = 2 * q.numel() * elt + 2 * keys * H * hd * elt + 4 * B
+                    plan = gqa.decode_plan(B, H, S, 1, H=H, hd=hd)
+                else:
+                    sets = [(q, k, v, tbl, pos) for k, v in pools]
+                    kern, plain = paged.paged_gqa_decode, ref.paged_gqa_decode_ref
+
+                    def lib(q, k, v, t, p):
+                        ti = t.long()
+                        kc = k[ti].reshape(B, S, H, hd)
+                        vc = v[ti].reshape(B, S, H, hd)
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+                            attn_mask=mask)
+                    nbytes = (2 * q.numel() * elt + 2 * keys * H * hd * elt
+                              + 4 * pages_read + 4 * B)
+                    plan = gqa.decode_plan(B, H, S, page, H=H, hd=hd)
+                got, n_cuda, same = decode_call(mod, kern, *sets[0])
+                want = plain(*sets[0])
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                if not bool((err <= tol + tol * want.float().abs()).all()) or not same \
+                        or n_cuda != 1:
+                    raise AssertionError(f"phase 14 {kname} {arch} {dname}: max err "
+                                         f"{err.max().item():.3e} (tol {tol}), same "
+                                         f"bits {same}, CUDA launches {n_cuda}")
+                rec = dict(arch=arch, B=B, S=S, H=H, KVH=H, hd=hd, rep=1,
+                           page=page if mod is paged else 1, dtype=dname, main=False,
+                           max_abs_err=float(err.max()), tol=tol,
+                           cuda_launches_per_call=n_cuda, plan=plan_record(plan))
+                line = (f"  {kname} {arch} H=KVH={H} hd={hd} {dname}: err "
+                        f"{rec['max_abs_err']:.2e} (tol {tol}), same bits, {n_cuda} "
+                        f"CUDA launch; plan {rec['plan']}")
+                if timed:
+                    rec.update(ms=device_ms(kern, sets), plain_ms=device_ms(plain, sets, 10),
+                               library_ms=device_ms(lib, sets, 10),
+                               call_ms=bench_ms(kern, sets))
+                    decode_rates(rec, nbytes, 4 * keys * H * hd, dname)
+                    line += (f"; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
+                             f"library {rec['library_ms']:.4f} bound "
+                             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                             f"{rec['gb_s']:.0f} GB/s = {rec['bound_share']:.2f} of "
+                             f"the bound; eager call {rec['call_ms']:.4f} ms")
+                out[kname].append(rec)
+                log(line)
+    return out
+
+
+def family_model(torch, M, arch):
+    """(cfg, params, adapters) of `arch` at its full published size in bf16:
+    random weights from seed 0 drawn on the card one layer at a time, and
+    TENANTS adapters with b ~ N(0, B_SCALE^2) in every subtree."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    adapters = make_adapters(cfg, TENANTS, seed=0, device="cuda", b_scale=B_SCALE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in M.tree_leaves(params))
+    log(f"[14 {arch}] {cfg.family}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"V={cfg.vocab_size}: {n / 1e9:.3f} B parameters "
+        f"({sum(t.nbytes for t in M.tree_leaves(params)) / 1e9:.2f} GB bf16) drawn in "
+        f"{time.monotonic() - t0:.1f} s; sgmv {sgmv_per_forward(cfg)} launches a "
+        f"forward, decode attention {attn_per_step(cfg)} a decode step")
+    return cfg, params, adapters
+
+
+def family_serve(torch, cfg, params, adapters, counters, card, tag):
+    """Phase 4's served round on `cfg`: RolloutEngine.generate (dense cache)
+    for TENANTS x PER_TENANT gsm8k requests of MAX_NEW tokens; gqa_decode
+    attn_per_step launches a decode step, sgmv sgmv_per_forward a forward
+    (the prefill and every decode step), its CUDA launches equal to its
+    calls. Returns the record and the results."""
+    import numpy as np
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.rollout.engine import RolloutEngine
+    reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=MAX_NEW, seed=0)
+    RolloutEngine(cfg, params, max_len=MAX_LEN, seed=1, device="cuda").generate(
+        make_requests(TENANTS, 1, max_new_tokens=2, seed=1), adapters)
+    engine = RolloutEngine(cfg, params, max_len=MAX_LEN, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_all(counters, reset=True)
+    results, stats = engine.generate(reqs, adapters)
+    launches = count_all(counters)
+    steps = stats.decode_steps
+    n_sgmv = sgmv_per_forward(cfg) * (steps + 1)
+    want = {"gqa_decode": attn_per_step(cfg) * steps, "paged_gqa_decode": 0,
+            "sgmv": n_sgmv, "sgmv_cuda": n_sgmv}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase {tag} serve: launches {got}, want {want}")
+    for r in results:
+        gen = r["tokens"][r["prompt_len"]:]
+        if not (1 <= len(gen) <= MAX_NEW and all(0 <= t < cfg.vocab_size for t in gen)
+                and all(np.isfinite(lp) and lp <= 0 for lp in r["gen_logprobs"])):
+            raise AssertionError(f"phase {tag} serve: a bad row")
+    decode_tokens = stats.tokens_generated - len(reqs)
+    rec = dict(requests=len(reqs), decode_steps=steps, decode_s=stats.decode_seconds,
+               decode_ms_per_step=1e3 * stats.decode_seconds / steps,
+               decode_tokens_per_s=decode_tokens / stats.decode_seconds,
+               prefill_s=stats.prefill_seconds, wall_s=stats.wall_seconds,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches, card=card)
+    log(f"[{tag} serve] {cfg.name}: {len(reqs)} requests, {steps} decode steps, "
+        f"{rec['decode_ms_per_step']:.2f} ms/step ({rec['decode_tokens_per_s']:.1f} "
+        f"tok/s), prefill {stats.prefill_seconds:.3f} s, wall {stats.wall_seconds:.2f} s, "
+        f"peak {rec['peak_mem_gib']:.2f} GiB; launches {got} on {card}")
+    return rec, [(r, q.adapter_index) for r, q in zip(results, reqs)]
+
+
+def family_tf_check(torch, M, cfg, params, adapters, rows, tag, depth=None):
+    """Teacher-forced fp32 logprobs of TF_ROWS served rows through
+    forward_seq on the card (the sgmv kernel, sgmv_per_forward launches)
+    against the CPU (plain versions), within TF_TOL; with `depth`, the
+    model's first `depth` layers (their adapters too) on the same tokens."""
+    from repro_torch.kernels import sgmv
+    import dataclasses
+    rows = rows[::max(1, len(rows) // TF_ROWS)][:TF_ROWS]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+        params = dict(params, layers=M.tree_map(lambda t: t[:depth], params["layers"]))
+        adapters = [{k: M.tree_map(lambda t: t[:depth], v) for k, v in a.items()}
+                    for a in adapters]
+    n0 = sgmv.CUDA_LAUNCHES.n
+    on_card = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cuda")
+    launched = sgmv.CUDA_LAUNCHES.n - n0
+    if launched != sgmv_per_forward(cfg):
+        raise AssertionError(f"phase {tag} check: {launched} sgmv launches, want "
+                             f"{sgmv_per_forward(cfg)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    on_cpu = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cpu")
+    err = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    rec = dict(rows=len(rows), tokens=sum(len(a) for a in on_card),
+               layers=cfg.num_layers, max_abs_diff=err, tol=TF_TOL)
+    if depth is None:
+        served = [torch.tensor(r["gen_logprobs"], dtype=torch.float64) for r, _ in rows]
+        rec["served_bf16_vs_fp32"] = max(float((a - s).abs().max())
+                                         for a, s in zip(on_card, served))
+    log(f"[{tag} check] {cfg.name}{'' if depth is None else f' (first {depth} layers)'}: "
+        f"teacher-forced fp32 logprobs of {len(rows)} rows ({rec['tokens']} tokens), "
+        f"card (kernels) vs CPU (plain): max abs diff {err:.3e} (tol {TF_TOL})"
+        + (f"; served bf16 vs fp32 {rec['served_bf16_vs_fp32']:.3e}"
+           if "served_bf16_vs_fp32" in rec else ""))
+    if not err <= TF_TOL:
+        raise AssertionError(f"phase {tag}: fp32 card vs CPU logprobs differ by {err}")
+    return rec
+
+
+def family_train(torch, cfg, params, counters, card, tag):
+    """One GRPO LoRA step (phase 6's settings: token_logprob 2 forward and
+    1 backward launches) at full size."""
+    train, _, _, _ = train_phase(torch, cfg, params, counters, card, iters=1, tag=tag)
+    la = train["launches"]
+    if (la["token_logprob_fwd"], la["token_logprob_bwd"]) != (2, 1) \
+            or la["gqa_decode"] % max(1, attn_per_step(cfg)) \
+            or (attn_per_step(cfg) == 0 and la["gqa_decode"]) or not la["sgmv"]:
+        raise AssertionError(f"phase {tag} train: launches {la}")
+    return train
+
+
+def family_phase(torch, M, counters, card, gqa, paged, sgmv, tlp, ref, g, R_main):
+    """Phase 14: the kernels at the families' shapes, then (a) zamba2-1.2b
+    through the runtime at run D's settings, (b) mamba2-780m at phase 8's
+    settings and one GRPO step, (c) deepseek-moe-16b's served round, phase
+    8's run and one GRPO step; each with an fp32 card-vs-CPU check."""
+    from repro_torch.models import moe
+    t_all = time.monotonic()
+    log("[14 kernels] each kernel at the families' shapes against its plain version")
+    kern = check_family_decode(torch, gqa, paged, ref, g)
+    kern["sgmv"] = check_sgmv(torch, sgmv, ref, g, 0, specs=[
+        (16, 4, d, dout, torch.bfloat16, f"{arch} {name}")
+        for arch, name, d, dout in P14_SGMV])
+    kern["token_logprob_fwd"], kern["token_logprob_bwd"] = check_token_logprob(
+        torch, tlp, ref, g, R_main, cases=[
+            (R_main, d, V, torch.bfloat16, 0.0, layout, True)
+            for _, d, V, layout in P14_VOCAB])
+    out = {"kernels_s": time.monotonic() - t_all}
+
+    t0 = time.monotonic()
+    cfg, params, adapters = family_model(torch, M, P14_HYBRID)
+    run = runtime_phase(torch, cfg, params, counters, card, "Z")
+    serve_a, rows = family_serve(torch, cfg, params, adapters, counters, card, "14a")
+    out["a"] = dict(arch=cfg.name, runtime=run, serve=serve_a,
+                    check=family_tf_check(torch, M, cfg, params, adapters, rows, "14a"),
+                    wall_s=time.monotonic() - t0)
+    del cfg, params, adapters, rows
+
+    t0 = time.monotonic()
+    cfg, params, adapters = family_model(torch, M, P14_SSM)
+    cont, comps = continuous_phase(torch, cfg, params, adapters, counters, card,
+                                   tag="14b")
+    if cont["launches"]["paged_gqa_decode"] or cont["launches"]["gqa_decode"]:
+        raise AssertionError(f"phase 14b: decode attention launched {cont['launches']}")
+    train = family_train(torch, cfg, params, counters, card, "14b")
+    rows = [(dict(tokens=c.tokens, prompt_len=c.prompt_len,
+                  gen_logprobs=c.gen_logprobs), int(c.task_id.split("-")[1]))
+            for c in sorted(comps, key=lambda c: c.submit_index)]
+    out["b"] = dict(arch=cfg.name, continuous=cont, train=train,
+                    check=family_tf_check(torch, M, cfg, params, adapters, rows, "14b"),
+                    wall_s=time.monotonic() - t0)
+    del cfg, params, adapters, rows, comps
+
+    t0 = time.monotonic()
+    cfg, params, adapters = family_model(torch, M, P14_MOE)
+    dropped = {}
+    moe.DROPS.reset(True)
+    serve, rows = family_serve(torch, cfg, params, adapters, counters, card, "14c")
+    dropped["serve"] = moe.DROPS.total()
+    moe.DROPS.reset(True)
+    cont, comps = continuous_phase(torch, cfg, params, adapters, counters, card,
+                                   tag="14c")
+    dropped["continuous"] = moe.DROPS.total()
+    # the same schedule on a second engine: equal streams, logprob bits and
+    # drops (frozen and empty lanes take no expert capacity, so the scratch
+    # page they read cannot move a live token's drop; ROADMAP §3)
+    moe.DROPS.reset(True)
+    _, comps2 = continuous_phase(torch, cfg, params, adapters, counters, card,
+                                 tag="14c")
+    again = moe.DROPS.total()
+
+    def streams(cs_):
+        return [(list(c.tokens), list(c.gen_logprobs))
+                for c in sorted(cs_, key=lambda c: c.submit_index)]
+    if streams(comps) != streams(comps2) or again != dropped["continuous"]:
+        raise AssertionError(f"phase 14c: two engines differ (drops "
+                             f"{dropped['continuous']}, {again})")
+    log(f"[14c moe] a second engine: the same {len(comps2)} streams, logprob "
+        f"bits and {again} drops")
+    del comps, comps2
+    moe.DROPS.reset(True)
+    train = family_train(torch, cfg, params, counters, card, "14c")
+    dropped["train"] = moe.DROPS.total()
+    moe.DROPS.reset(False)
+    peak = max(serve["peak_mem_gib"], cont["peak_mem_gib"],
+               max(s["peak_mem_gib"] for s in train["steps"]))
+    log(f"[14c moe] {cfg.name}: capacity_factor {cfg.moe.capacity_factor}, "
+        f"assignments dropped at capacity {dropped}; peak memory {peak:.2f} GiB "
+        f"on {card}")
+    out["c"] = dict(arch=cfg.name, serve=serve, continuous=cont, train=train,
+                    dropped_assignments=dropped, peak_mem_gib=peak,
+                    check=family_tf_check(torch, M, cfg, params, adapters, rows,
+                                          "14c", depth=P14_MOE_TF_LAYERS),
+                    wall_s=time.monotonic() - t0)
+    del cfg, params, adapters, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t_all
+    launches = {k: 0 for k in counters}
+    for part in (run, serve_a, out["b"]["continuous"], out["b"]["train"], serve,
+                 out["c"]["continuous"], out["c"]["train"]):
+        for k in counters:
+            launches[k] += part["launches"][k]
+    out["launches"] = launches
+    log(f"[14 families] wall {out['wall_s']:.1f} s (kernels {out['kernels_s']:.1f} s, "
+        f"(a) {out['a']['wall_s']:.1f} s, (b) {out['b']['wall_s']:.1f} s, (c) "
+        f"{out['c']['wall_s']:.1f} s); launches {launches}")
+    return out, kern
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -2843,8 +3233,12 @@ def main(argv):
         if name in ("token_logprob", "sgmv"):
             log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
                                    for k in kernels))
-        if name in ("gqa_decode", "paged_decode"):   # the main path: hd 128, rep 2
-            shown = [k for k in kernels if ", 128, 2, " in k[0] or k[2]]
+        if name in ("gqa_decode", "paged_decode"):
+            # the main path's variants (hd 128, rep 2) and phase 14's (rep 1
+            # at hd 128, deepseek-moe's MHA, and at hd 64, zamba2's)
+            shown = [k for k in kernels
+                     if any(v in k[0] for v in (", 128, 2, ", ", 128, 1, ",
+                                                ", 64, 1, ")) or k[2]]
             log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
                                    for k in shown))
 
@@ -2852,10 +3246,15 @@ def main(argv):
     S_p = _bucket_len(max(len(r.prompt) for r in reqs))
     serve_pos_hi = S_p + MAX_NEW
     g = torch.Generator(device="cuda").manual_seed(1234)
+    train_rows = GROUPS * GROUP_SIZE * (-(-(S_p + MAX_NEW) // 8) * 8 - 1)
+    counters = {"gqa_decode": gqa.LAUNCHES, "sgmv": sgmv.LAUNCHES,
+                "sgmv_cuda": sgmv.CUDA_LAUNCHES,
+                "paged_gqa_decode": paged.LAUNCHES,
+                "token_logprob_fwd": tlp.FWD_LAUNCHES,
+                "token_logprob_bwd": tlp.BWD_LAUNCHES}
     log("[3 kernels] each kernel against its plain version")
     gqa_cases = check_gqa_decode(torch, gqa, ref, g, serve_pos_hi)
     sgmv_cases = check_sgmv(torch, sgmv, ref, g, S_p)
-    train_rows = GROUPS * GROUP_SIZE * (-(-(S_p + MAX_NEW) // 8) * 8 - 1)
     tlp_fwd_cases, tlp_bwd_cases = check_token_logprob(torch, tlp, ref, g, train_rows)
     paged_cases = check_paged_decode(torch, paged, gqa, ref, g)
     edges = check_decode_edges(torch, gqa, paged, ref, g)
@@ -2928,11 +3327,6 @@ def main(argv):
         raise AssertionError(f"fp32 card vs CPU logprobs differ by {tf_err}")
 
     # -- phases 6 and 7: GRPO training, then fp32 card vs CPU ---------------
-    counters = {"gqa_decode": gqa.LAUNCHES, "sgmv": sgmv.LAUNCHES,
-                "sgmv_cuda": sgmv.CUDA_LAUNCHES,
-                "paged_gqa_decode": paged.LAUNCHES,
-                "token_logprob_fwd": tlp.FWD_LAUNCHES,
-                "token_logprob_bwd": tlp.BWD_LAUNCHES}
     train, last_tb, start, tc = train_phase(torch, cfg, params, counters, card)
     n_fwd = train["launches"]["token_logprob_fwd"]
     n_bwd = train["launches"]["token_logprob_bwd"]
@@ -2979,6 +3373,17 @@ def main(argv):
     p13_launch = {k: faults["T"]["launches"][k] + faults["R"]["launches"][k]
                   for k in counters}
 
+    # -- phase 14: the moe, ssm and hybrid families at full width ------------
+    del params, adapters
+    families, fam_kern = family_phase(torch, M, counters, card, gqa, paged, sgmv,
+                                      tlp, ref, g, train_rows)
+    p14_launch = families["launches"]
+    gqa_cases += fam_kern["gqa_decode"]
+    paged_cases += fam_kern["paged_gqa_decode"]
+    sgmv_cases += fam_kern["sgmv"]
+    tlp_fwd_cases += fam_kern["token_logprob_fwd"]
+    tlp_bwd_cases += fam_kern["token_logprob_bwd"]
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
@@ -2990,6 +3395,7 @@ def main(argv):
     print(json.dumps({"prefix_cache": prefix}), flush=True)
     print(json.dumps({"stages": stages}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
+    print(json.dumps({"families": families}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -2998,11 +3404,13 @@ def main(argv):
     print(json.dumps({"kernels": [
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
-                     n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"],
+                     n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"]
+                     + p14_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
                          for r in runtime},
-                         "stages DED (12)": p12_launch["gqa_decode"]},
+                         "stages DED (12)": p12_launch["gqa_decode"],
+                         "families (14)": p14_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
@@ -3010,7 +3418,7 @@ def main(argv):
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
                      + p11_launch["sgmv"] + p12_launch["sgmv"]
-                     + p13_launch["sgmv"],
+                     + p13_launch["sgmv"] + p14_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -3020,7 +3428,8 @@ def main(argv):
                          **{f"stages {m} (12)": r["launches"]["sgmv"]
                             for m, r in stages["modes"].items()},
                          **{f"faults {r} (13)": faults[r]["launches"]["sgmv"]
-                            for r in ("T", "R")}},
+                            for r in ("T", "R")},
+                         "families (14)": p14_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -3030,24 +3439,28 @@ def main(argv):
         kernel_entry("token_logprob_fwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases,
                      n_fwd + rt_launch["token_logprob_fwd"]
-                     + p13_launch["token_logprob_fwd"],
+                     + p13_launch["token_logprob_fwd"]
+                     + p14_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_fwd"]
-                         for r in ("T", "R")}},
+                         for r in ("T", "R")},
+                         "families (14)": p14_launch["token_logprob_fwd"]},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
         kernel_entry("token_logprob_bwd", "src/repro_torch/kernels/csrc/token_logprob.cu",
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases,
                      n_bwd + rt_launch["token_logprob_bwd"]
-                     + p13_launch["token_logprob_bwd"],
+                     + p13_launch["token_logprob_bwd"]
+                     + p14_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_bwd"]
-                         for r in ("T", "R")}},
+                         for r in ("T", "R")},
+                         "families (14)": p14_launch["token_logprob_bwd"]},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
@@ -3058,7 +3471,8 @@ def main(argv):
                      + rt_launch["paged_gqa_decode"]
                      + p11_launch["paged_gqa_decode"]
                      + p12_launch["paged_gqa_decode"]
-                     + p13_launch["paged_gqa_decode"],
+                     + p13_launch["paged_gqa_decode"]
+                     + p14_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
@@ -3067,7 +3481,8 @@ def main(argv):
                          **{f"stages {m} (12)": r["launches"]["paged_gqa_decode"]
                             for m, r in stages["modes"].items() if m != "DED"},
                          **{f"faults {r} (13)": faults[r]["launches"]["paged_gqa_decode"]
-                            for r in ("T", "R")}},
+                            for r in ("T", "R")},
+                         "families (14)": p14_launch["paged_gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

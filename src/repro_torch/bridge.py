@@ -5,9 +5,10 @@ package and the port, through numpy.
 arrays (``jax.device_get`` of the JAX trees, or ``np.asarray`` leaf by
 leaf) — the port never imports jax. The
 port keeps JAX's ``[d_in, d_out]`` weight orientation and its tree, so the
-bridge is a copy and not a transpose: dicts stay dicts, the JAX package's
-``AttnParams`` / ``MLPParams`` NamedTuples become the port's of the same
-name and fields, and each array becomes a tensor of the same dtype (bf16
+bridge is a copy and not a transpose: dicts stay dicts (the hybrid's
+``shared`` block and adapter subtree included), the JAX package's
+``AttnParams`` / ``MLPParams`` / ``MambaParams`` / ``MoEParams`` NamedTuples
+become the port's of the same name and fields, and each array becomes a tensor of the same dtype (bf16
 included, through its 16-bit pattern). ``to_numpy`` goes the other way:
 any of the port's trees (parameters, adapters, optimizer state) with numpy
 leaves of the same dtypes, bf16 as ``ml_dtypes.bfloat16`` (the type jax
@@ -21,10 +22,13 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import resolve_device
+from repro_torch.models.mamba2 import MambaParams
 from repro_torch.models.mlp import MLPParams
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.model import tree_map
 
-_TUPLES = {"AttnParams": AttnParams, "MLPParams": MLPParams}
+_TUPLES = {cls.__name__: cls
+           for cls in (AttnParams, MLPParams, MambaParams, MoEParams)}
 
 
 def _tensor(x, device) -> torch.Tensor:

@@ -237,8 +237,9 @@ class MARLaaSRuntime:
         if rcfg.paged_kv:
             # page-granular admission accounting rides the paged engine
             # (copy, never mutate a caller-shared config object);
-            # group-shared prompt charging where the engine shares pages
-            # (the port's families are all pure attention)
+            # group-shared prompt charging where the engine shares pages:
+            # pure attention caches only (the engine's radix and group
+            # sharing is off wherever the cache holds recurrent state)
             import dataclasses as _dc
             self.acfg = _dc.replace(
                 self.acfg, paged=True, page_size=rcfg.kv_page_size,

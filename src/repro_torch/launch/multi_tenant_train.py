@@ -30,6 +30,8 @@ a Perfetto-loadable trace and prints the critical-path latency report.
 ``--preset qwen3-0.6b`` (the default) runs the published configuration at
 full width and depth in bf16 with random weights from seed 0 and adapters
 whose ``b`` is drawn from N(0, 0.02²), 16 slots and a 256-token cache;
+``--preset zamba2-1.2b`` (hybrid), ``mamba2-780m`` (ssm) and
+``deepseek-moe-16b`` (moe) run those published configurations the same way;
 ``--preset tiny`` the reduced fp32 granite of the tests with the
 tokenizer's vocabulary and the adapters ``init_lora`` gives.
 """
@@ -62,6 +64,12 @@ AGENTIC_ENVS = {"search", "hopsearch", "calcrepl", "guess"}
 PRESETS = {   # max_new_tokens, max_len, slots, group_size, num_groups
     "tiny": (6, 64, 8, 4, 1),
     "qwen3-0.6b": (32, 256, 16, 4, 2),
+    # the other families at full width, with qwen3-0.6b's settings: each
+    # fits one 80 GB card with them (deepseek-moe-16b's bf16 weights are
+    # 33.8 GB, its 16 x 256-token dense cache 0.9 GB)
+    "zamba2-1.2b": (32, 256, 16, 4, 2),
+    "mamba2-780m": (32, 256, 16, 4, 2),
+    "deepseek-moe-16b": (32, 256, 16, 4, 2),
 }
 
 

@@ -5,7 +5,10 @@
 
 The default serves ``--arch qwen3-0.6b`` at its full published size (28
 layers, d=1024, V=151936) in bf16 on the card, with random weights from seed
-0, 32 new tokens a request and a 256-token cache. ``--reduced`` serves the
+0, 32 new tokens a request and a 256-token cache. ``--arch`` takes every
+configuration of a ported family: the dense and vlm ones,
+``deepseek-moe-16b`` (moe), ``mamba2-780m`` (ssm) and ``zamba2-1.2b``
+(hybrid); encdec raises ``NotImplementedError``. ``--reduced`` serves the
 tiny same-family config in fp32 with the rollout tokenizer's vocabulary, 6
 new tokens and a 64-token cache (the JAX CLI's setting). Prompts come from
 the repo's gsm8k environment; token ids the 54-symbol character tokenizer
@@ -48,7 +51,7 @@ def make_adapters(cfg: ModelConfig, tenants: int, *, seed: int, device,
         gen = torch.Generator(device=dev).manual_seed(seed + 100 + t)
         tree = init_lora(cfg, gen, dev)
         if b_scale > 0:
-            for leaf in tree["layers"].values():
+            for leaf in (leaf for sub in tree.values() for leaf in sub.values()):
                 leaf["b"] = b_scale * torch.randn(
                     leaf["b"].shape, generator=gen, device=dev,
                     dtype=torch.float32).to(leaf["b"].dtype)

@@ -1,20 +1,26 @@
-"""Model assembly for the dense family: init / prefill / decode / train
-forward (port of the dense half of ``repro.models.model``).
+"""Model assembly: init / prefill / decode / train forward for the dense,
+vlm, moe, ssm (mamba2) and hybrid (zamba2) families (port of
+``repro.models.model``; encdec is not ported yet).
 
 The parameter tree is the JAX package's: per-layer weights stacked on a
-leading layer axis. Where the JAX package ``lax.scan``s over that axis, the
-port loops over it in Python.
+leading layer axis, plus the hybrid's one ``shared`` attention+MLP block.
+Where the JAX package ``lax.scan``s over that axis, the port loops over it in
+Python; the hybrid's grouped scan (groups of ``hybrid_attn_every`` mamba
+blocks and one shared-block invocation) and its per-layer loop are then one
+loop.
 
-The KV cache is a plain dict of tensors, updated IN PLACE (JAX's arrays are
+The cache is a plain dict of tensors, updated IN PLACE (JAX's arrays are
 immutable, so its functions return a new cache; the port writes into the
 one it is given, which saves a copy of the cache per call, and returns the
 same dict with a new ``pos``). Dense (``init_cache``):
-  k, v        [L, B, Smax, KVH, hd]
+  k, v        [L_attn, B, Smax, KVH, hd]   (L_attn: the attention layers,
+                                            the hybrid's invocations)
   pos         [B] int32 — valid entries per row
+  ssm, conv   [L, B, H, N, P] fp32, [L, B, conv_dim, W-1]  (ssm, hybrid)
 or paged (``init_paged_cache``; ``decode_step`` tells them apart by ``tbl``):
-  kp, vp      [L, n_pages+1, page, KVH, hd] — the shared page pool
+  kp, vp      [L_attn, n_pages+1, page, KVH, hd] — the shared page pool
   tbl         [B, max_pages] int32 — per-row physical page ids
-  pos         [B] int32
+  pos, ssm, conv   as in the dense cache (recurrent state is never paged)
 """
 from __future__ import annotations
 
@@ -30,37 +36,30 @@ from .attention import (attention_chunked, attention_decode,
 from .common import (LoraCtx, dense_init, dtype_of, embed_init, proj,
                      resolve_device, rmsnorm, rmsnorm_init, rope_tables,
                      softcap)
+from .mamba2 import dims as ssm_dims, mamba_block, mamba_decode_step, mamba_init
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply, moe_init
 
 Params = Dict[str, Any]
 
-_FAMILIES = ("dense", "vlm")       # the block stacks this slice ports
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")   # the ported stacks
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {_FAMILIES})")
+            f"family {cfg.family!r} is not ported yet (have {_FAMILIES}); "
+            f"encdec's cross-attention cache comes with a later slice "
+            f"(ROADMAP §1 item 8)")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
 
-def _stack(trees):
-    """Stack a list of same-shaped trees on a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, tuple):               # AttnParams / MLPParams
-        return type(first)(*(None if f is None else _stack([t[j] for t in trees])
-                             for j, f in enumerate(first)))
-    return torch.stack(trees)
-
-
 def tree_map(fn, tree):
-    """fn over every tensor leaf of a parameter tree (dicts and the
-    ``AttnParams``/``MLPParams`` NamedTuples; None leaves stay None)."""
+    """fn over every tensor leaf of a parameter tree (dicts and the params
+    NamedTuples, nested too; None leaves stay None)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -89,10 +88,26 @@ def tree_index(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
+def _stack_layers(make, n: int):
+    """`n` layers of ``make()`` stacked on a new leading axis. The stacked
+    leaves are allocated from the first layer's and each later layer is
+    copied in as it is drawn, so that a full-size model's peak is its
+    weights plus one layer, not twice its weights."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        lay = first if i == 0 else make()
+        for dst, src in zip(tree_leaves(out), tree_leaves(lay)):
+            dst[i].copy_(src)
+        del lay
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random weights with the JAX package's tree and scales (``init_params``
-    there), drawn from ``generator`` (a ``torch.Generator`` on ``device``)."""
+    there), drawn from ``generator`` (a ``torch.Generator`` on ``device``)
+    one layer at a time (``_stack_layers``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
@@ -109,7 +124,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_act,
                                 dt, dev)}
 
-    p["layers"] = _stack([dense_layer() for _ in range(cfg.num_layers)])
+    def moe_layer():
+        return {"ln1": rmsnorm_init(cfg.d_model, dt, dev),
+                "attn": attn_init(generator, cfg, dt, dev),
+                "ln2": rmsnorm_init(cfg.d_model, dt, dev),
+                "moe": moe_init(generator, cfg, dt, dev)}
+
+    def mamba_layer():
+        return {"ln1": rmsnorm_init(cfg.d_model, dt, dev),
+                "mamba": mamba_init(generator, cfg, dt, dev)}
+
+    make = {"dense": dense_layer, "vlm": dense_layer, "moe": moe_layer,
+            "ssm": mamba_layer, "hybrid": mamba_layer}[cfg.family]
+    p["layers"] = _stack_layers(make, cfg.num_layers)
+    if cfg.family == "hybrid":
+        p["shared"] = dense_layer()
     return p
 
 
@@ -117,15 +146,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # cache
 # ===========================================================================
 
+def n_attn_layers(cfg: ModelConfig) -> int:
+    """Attention layers with a K/V cache: every layer of the attention
+    families, the shared block's invocations of the hybrid, none of ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return cfg.num_layers
+
+
+def _recurrent_state(c: Params, cfg: ModelConfig, batch: int, dt, dev):
+    """The ssm (fp32 whatever the model dtype) and conv (model dtype) rows
+    of a recurrent family's cache, zeroed, into `c`."""
+    if cfg.ssm is None:
+        return
+    d_in, H, N, G, conv_dim = ssm_dims(cfg)
+    c["ssm"] = torch.zeros((cfg.num_layers, batch, H, N, cfg.ssm.head_dim),
+                           dtype=torch.float32, device=dev)
+    c["conv"] = torch.zeros((cfg.num_layers, batch, conv_dim,
+                             cfg.ssm.conv_width - 1), dtype=dt, device=dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda") -> Params:
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or dtype_of(cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    c: Params = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    n_attn = n_attn_layers(cfg)
+    if n_attn:
+        shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    _recurrent_state(c, cfg, batch, dt, dev)
+    return c
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, *, pool_pages: int,
@@ -138,18 +193,24 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, pool_pages: int,
     ``pool_pages`` is the scratch page: sentinel table entries (==
     pool_pages) route frozen/empty-lane writes and masked reads there. The
     host-side allocator (``rollout/kvcache.py``) owns the free list; this
-    function only lays out device memory. Keys, shapes and the sentinel are
-    the JAX package's."""
+    function only lays out device memory. Pages hold the attention layers
+    only (``n_attn_layers``: none for ssm); recurrent ssm/conv state is per
+    row and fixed-size, so it stays dense as in ``init_cache``. Keys, shapes
+    and the sentinel are the JAX package's."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or dtype_of(cfg.dtype)
-    shape = (cfg.num_layers, pool_pages + 1, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "tbl": torch.full((batch, max_pages_per_row), pool_pages,
-                              dtype=torch.int32, device=dev),
-            "kp": torch.zeros(shape, dtype=dt, device=dev),
-            "vp": torch.zeros(shape, dtype=dt, device=dev)}
+    c: Params = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    n_attn = n_attn_layers(cfg)
+    if n_attn:
+        shape = (n_attn, pool_pages + 1, page_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        c["tbl"] = torch.full((batch, max_pages_per_row), pool_pages,
+                              dtype=torch.int32, device=dev)
+        c["kp"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["vp"] = torch.zeros(shape, dtype=dt, device=dev)
+    _recurrent_state(c, cfg, batch, dt, dev)
+    return c
 
 
 def _write_kv(ck, cv, k_new, v_new, pos):
@@ -181,8 +242,23 @@ def _window_for(cfg: ModelConfig, i: int) -> int:
     return 0 if cfg.is_global_attn_layer(i) else cfg.sliding_window
 
 
+def _ffn(h, lp, cfg, lora, live=None):
+    """The block's feed-forward: the MLP, or the MoE layer with its aux
+    loss. h: [B, S, d] or [B, d] (one decode token); live [B]: the decode
+    lanes that take expert capacity (``moe_apply``). Returns (y, aux or
+    None)."""
+    if "moe" not in lp:
+        return mlp_apply(h, lp["mlp"], cfg.mlp_act, lora), None
+    if h.dim() == 2:
+        y, aux = moe_apply(h[:, None, :], lp["moe"], cfg, lora, live)
+        return y[:, 0], aux
+    return moe_apply(h, lp["moe"], cfg, lora)
+
+
 def _dense_block_seq(x, lp, cfg, lora, window, positions, rope, q_chunk,
                      causal=True):
+    """An attention block over a sequence: (x, (k, v), aux); aux is the
+    MoE layer's load-balance loss, None for an MLP block."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv(h, lp["attn"], cfg, positions, lora, rope_tables=rope)
     o = attention_chunked(q, k, v, cfg, causal=causal,
@@ -190,8 +266,18 @@ def _dense_block_seq(x, lp, cfg, lora, window, positions, rope, q_chunk,
     o = o.reshape(x.shape[0], x.shape[1], cfg.q_dim)
     x = x + proj(o, lp["attn"].wo, lora=lora, name="attn_o")
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    y = mlp_apply(h, lp["mlp"], cfg.mlp_act, lora)
-    return x + y, (k, v)
+    y, aux = _ffn(h, lp, cfg, lora)
+    return x + y, (k, v), aux
+
+
+def _mamba_layer_seq(x, lp, cfg, lora, ssm_state, conv_state, seq_lens):
+    """A mamba layer (pre-norm, residual) over a sequence:
+    (x, (ssm state, conv state))."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, st = mamba_block(h, lp["mamba"], cfg, lora, ssm_state=ssm_state,
+                        conv_state=conv_state, return_state=True,
+                        seq_lens=seq_lens)
+    return x + y, st
 
 
 def _write_kv_paged(kp, vp, tbl, k_new, v_new, pos):
@@ -210,10 +296,12 @@ def _write_kv_paged(kp, vp, tbl, k_new, v_new, pos):
     vp[pidx, off] = v_new[:, 0].to(vp.dtype)
 
 
-def _block_decode(x, lp, cfg, lora, window, ck, cv, pos, rope, tbl=None):
+def _block_decode(x, lp, cfg, lora, window, ck, cv, pos, rope, tbl=None,
+                  live=None):
     """x: [B, d] one token. Dense cache: ck/cv [B, Smax, KVH, hd]; paged
     cache (`tbl` [B, max_pages] given): ck/cv are this layer's page pool
-    [n_pages+1, page, KVH, hd]. Either is written in place."""
+    [n_pages+1, page, KVH, hd]. Either is written in place. live [B]: the
+    lanes that take MoE capacity (None: all)."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)[:, None, :]      # [B,1,d]
     q, k, v = qkv(h, lp["attn"], cfg, pos[:, None], lora, rope_tables=rope)
@@ -228,20 +316,48 @@ def _block_decode(x, lp, cfg, lora, window, ck, cv, pos, rope, tbl=None):
     o = o.reshape(B, cfg.q_dim)
     x = x + proj(o, lp["attn"].wo, lora=lora, name="attn_o")
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    y = mlp_apply(h, lp["mlp"], cfg.mlp_act, lora)
-    return x + y
+    return x + _ffn(h, lp, cfg, lora, live)[0]
 
 
-def _lora_layer(lora: Optional[LoraCtx], i: int) -> Optional[LoraCtx]:
-    """The ctx bound to layer i's adapter slices, or None. Leaves are
+def _mamba_layer_decode(x, lp, cfg, lora, ssm_state, conv_state, advance):
+    """One token through a mamba layer: (x, ssm', conv'). A row with
+    ``advance`` 0 keeps its state (the JAX package's ssm branch masks it so;
+    its hybrid branch does not, ROADMAP §3), and conv' is cast back to the
+    cache's dtype."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    y, (st, cs) = mamba_decode_step(h, lp["mamba"], cfg, ssm_state,
+                                    conv_state, lora)
+    adv = advance > 0
+    st = torch.where(adv[:, None, None, None], st, ssm_state.float())
+    cs = torch.where(adv[:, None, None], cs, conv_state.to(cs.dtype))
+    return x + y, st, cs.to(conv_state.dtype)
+
+
+def _lora_layer(lora: Optional[LoraCtx], i: int,
+                sub: str = "layers") -> Optional[LoraCtx]:
+    """The ctx bound to adapter slice i of subtree `sub` ("layers", or the
+    hybrid's "shared" block, one slice an invocation), or None. Leaves are
     [L, (T,) d, r]; ``leaf[i]`` serves single and batched modes alike
     because the task dim sits on axis 1 (see lora.adapters)."""
     if lora is None or lora.mode == "off" or not lora.tree:
         return None
-    tree = lora.tree.get("layers")
+    tree = lora.tree.get(sub)
     if not tree:
         return None
     return lora.at_layer(tree_index(tree, i))
+
+
+def _hybrid_invokes(cfg: ModelConfig, i: int) -> bool:
+    """True if the hybrid's shared block runs after mamba layer i."""
+    k = cfg.hybrid_attn_every
+    return bool(k) and (i + 1) % k == 0
+
+
+def _run(fn, remat: bool, *args):
+    """fn(*args), under ``torch.utils.checkpoint`` when `remat`."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ===========================================================================
@@ -250,38 +366,60 @@ def _lora_layer(lora: Optional[LoraCtx], i: int) -> Optional[LoraCtx]:
 
 def forward_seq(params: Params, tokens, cfg: ModelConfig,
                 lora: Optional[LoraCtx] = None, cache: Optional[Params] = None,
-                *, q_chunk: int = 512
+                *, q_chunk: int = 512, seq_lens=None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Full-sequence forward. Returns (hidden [B,S,d], cache, aux_loss).
+    """Full-sequence forward. Returns (hidden [B,S,d], cache, aux_loss):
+    aux is the MoE layers' load-balance loss summed over layers (a tensor
+    autograd sees), 0 for the other families.
 
-    With a cache, each layer's K/V is written into it at [0, S) of every
-    row, pads included; the caller sets cache["pos"] afterwards (per-row
+    With a cache, each attention layer's K/V is written into it at [0, S)
+    of every row, pads included, and each mamba layer's ssm/conv state
+    replaces the cache's; the caller sets cache["pos"] afterwards (per-row
     prompt lengths). Reads beyond ``pos`` never happen and decode overwrites
-    in place, so the attention families need no ``seq_lens`` (the JAX
-    package takes it for its recurrent families). With ``cfg.remat`` and
-    grad enabled, every layer runs under ``torch.utils.checkpoint``."""
+    in place, so attention needs no mask; the recurrent families take
+    `seq_lens` [B] so that their states are those at each row's true length
+    and not at the padded width. With ``cfg.remat`` and grad enabled, every
+    layer runs under ``torch.utils.checkpoint``."""
     _check_family(cfg)
     B, S = tokens.shape[:2]
     x = params["embed"][tokens.long()]                       # [B,S,d]
     positions = torch.arange(S, device=x.device)[None, :]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.head_dim else None)
+    aux_total = None      # summed only over MoE layers: no launch elsewhere
     # remat, as the JAX package's checkpointed scan body: with grad on, each
     # layer keeps only its input and recomputes its activations backward
     remat = cfg.remat and torch.is_grad_enabled()
+    inv = 0
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
-        args = (x, lp, cfg, _lora_layer(lora, i), _window_for(cfg, i),
-                positions, rope, q_chunk)
-        if remat:
-            x, (k, v) = checkpoint(_dense_block_seq, *args,
-                                   use_reentrant=False)
-        else:
-            x, (k, v) = _dense_block_seq(*args)
+        if cfg.ssm is None:
+            x, (k, v), aux = _run(_dense_block_seq, remat, x, lp, cfg,
+                                  _lora_layer(lora, i), _window_for(cfg, i),
+                                  positions, rope, q_chunk)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+            if cache is not None:
+                cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+                cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+            continue
+        x, (st, cs) = _run(_mamba_layer_seq, remat, x, lp, cfg,
+                           _lora_layer(lora, i), None, None, seq_lens)
         if cache is not None:
-            cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+            cache["ssm"][i] = st
+            cache["conv"][i] = cs.to(cache["conv"].dtype)
+        if cfg.family == "hybrid" and _hybrid_invokes(cfg, i):
+            x, (k, v), _ = _run(_dense_block_seq, remat, x, params["shared"],
+                                cfg, _lora_layer(lora, inv, "shared"), 0,
+                                positions, rope, q_chunk)
+            if cache is not None:
+                cache["k"][inv, :, :S] = k.to(cache["k"].dtype)
+                cache["v"][inv, :, :S] = v.to(cache["v"].dtype)
+            inv += 1
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux_total
 
 
 # ===========================================================================
@@ -305,7 +443,7 @@ def _dense_block_chunk(x, lp, cfg, lora, window, positions, rope, ck, cv,
     o = o.reshape(x.shape[0], C, cfg.q_dim)
     x = x + proj(o, lp["attn"].wo, lora=lora, name="attn_o")
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(h, lp["mlp"], cfg.mlp_act, lora)
+    return x + _ffn(h, lp, cfg, lora)[0]
 
 
 def forward_prefill_chunk(params: Params, tokens, cfg: ModelConfig,
@@ -314,24 +452,44 @@ def forward_prefill_chunk(params: Params, tokens, cfg: ModelConfig,
                           seq_lens=None) -> Tuple[torch.Tensor, Params]:
     """One chunk of an incremental prefill: tokens [B, C] are the absolute
     positions ``start .. start+C`` of each row (`start` a Python int). Every
-    layer writes the chunk's K/V into the dense cache (``init_cache``) at
-    [start, start+C), in place, and attends over [0, start+C) of it, so the
-    cache must already hold the row's first `start` entries. `seq_lens` [B]
-    is the valid length within the chunk; the attention families need none
-    (positions past it are overwritten before they are read), as in
-    ``forward_seq``. A prompt prefilled chunk by chunk gives the hidden
-    states of ``forward_seq``. Returns (hidden [B, C, d] final-normed,
-    cache); the caller sets ``cache["pos"]``."""
+    attention layer writes the chunk's K/V into the dense cache
+    (``init_cache``) at [start, start+C), in place, and attends over
+    [0, start+C) of it, so the cache must already hold the row's first
+    `start` entries; every mamba layer reads its ssm/conv state from the
+    cache, carries it through the chunk and writes it back. `seq_lens` [B]
+    is the valid length within the chunk: the recurrent families mask the
+    positions past it out of their state, attention needs no mask
+    (positions past it are overwritten before they are read). A prompt
+    prefilled chunk by chunk gives the hidden states of ``forward_seq``
+    (exactly, for the SSD scan, when `start` is a multiple of
+    ``cfg.ssm.chunk_size``: the prefill worker rounds its chunk so).
+    Returns (hidden [B, C, d] final-normed, cache); the caller sets
+    ``cache["pos"]``."""
     _check_family(cfg)
     C = tokens.shape[1]
     x = params["embed"][tokens.long()]
     positions = (start + torch.arange(C, device=x.device))[None, :]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.head_dim else None)
+    inv = 0
     for i in range(cfg.num_layers):
-        x = _dense_block_chunk(x, tree_index(params["layers"], i), cfg,
-                               _lora_layer(lora, i), _window_for(cfg, i),
-                               positions, rope, cache["k"][i], cache["v"][i],
-                               start)
+        lp = tree_index(params["layers"], i)
+        if cfg.ssm is None:
+            x = _dense_block_chunk(x, lp, cfg, _lora_layer(lora, i),
+                                   _window_for(cfg, i), positions, rope,
+                                   cache["k"][i], cache["v"][i], start)
+            continue
+        x, (st, cs) = _mamba_layer_seq(x, lp, cfg, _lora_layer(lora, i),
+                                       cache["ssm"][i], cache["conv"][i],
+                                       seq_lens)
+        cache["ssm"][i] = st
+        cache["conv"][i] = cs.to(cache["conv"].dtype)
+        if cfg.family == "hybrid" and _hybrid_invokes(cfg, i):
+            x = _dense_block_chunk(x, params["shared"], cfg,
+                                   _lora_layer(lora, inv, "shared"), 0,
+                                   positions, rope, cache["k"][inv],
+                                   cache["v"][inv], start)
+            inv += 1
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -346,8 +504,12 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
 
     `advance` ([B] int32 0/1, default all-ones) freezes rows awaiting
     external tool responses: a frozen row's K/V slot is written (and
-    overwritten on resume) but its `pos` does not move, so its cache never
-    accumulates garbage. Returns (logits [B, V], cache).
+    overwritten on resume) but its `pos` does not move, and its ssm/conv
+    state is kept, so its cache never accumulates garbage. (The JAX
+    package's hybrid branch advances a frozen row's recurrent state;
+    ROADMAP §3. The port masks it as the JAX ssm branch does.) A frozen
+    or empty lane also takes no MoE expert capacity (``moe_apply``'s
+    ``live``; the JAX package routes it). Returns (logits [B, V], cache).
 
     The cache may be dense (``init_cache``) or paged (``init_paged_cache``,
     told apart by its ``tbl`` block table): the paged path writes the
@@ -358,16 +520,34 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
     B = new_tokens.shape[0]
     pos = cache["pos"]
     paged = "tbl" in cache
+    live = None
     if advance is None:
         advance = torch.ones((B,), dtype=torch.int32, device=pos.device)
+    elif cfg.moe is not None:
+        live = advance > 0
     x = params["embed"][new_tokens.long()]                   # [B, d]
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    ck, cv = (cache["kp"], cache["vp"]) if paged else (cache["k"], cache["v"])
+    rope = (rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+            if cfg.head_dim else None)
+    ck, cv = ((cache.get("kp"), cache.get("vp")) if paged
+              else (cache.get("k"), cache.get("v")))
+    inv = 0
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
-        x = _block_decode(x, lp, cfg, _lora_layer(lora, i),
-                          _window_for(cfg, i), ck[i], cv[i], pos, rope,
-                          cache.get("tbl"))
+        if cfg.ssm is None:
+            x = _block_decode(x, lp, cfg, _lora_layer(lora, i),
+                              _window_for(cfg, i), ck[i], cv[i], pos, rope,
+                              cache.get("tbl"), live)
+            continue
+        x, st, cs = _mamba_layer_decode(x, lp, cfg, _lora_layer(lora, i),
+                                        cache["ssm"][i], cache["conv"][i],
+                                        advance)
+        cache["ssm"][i] = st
+        cache["conv"][i] = cs
+        if cfg.family == "hybrid" and _hybrid_invokes(cfg, i):
+            x = _block_decode(x, params["shared"], cfg,
+                              _lora_layer(lora, inv, "shared"), 0, ck[inv],
+                              cv[inv], pos, rope, cache.get("tbl"))
+            inv += 1
     cache = dict(cache, pos=(pos + advance).to(torch.int32))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(x, params, cfg), cache
@@ -390,6 +570,7 @@ def lm_logits(h, params: Params, cfg: ModelConfig):
 
 def forward_train(params: Params, tokens, cfg: ModelConfig,
                   lora: Optional[LoraCtx] = None, *, q_chunk: int = 512):
-    """Teacher-forced full-sequence logits [B, S, V] (+ aux loss)."""
+    """Teacher-forced full-sequence logits [B, S, V] (+ aux loss: the MoE
+    load-balance loss, 0 for the other families)."""
     h, _, aux = forward_seq(params, tokens, cfg, lora, None, q_chunk=q_chunk)
     return lm_logits(h, params, cfg), aux

@@ -111,6 +111,7 @@ from repro_torch.models import (decode_step, forward_prefill_chunk,
                                 forward_seq, init_cache, init_paged_cache,
                                 lm_logits, tree_map)
 from repro_torch.models.common import resolve_device, synchronize
+from repro_torch.models.model import n_attn_layers
 from repro_torch.rl.types import RolloutCompletion, TrajectoryBatch
 from repro_torch.rollout import prng
 from repro_torch.rollout.kvcache import (KVSnapshot, PagePool, PrefixIndex,
@@ -242,7 +243,8 @@ def _build_fns(cfg: ModelConfig):
 
     def prefill(params, adapters, row_ids, tokens, prompt_lens, cache):
         lora = batched_ctx(adapters, row_ids, cfg)
-        h, cache, _ = forward_seq(params, tokens, cfg, lora, cache)
+        h, cache, _ = forward_seq(params, tokens, cfg, lora, cache,
+                                  seq_lens=prompt_lens)
         cache = dict(cache, pos=prompt_lens.to(torch.int32))
         rows = torch.arange(h.shape[0], device=h.device)
         last = h[rows, prompt_lens.long() - 1]
@@ -292,7 +294,8 @@ def _prefill_first(cfg, params, adapters, tokens, prompt_lens, init_counters,
     the positions that predict them, as a step-wise force-feed records
     them), and the cache."""
     lora = batched_ctx(adapters, new_row_ids, cfg)
-    h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache)
+    h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache,
+                               seq_lens=prompt_lens)
     rows = torch.arange(h.shape[0], device=h.device)
     logits = lm_logits(h[rows, prompt_lens.long() - 1], params, cfg)
     sampled = _sample_rows(logits, new_keys, init_counters, new_temps)
@@ -304,6 +307,30 @@ def _prefill_first(cfg, params, adapters, tokens, prompt_lens, init_counters,
         lp = torch.cat((lp, _log_softmax_at(
             lm_logits(h[f_rows, f_pos], params, cfg), f_toks)))
     return first, lp, pcache
+
+
+def _cache_dtype(cache):
+    """The model dtype a cache holds (K/V, or a recurrent family's conv)."""
+    for name in ("kp", "k", "conv"):
+        if name in cache:
+            return cache[name].dtype
+    raise KeyError("cache without K/V or conv state")
+
+
+def _layout(cfg: ModelConfig):
+    """(kv, recurrent) of the family's cache: whether it holds attention
+    K/V (``k``/``v``, or ``kp``/``vp`` + ``tbl`` when paged) and whether it
+    holds per-row ``ssm``/``conv`` state. The one place that decides."""
+    return n_attn_layers(cfg) > 0, cfg.ssm is not None
+
+
+def _put_recurrent(cache, slots, ssm_rows, conv_rows):
+    """Write recurrent rows (ssm [L, k, H, N, P], conv [L, k, ch, W-1], or
+    one row without the k axis) into the pool at `slots`, in place."""
+    cache["ssm"][:, slots] = ssm_rows.to(device=cache["ssm"].device,
+                                         dtype=cache["ssm"].dtype)
+    cache["conv"][:, slots] = conv_rows.to(device=cache["conv"].device,
+                                           dtype=cache["conv"].dtype)
 
 
 def _set_row_state(slots, first, counters_next, new_keys, new_temps,
@@ -329,19 +356,23 @@ def _build_refill_fn(cfg: ModelConfig, max_len: int):
     only: entries of a slot past the new row's length keep its previous
     occupant's values, which are masked (>= pos) and overwritten by decode
     before they are read."""
+    kv, recurrent = _layout(cfg)
 
     def refill(params, adapters, tokens, prompt_lens, init_counters, slots,
                new_row_ids, new_keys, new_temps, forced, forced_mask, cache,
                cur, counters, keys, temps, row_ids):
         S = min(tokens.shape[1], max_len)
         pcache = init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                            dtype=cache["k"].dtype, device=tokens.device)
+                            dtype=_cache_dtype(cache), device=tokens.device)
         first, lp, pcache = _prefill_first(
             cfg, params, adapters, tokens, prompt_lens, init_counters,
             new_row_ids, new_keys, new_temps, forced, forced_mask, pcache)
         sl = slots.long()
-        cache["k"][:, sl, :S] = pcache["k"][:, :, :S]
-        cache["v"][:, sl, :S] = pcache["v"][:, :, :S]
+        if kv:
+            cache["k"][:, sl, :S] = pcache["k"][:, :, :S]
+            cache["v"][:, sl, :S] = pcache["v"][:, :, :S]
+        if recurrent:
+            _put_recurrent(cache, sl, pcache["ssm"], pcache["conv"])
         cache["pos"][sl] = prompt_lens
         state = _set_row_state(sl, first, init_counters + 1, new_keys,
                                new_temps, new_row_ids, cur, counters, keys,
@@ -371,26 +402,31 @@ def _build_refill_fn_paged(cfg: ModelConfig, max_len: int, page: int):
     bucket rounded up to whole pages), and each incoming row's K/V is
     written page by page into the physical pages the host allocator handed
     it (`dest_pages` [k, chunks], sentinel past the row's page count). Only
-    ``ceil(seq_len/page)`` pages per row are consumed.
+    ``ceil(seq_len/page)`` pages per row are consumed. Recurrent ssm/conv
+    rows are per slot and dense, written as in the dense refill.
 
     Response-prefill fusion: an env-stage resume's forced RESP…ENDRESP
     block is part of ``tokens`` (the host appends it to prompt + prefix), so
     the whole response prefills in this call instead of one decode step a
     token; `fused` names the forced tokens (see ``_prefill_first``), and
     their logprobs follow the rows' in ``lp``."""
+    kv, recurrent = _layout(cfg)
 
     def refill(params, adapters, tokens, prompt_lens, init_counters, slots,
                dest_pages, new_row_ids, new_keys, new_temps, forced,
                forced_mask, fused, cache, cur, counters, keys, temps,
                row_ids):
         pcache = init_cache(cfg, tokens.shape[0], dest_pages.shape[1] * page,
-                            dtype=cache["kp"].dtype, device=tokens.device)
+                            dtype=_cache_dtype(cache), device=tokens.device)
         first, lp, pcache = _prefill_first(
             cfg, params, adapters, tokens, prompt_lens, init_counters,
             new_row_ids, new_keys, new_temps, forced, forced_mask, pcache,
             fused)
-        _paged_scatter(cache, pcache["k"], pcache["v"], dest_pages, page)
+        if kv:
+            _paged_scatter(cache, pcache["k"], pcache["v"], dest_pages, page)
         sl = slots.long()
+        if recurrent:
+            _put_recurrent(cache, sl, pcache["ssm"], pcache["conv"])
         cache["pos"][sl] = prompt_lens
         state = _set_row_state(sl, first, init_counters + 1, new_keys,
                                new_temps, new_row_ids, cur, counters, keys,
@@ -405,15 +441,21 @@ def _build_splice_fn(cfg: ModelConfig, max_len: int):
     (the decode half of the disaggregated split): the row's width-1 cache
     goes into the pool at `slot` (entries past the cache's width keep the
     previous occupant's values, masked and overwritten by decode, as in
-    the fused refill), and the slot's device row state is written. No
-    forward runs on the decode thread."""
+    the fused refill), its recurrent ssm/conv rows replace the slot's, and
+    the slot's device row state is written. No forward runs on the decode
+    thread."""
+    kv, recurrent = _layout(cfg)
 
     def splice(cache, pcache, slot: int, seq_len: int, first: int,
                init_counter: int, key, temp: float, row_id: int, cur,
                counters, keys, temps, row_ids):
-        S = min(pcache["k"].shape[2], max_len)
-        cache["k"][:, slot, :S] = pcache["k"][:, 0, :S]
-        cache["v"][:, slot, :S] = pcache["v"][:, 0, :S]
+        if kv:
+            S = min(pcache["k"].shape[2], max_len)
+            cache["k"][:, slot, :S] = pcache["k"][:, 0, :S]
+            cache["v"][:, slot, :S] = pcache["v"][:, 0, :S]
+        if recurrent:
+            _put_recurrent(cache, slot, pcache["ssm"][:, 0],
+                           pcache["conv"][:, 0])
         cache["pos"][slot] = seq_len
         state = _set_row_state(slot, first, init_counter + 1, key, temp,
                                row_id, cur, counters, keys, temps, row_ids)
@@ -425,19 +467,24 @@ def _build_splice_fn(cfg: ModelConfig, max_len: int):
 def _build_splice_fn_paged(cfg: ModelConfig, page: int):
     """Paged twin of ``_build_splice_fn``: the row's width-1 worker cache
     is written page by page into the pool pages the allocator handed it
-    (`dest_pages`, exactly ``ceil(seq_len/page)`` of them). Still a copy,
-    never a forward."""
+    (`dest_pages`, exactly ``ceil(seq_len/page)`` of them: none for ssm),
+    and its recurrent rows into the slot. Still a copy, never a forward."""
+    _, recurrent = _layout(cfg)
 
     def splice(cache, pcache, slot: int, dest_pages, seq_len: int,
                first: int, init_counter: int, key, temp: float, row_id: int,
                cur, counters, keys, temps, row_ids):
-        L, _, _, KVH, hd = cache["kp"].shape
         n = dest_pages.shape[0]
-        dest = dest_pages.long()
-        cache["kp"][:, dest] = pcache["k"][:, 0, :n * page].reshape(
-            L, n, page, KVH, hd).to(cache["kp"].dtype)
-        cache["vp"][:, dest] = pcache["v"][:, 0, :n * page].reshape(
-            L, n, page, KVH, hd).to(cache["vp"].dtype)
+        if n:
+            L, _, _, KVH, hd = cache["kp"].shape
+            dest = dest_pages.long()
+            cache["kp"][:, dest] = pcache["k"][:, 0, :n * page].reshape(
+                L, n, page, KVH, hd).to(cache["kp"].dtype)
+            cache["vp"][:, dest] = pcache["v"][:, 0, :n * page].reshape(
+                L, n, page, KVH, hd).to(cache["vp"].dtype)
+        if recurrent:
+            _put_recurrent(cache, slot, pcache["ssm"][:, 0],
+                           pcache["conv"][:, 0])
         cache["pos"][slot] = seq_len
         state = _set_row_state(slot, first, init_counter + 1, key, temp,
                                row_id, cur, counters, keys, temps, row_ids)
@@ -447,14 +494,26 @@ def _build_splice_fn_paged(cfg: ModelConfig, page: int):
 
 
 def _build_snap_fn(cfg: ModelConfig):
-    """Gather one resident row's live KV pages for a host snapshot. The
-    gather is a copy, taken before the pages return to the pool (the pool is
-    written in place, so a view would be overwritten by the next owner)."""
+    """Gather one resident row's cache state for a host snapshot: its live
+    KV pages (none given: no K/V is copied) and, with ``slot``, its
+    recurrent ssm/conv rows. Every array comes back as a CPU tensor in the
+    cache's dtype: conv stays bf16 on a bf16 model (numpy has no bf16, and
+    the restore copies it back bit for bit). The gather is a copy, taken
+    before the pages and the slot are reused (the pool is written in place,
+    so a view would be overwritten by the next owner)."""
+    _, recurrent = _layout(cfg)
 
-    def snap(cache, pages):
-        idx = pages.long()
-        return {"kp": cache["kp"][:, idx].cpu(),
-                "vp": cache["vp"][:, idx].cpu()}
+    def snap(cache, pages, slot=None):
+        out = {}
+        if pages is not None and pages.numel():
+            idx = pages.long()
+            out["kp"] = cache["kp"][:, idx].cpu()
+            out["vp"] = cache["vp"][:, idx].cpu()
+        if slot is not None and recurrent:
+            # a copy also on the CPU, where .cpu() of a view is the view
+            out["ssm"] = cache["ssm"][:, slot].to("cpu", copy=True)
+            out["conv"] = cache["conv"][:, slot].to("cpu", copy=True)
+        return out
 
     return snap
 
@@ -462,22 +521,25 @@ def _build_snap_fn(cfg: ModelConfig):
 def _build_restore_fn(cfg: ModelConfig):
     """Splice a host snapshot back into the pool: its KV pages into the
     freshly allocated physical pages `dest_pages` (exactly ``n_pages`` of
-    them), `pos` to the snapshot position, and the device row state to
-    (pending token, counter); the next ordinary decode step then continues
-    the row with the logits an uninterrupted run would produce. No prefill
-    runs. A device-resident resume passes ``kpages=None``: its pages never
-    left the pool, so only `pos` and the row state move (the JAX engine
-    writes a zero page stack into the scratch page instead)."""
+    them), its recurrent ssm/conv rows into the slot, `pos` to the snapshot
+    position, and the device row state to (pending token, counter); the
+    next ordinary decode step then continues the row with the logits an
+    uninterrupted run would produce. No prefill runs. A device-resident
+    resume passes ``kpages=None``: its pages never left the pool, so only
+    its recurrent rows (a hybrid's), `pos` and the row state move (the JAX
+    engine writes a zero page stack into the scratch page instead)."""
 
-    def restore(cache, kpages, vpages, dest_pages, slot, pos_val, cur_tok,
-                counter, key, temp, row_id, cur, counters, keys, temps,
-                row_ids):
+    def restore(cache, kpages, vpages, dest_pages, slot, pos_val, ssm_row,
+                conv_row, cur_tok, counter, key, temp, row_id, cur, counters,
+                keys, temps, row_ids):
         if kpages is not None:
             dest = dest_pages.long()
             cache["kp"][:, dest] = kpages.to(device=cache["kp"].device,
                                              dtype=cache["kp"].dtype)
             cache["vp"][:, dest] = vpages.to(device=cache["vp"].device,
                                              dtype=cache["vp"].dtype)
+        if ssm_row is not None:
+            _put_recurrent(cache, slot, ssm_row, conv_row)
         cache["pos"][slot] = pos_val
         state = _set_row_state(slot, cur_tok, counter, key, temp, row_id,
                                cur, counters, keys, temps, row_ids)
@@ -957,6 +1019,7 @@ class ContinuousRolloutEngine:
         # -- paged KV-cache block pool ------------------------------------
         self.paged_kv = paged_kv
         self.kv_page_size = kv_page_size
+        self._has_kv, self._recurrent = _layout(cfg)
         self.resume_restore = paged_kv and resume_restore
         if paged_kv:
             if max_len % kv_page_size != 0:
@@ -1427,7 +1490,10 @@ class ContinuousRolloutEngine:
 
     # -- paged KV page + snapshot lifecycle (rollout/kvcache.py) ----------
     def _row_pages_needed(self, tokens: int) -> int:
-        """Pool pages holding `tokens` cache entries for one row."""
+        """Pool pages holding `tokens` cache entries for one row (0 for a
+        pure-SSM model: recurrent state is fixed-size and never paged)."""
+        if not self._has_kv:
+            return 0
         return pages_for(tokens, self.kv_page_size)
 
     def _assign_slot_pages(self, slot: int, pages: List[int], pos: int):
@@ -1449,10 +1515,12 @@ class ContinuousRolloutEngine:
         self._tbl_dirty = True
 
     def _snapshot_row(self, slot: int, row: _Row):
-        """Copy a row's live pages to HOST before vacating its slot: only
+        """Copy a row's cache state to HOST before vacating its slot: only
         the ``ceil(pos/page)`` pages holding entries, never the max_len
-        worst case. Under host memory pressure the snapshot is dropped and
-        the row replays from tokens instead (same output, recomputed)."""
+        worst case, plus the fixed ssm/conv rows of a recurrent family
+        (``_build_snap_fn``: CPU tensors, counted against the store's
+        budget). Under host memory pressure the snapshot is dropped and the
+        row replays from tokens instead (same output, recomputed)."""
         if not self.resume_restore:
             return
         if self._chaos is not None and self._chaos.fire("snapshot_drop"):
@@ -1466,9 +1534,10 @@ class ContinuousRolloutEngine:
         # the slot may hold one extra page allocated for the pending write
         # (pos % page == 0); it holds no valid entries, so it is skipped
         outs = self._snap_fn(self._cache, self._tensor(
-            self._slot_pages[slot][:n_pg], torch.int64))
-        snap = KVSnapshot(pos=pos, cur=row.gen[-1], kpages=outs["kp"],
-                          vpages=outs["vp"])
+            self._slot_pages[slot][:n_pg], torch.int64), slot)
+        snap = KVSnapshot(pos=pos, cur=row.gen[-1], kpages=outs.get("kp"),
+                          vpages=outs.get("vp"), ssm=outs.get("ssm"),
+                          conv=outs.get("conv"))
         if self._snap_store.try_add(snap):
             row.snap = snap
             self.stats.snapshots += 1
@@ -1516,17 +1585,22 @@ class ContinuousRolloutEngine:
 
     def _spill_dev_parked(self) -> bool:
         """Spill tier: demote the oldest device-parked row to a host
-        snapshot (its pages copied off the card) so that its pool pages free
-        up. If the snapshot store rejects the bytes, the row falls back to
-        token replay; either way its pages return to the pool. Returns True
-        if a row was spilled."""
+        snapshot (its pages copied off the card, merged with a hybrid's
+        recurrent-only snapshot) so that its pool pages free up. If the
+        snapshot store rejects the bytes, the row falls back to token
+        replay; either way its pages return to the pool. Returns True if a
+        row was spilled."""
         if not self._dev_parked:
             return False
         row = self._dev_parked.pop(0)
         outs = self._snap_fn(self._cache,
                              self._tensor(row.dev_pages, torch.int64))
+        old = row.snap            # hybrid park: recurrent-only snapshot
         snap = KVSnapshot(pos=row.dev_pos, cur=row.gen[-1], kpages=outs["kp"],
-                          vpages=outs["vp"])
+                          vpages=outs["vp"],
+                          ssm=old.ssm if old is not None else None,
+                          conv=old.conv if old is not None else None)
+        self._drop_snap(row)
         self._pages.release(row.dev_pages)
         row.dev_pages, row.dev_pos = None, 0
         if self._snap_store.try_add(snap):
@@ -1539,15 +1613,28 @@ class ContinuousRolloutEngine:
     def _dev_park_row(self, slot: int, row: _Row) -> bool:
         """Device-resident preemption (prefix cache): the row KEEPS its pool
         pages (ownership moves from the slot to the row), its resume is a
-        block-table splice, and no K/V byte leaves the card. Returns True
-        when the slot was vacated so."""
+        block-table splice, and no K/V byte leaves the card. A hybrid's
+        recurrent state has no paged form and still snapshots to host; if
+        the store rejects it, the row falls back to token replay (its pages
+        released). Returns True when the slot was vacated (device-resident,
+        or for replay)."""
         if not (self.prefix_cache and self.resume_restore):
             return False
-        if not self._slot_pages[slot]:
-            return False                 # no pages to keep
+        if not self._has_kv or not self._slot_pages[slot]:
+            return False                 # no attention pages to keep
         pos = self._slot_pos[slot]
         n_pg = self._row_pages_needed(pos)
         pages = self._slot_pages[slot]
+        if self._recurrent:              # hybrid: recurrent part to host
+            outs = self._snap_fn(self._cache, None, slot)
+            snap = KVSnapshot(pos=pos, cur=row.gen[-1], ssm=outs["ssm"],
+                              conv=outs["conv"])
+            if not self._snap_store.try_add(snap):
+                self.stats.snapshot_drops += 1
+                self._free_slot_pages(slot)      # replay fallback
+                return True
+            row.snap = snap
+            self.stats.snapshots += 1
         # the slot may hold one slack page allocated for the pending write
         # (pos % page == 0): it has no valid entries, so it is dropped
         if n_pg < len(pages):
@@ -1602,11 +1689,15 @@ class ContinuousRolloutEngine:
                 break
             if row.dev_pages is not None:
                 # device-resident resume: reattach the pages to the slot's
-                # block table and reset the device row state
+                # block table, bring a hybrid's recurrent rows back up, and
+                # reset the device row state
                 slot = free.pop(0)
                 t0 = time.monotonic()
+                rec = row.snap
                 self._cache, state = self._restore_fn(  # noqa: RA204
                     self._cache, None, None, None, slot, row.dev_pos,
+                    rec.ssm if rec is not None else None,
+                    rec.conv if rec is not None else None,
                     row.gen[-1], len(row.gen),
                     self._tensor(row.key.astype(np.int64), torch.int64),
                     row.req.temperature, row.req.adapter_index, self._d_cur,
@@ -1623,6 +1714,7 @@ class ContinuousRolloutEngine:
                 self._assign_slot_pages(slot, row.dev_pages, row.dev_pos)
                 self._dev_parked.remove(row)
                 row.dev_pages, row.dev_pos = None, 0
+                self._drop_snap(row)
                 self.stats.restores += 1
                 self.stats.device_resident_resumes += 1
                 self.stats.replay_tokens_saved += (row.prompt_len
@@ -1648,9 +1740,9 @@ class ContinuousRolloutEngine:
             # recompiles nothing (the analyzer's jit rule does not apply)
             self._cache, state = self._restore_fn(  # noqa: RA204
                 self._cache, snap.kpages, snap.vpages,
-                self._tensor(pages, torch.int64), slot, snap.pos, snap.cur,
-                len(row.gen), self._tensor(row.key.astype(np.int64),
-                                           torch.int64),
+                self._tensor(pages, torch.int64), slot, snap.pos, snap.ssm,
+                snap.conv, snap.cur, len(row.gen),
+                self._tensor(row.key.astype(np.int64), torch.int64),
                 row.req.temperature, row.req.adapter_index, self._d_cur,
                 self._d_counters, self._d_keys, self._d_temps,
                 self._d_row_ids)
@@ -1679,6 +1771,8 @@ class ContinuousRolloutEngine:
         the row crosses a page boundary. A row the pool cannot serve
         finishes via cache-capacity eviction (pool exhaustion is a
         scheduling condition, not a crash)."""
+        if not self._has_kv:
+            return                  # nothing of a pure-SSM row is paged
         for slot, r in enumerate(self._rows):
             if r is None or r.status != "active":
                 continue
@@ -1733,7 +1827,7 @@ class ContinuousRolloutEngine:
         frag = 1.0 - live / cap_tokens if cap_tokens else 0.0
         resident = sum(1 for r in self._rows if r is not None)
         resident += len(self._dev_parked)      # their pages are HBM too
-        dtype_bytes = (self._cache["kp"].element_size()
+        dtype_bytes = (_cache_dtype(self._cache).itemsize
                        if self._cache is not None else 2)
         hbm = cap_tokens * self.cfg.state_bytes_per_token(dtype_bytes)
         return {"kv_pages_used": float(used),
@@ -1925,11 +2019,12 @@ class ContinuousRolloutEngine:
 
     # -- radix prefix reuse + GRPO-group sharing ---------------------------
     def _radix_on(self) -> bool:
-        """Radix/group page sharing is on once the paged cache exists (the
-        port's families are all pure attention, for which a suffix prefill
-        at any page offset is exact)."""
+        """Radix/group page sharing is on once the paged cache exists, for
+        pure attention caches only: a suffix prefill at a page offset is
+        exact for attention, while recurrent (ssm/hybrid) state has no
+        shareable paged form, so there the prefix cache is a no-op."""
         return (self._prefix_idx is not None and self._cache is not None
-                and "kp" in self._cache)
+                and self._has_kv and not self._recurrent)
 
     def _group_key(self, r: _Row):
         return (r.req.adapter_index, tuple(r.req.prompt))
@@ -2356,7 +2451,7 @@ class ContinuousRolloutEngine:
                     row.req.adapter_index, self._d_cur, self._d_counters,
                     self._d_keys, self._d_temps, self._d_row_ids)
             if stream is not None:
-                for t in (rr.pcache["k"], rr.pcache["v"]):
+                for t in rr.pcache.values():
                     t.record_stream(stream)
             (self._d_cur, self._d_counters, self._d_keys, self._d_temps,
              self._d_row_ids) = state
@@ -2604,7 +2699,8 @@ class ContinuousRolloutEngine:
             # topology changed, AFTER the forks: one host-to-device copy of
             # [max_slots, max_pages] int32
             self._ensure_decode_pages()
-            if self._tbl_dirty and self._cache is not None:
+            if self._tbl_dirty and self._cache is not None \
+                    and self._has_kv:
                 self._cache["tbl"].copy_(torch.from_numpy(self._tbl_host))
                 self._tbl_dirty = False
         advance = np.array(

@@ -147,13 +147,16 @@ class KVSnapshot:
     yet fed through the model. Restoring installs (pages, pos, cur) and the
     next ordinary decode step continues the row exactly where an
     uninterrupted run would be. Each array field is a CPU tensor (or a
-    numpy array): anything with ``.shape`` and ``.nbytes``."""
+    numpy array): anything with ``.shape`` and ``.nbytes``. The engine
+    keeps CPU tensors in the cache's dtypes, so that a bf16 ``conv`` (numpy
+    has no bf16) restores bit for bit; ``nbytes`` counts all four fields
+    against the store's budget."""
     pos: int                       # materialized cache entries
     cur: int                       # pending token (== row.gen[-1])
     kpages: Optional[object] = None   # [L_attn, n_pg, page, KVH, hd]
     vpages: Optional[object] = None
-    ssm: Optional[object] = None      # recurrent state (families not ported)
-    conv: Optional[object] = None
+    ssm: Optional[object] = None      # [L_ssm, H, N, P] fp32 (this row)
+    conv: Optional[object] = None     # [L_ssm, conv_dim, W-1] model dtype
 
     @property
     def n_pages(self) -> int:

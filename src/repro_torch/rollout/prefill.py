@@ -24,7 +24,8 @@ merge tickets are shared per card).
 Chunked prefill: rows longer than ``prefill_chunk`` run in fixed-size chunks
 through ``forward_prefill_chunk``, and each worker round-robins its
 in-flight jobs chunk by chunk, so one huge prompt cannot monopolize the
-stage. The chunk is rounded up to a multiple of 8 (``effective_chunk``).
+stage. The chunk is rounded up to a multiple of 8 and, for the recurrent
+families, of the SSD scan chunk (``effective_chunk``).
 
 Determinism: the first token is sampled from the final-position logits with
 ``fold_in(row key, init_counter)`` (0 for fresh rows, ``len(gen)`` for
@@ -95,8 +96,9 @@ def _log_softmax_at(logits, idx):
 def effective_chunk(cfg: ModelConfig, chunk: int) -> int:
     """Round a requested prefill chunk up so chunked == whole-prompt:
     a multiple of 8 (the prompt buckets) and, for recurrent families, of the
-    SSD scan chunk (the port has none yet: ``cfg.ssm`` is None). 0 keeps
-    chunking off (whole-prompt prefill calls)."""
+    SSD scan chunk ``cfg.ssm.chunk_size`` (the chunks' boundaries then fall
+    on the scan's own, and the chunked state equals the whole prompt's). 0
+    keeps chunking off (whole-prompt prefill calls)."""
     if chunk <= 0:
         return 0
     c = _bucket_len(chunk)
@@ -113,8 +115,11 @@ class PrefillKernels:
     ``whole``  — one-call prefill of a full (bucketed) sequence on a fresh
                  width-1 cache ``width`` entries wide; returns (first token,
                  logprob, fused-block logprobs or None, cache).
-    ``chunk``  — one fixed-size chunk at offset `start` through
-                 ``forward_prefill_chunk``; returns (hidden, cache).
+    ``chunk``  — one fixed-size chunk at offset `start`, `n` of its tokens
+                 real, through ``forward_prefill_chunk``; returns (hidden,
+                 cache).
+    Both pass the real length as ``seq_lens``, so that a recurrent
+    family's state is taken at the row's last real token.
     ``finish`` — final-position logits and the first-token pick off the
                  last chunk's hidden states.
     """
@@ -133,7 +138,10 @@ class PrefillKernels:
                   ftoks=None):
             pcache = init_cache(cfg, 1, width, device=tokens.device)
             lora = batched_ctx(adapters, row_ids, cfg)
-            h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache)
+            seq_lens = torch.full((1,), seq_len, dtype=torch.int32,
+                                  device=tokens.device)
+            h, pcache, _ = forward_seq(params, tokens, cfg, lora, pcache,
+                                       seq_lens=seq_lens)
             first, lp = pick(lm_logits(h[:, seq_len - 1], params, cfg), keys,
                              init_counters, temps, forced, forced_mask)
             flp = None
@@ -145,10 +153,13 @@ class PrefillKernels:
                                       ftoks)
             return first, lp, flp, pcache
 
-        def chunk(start: int, params, adapters, row_ids, tokens, pcache):
+        def chunk(start: int, params, adapters, row_ids, tokens, n: int,
+                  pcache):
             lora = batched_ctx(adapters, row_ids, cfg)
+            seq_lens = torch.full((1,), n, dtype=torch.int32,
+                                  device=tokens.device)
             return forward_prefill_chunk(params, tokens, cfg, lora, pcache,
-                                         start=start)
+                                         start=start, seq_lens=seq_lens)
 
         def finish(params, h, last_idx: int, keys, init_counters, temps,
                    forced, forced_mask):
@@ -374,7 +385,8 @@ class PrefillWorker(threading.Thread):
         toks = np.zeros((1, C), np.int32)
         toks[0, :end - start] = job.seq[start:end]
         job.h, job.pcache = ker.chunk(start, params, stacked, row_id,
-                                      t(toks, torch.int32), job.pcache)
+                                      t(toks, torch.int32), end - start,
+                                      job.pcache)
         eng.forward_counts["prefill_chunk"].add(1)
         job.done = end
         job.chunks += 1

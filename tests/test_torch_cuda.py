@@ -1264,3 +1264,153 @@ def test_traced_engine_launches_what_the_untraced_one_does(card):
         eng.shutdown()
     assert runs[0] == runs[1]
     assert runs[0][0][0] > 0 and runs[0][0][1] > 0
+
+
+# -- the moe, ssm and hybrid families -----------------------------------------
+
+@pytest.mark.parametrize("kernel", ["gqa", "paged"])
+@pytest.mark.parametrize("H,hd", [(16, 128), (32, 64)],
+                         ids=["deepseek-moe", "zamba2"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_decode_kernels_at_the_families_rep1_shapes(card, kernel, H, hd, dtype,
+                                                    tol):
+    """Both decode kernels at rep 1 with the families' head counts (MHA:
+    deepseek-moe 16 heads of 128, zamba2's shared block 32 heads of 64), 16
+    rows over a 512-key cache (pages of 16), against the plain versions;
+    two calls give the same bits."""
+    case = _split_case(card, 16, H, H, hd, 512, 16, dtype,
+                       [1, 15, 16, 17, 100, 255, 256, 257, 300, 383, 384,
+                        385, 450, 500, 511, 512])
+    got, want = _both_kernels(case, 0.0, 0)[kernel]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again, _ = _both_kernels(case, 0.0, 0)[kernel]
+    assert torch.equal(got, again)
+
+
+FAMILY_SGMV = [  # d, dout: the families' adapted projections new to sgmv
+    (2048, 8384), (4096, 2048),        # zamba2 ssm_in, ssm_out
+    (1536, 6448), (3072, 1536),        # mamba2 ssm_in, ssm_out
+    (2048, 16384), (8192, 2048),       # zamba2's shared MLP in, out
+    (2048, 5632), (2816, 2048),        # deepseek-moe's shared experts
+]
+
+
+@pytest.mark.parametrize("R", [16, 512])
+@pytest.mark.parametrize("d,dout", FAMILY_SGMV)
+def test_sgmv_at_the_families_projections(card, d, dout, R):
+    """Both epilogues at each new projection shape, bf16 rows of 4 slots,
+    in decode (16 rows) and prefill (512 rows): sgmv against sgmv_ref,
+    sgmv_add_ bit-equal to sgmv followed by the torch composition and close
+    to sgmv_add_ref, one CUDA launch a call."""
+    x, a, b, ids = _sgmv_case(card, R, 4, d, 16, dout, torch.bfloat16,
+                              "uniform")
+    table = sgmv.sgmv_table(ids, 4)
+    got = sgmv.sgmv(x, a, b, ids, table=table)
+    want = ref.sgmv_ref(x, a, b, ids)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    y0 = torch.randn(R, dout, generator=card, device="cuda").bfloat16()
+    y = y0.clone()
+    n = sgmv.CUDA_LAUNCHES.n
+    sgmv.sgmv_add_(y, x, a, b, table, 2.0)
+    assert sgmv.CUDA_LAUNCHES.n - n == 1
+    assert torch.equal(y, y0 + (got * 2.0).to(torch.bfloat16))
+    _assert_add_close(y, ref.sgmv_add_ref(y0.clone(), x, a, b, ids, 2.0), y0,
+                      want * 2.0)
+
+
+@pytest.mark.parametrize("d,V,layout", [(2048, 32000, "tied"),
+                                        (1536, 50280, "tied"),
+                                        (2048, 102400, "untied")],
+                         ids=["zamba2", "mamba2", "deepseek-moe"])
+def test_token_logprob_at_the_families_vocabularies(card, d, V, layout):
+    """The bf16 forward and backward at the families' widths and
+    vocabularies (50280 leaves a ragged last 128-column tile; deepseek-moe's
+    head is untied), 300 rows, against the plain versions; two calls of
+    each give the same bits."""
+    _assert_bf16_dh(*_bf16_forward_backward(card, 300, d, V, layout, 0.0))
+
+
+def test_moe_combine_gives_the_same_bits_on_two_calls(card):
+    """moe_apply at deepseek-moe's width (64 experts, top 6, 2 shared, d
+    2048) on 512 tokens in bf16, with drops at capacity_factor 1.0 (48
+    assignments an expert on average against a capacity of 56): two calls
+    give the same bits (the combine gathers and sums each token's slots in
+    a fixed order: no atomics), and equal the fp32 CPU result of the same
+    layer within bf16 rounding."""
+    from repro_torch.models import moe
+    cfg = REGISTRY["deepseek-moe-16b"]
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           capacity_factor=1.0))
+    p = moe.moe_init(card, cfg, torch.bfloat16, "cuda")
+    x = torch.randn(4, 128, cfg.d_model, generator=card, device="cuda").bfloat16()
+    moe.DROPS.reset(True)
+    y1, aux1 = moe.moe_apply(x, p, cfg)
+    y2, aux2 = moe.moe_apply(x, p, cfg)
+    dropped = moe.DROPS.total()
+    moe.DROPS.reset(False)
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(aux1, aux2) and dropped > 0
+    p32 = tree_map(lambda t: t.float().cpu(), p)
+    y_cpu, _ = moe.moe_apply(x.float().cpu(), p32, cfg)
+    err = (y1.float().cpu() - y_cpu).abs().max()
+    assert err <= 3e-2 * y_cpu.abs().max(), err
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b",
+                                  "deepseek-moe-16b"])
+def test_family_continuous_paged_on_card_matches_cpu(card, arch):
+    """A reduced fp32 model of each family through the paged continuous
+    engine (prefix cache on), every resident row preempted at step 4, on
+    the card (sgmv, paged_gqa_decode) and on the CPU (plain versions):
+    equal tokens, logprobs within 1e-4, equal counters; the kernels launch
+    at the family's counts."""
+    from repro_torch.lora.adapters import applicable_targets
+    from repro_torch.models.model import n_attn_layers
+    cfg = dataclasses.replace(reduced(REGISTRY[arch], dtype="float32"),
+                              vocab_size=tok.VOCAB_SIZE)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    adapters = make_adapters(cfg, 2, seed=0, device="cpu", b_scale=0.2)
+    reqs = make_requests(2, 3, max_new_tokens=10, seed=4)
+    for i, r in enumerate(reqs):
+        r.seed = i
+    t = applicable_targets(cfg)
+    per_fwd = (len(t["layers"]) * cfg.num_layers
+               + len(t["shared"]) * n_attn_layers(cfg))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        def mv(tree, dev=dev):
+            return tree_map(lambda x: x.to(dev), tree)
+        eng = ContinuousRolloutEngine(cfg, mv(params), max_slots=3,
+                                      max_adapters=2, max_len=64,
+                                      paged_kv=True, kv_page_size=8,
+                                      device=dev)
+        for i, a in enumerate(adapters):
+            eng.set_adapters(i, mv(a))
+        n0 = (paged.LAUNCHES.n, sgmv.LAUNCHES.n)
+        for r in reqs:
+            eng.submit(r)
+        comps, steps = [], 0
+        while not eng.idle():
+            eng.step()
+            steps += 1
+            eng.check_page_invariants()
+            if steps == 4:          # every resident row
+                eng.preempt_tenant("tenant-0")
+                eng.preempt_tenant("tenant-1")
+            comps += eng.drain_completions()
+        st = eng.stats
+        fwd = sum(c.n for c in eng.forward_counts.values())
+        if dev == "cuda":
+            assert paged.LAUNCHES.n - n0[0] == n_attn_layers(cfg) * st.decode_steps
+            assert sgmv.LAUNCHES.n - n0[1] == per_fwd * fwd
+        out[dev] = (sorted((c.submit_index, list(c.tokens), c.gen_logprobs)
+                           for c in comps),
+                    (st.decode_steps, st.preemptions, st.restores,
+                     st.snapshots, st.replays))
+        assert st.preemptions > 0 and st.restores > 0
+    assert out["cpu"][1] == out["cuda"][1]
+    for (i, ta, la), (j, tb, lb) in zip(out["cpu"][0], out["cuda"][0]):
+        assert (i, ta) == (j, tb)
+        torch.testing.assert_close(torch.tensor(lb), torch.tensor(la),
+                                   rtol=1e-4, atol=1e-4)

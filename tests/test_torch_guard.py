@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "repro_torch.lora.adapters", "repro_torch.lora.multilora",
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.common", "repro_torch.models.mlp",
+    "repro_torch.models.mamba2", "repro_torch.models.moe",
     "repro_torch.models.model", "repro_torch.rollout.engine",
     "repro_torch.rollout.env_stage", "repro_torch.rollout.kvcache",
     "repro_torch.rollout.prefill",
