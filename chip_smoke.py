@@ -169,6 +169,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     drops), one GRPO step, the assignments dropped at the config's capacity
     factor 1.25 in each (live tokens only in decode), the peak memory, and
     the fp32 check on its first P14_MOE_TF_LAYERS layers.
+15. encdec: seamless-m4t-large-v2 at its full published size in bf16 (24
+    encoder and 24 decoder layers, d=1024, 16/16 heads of 64, a gelu MLP of
+    8192, V=256206 untied; random weights from seed 0, drawn on the card;
+    NUM_TENANTS adapters with b ~ N(0, 0.02^2)), through launch.specs' step
+    builders, since the engines refuse the family. (a) The kernels at its
+    shapes against their plain versions, timed: gqa_decode (16/16 heads of
+    64, a 512-token cache, bf16 and fp32), sgmv at 1024->1024, 1024->8192
+    and 8192->1024 in decode and prefill, token_logprob forward and
+    backward at V=256206 (R 624 and 4096) on the untied head and on a view
+    of a head whose rows are padded to a multiple of 8, with the staging
+    path each took, as the launchers report it (the padded head's backward
+    must load W by 16-byte copies in every chunk but the last). (b) A served round: 16 gsm8k prompts on 4 of the
+    stacked adapters, 128 seeded N(0, 1) frames a row for the stub audio
+    frontend, build_prefill_step (the cross-attention memory into the
+    cache) and 32 build_decode_step steps sampled by the port's sampler;
+    gqa_decode 24 launches a decode step (the cross-attention is plain, as
+    in the JAX package), sgmv 144 a forward (none in the encoder); decode
+    ms/step, prefill ms and launch.analytic's FLOPs of the round over its
+    wall time as a share of the card's peak. (c) 4 of its rows teacher-forced
+    in fp32 with their frames, card against CPU, within TF_TOL. (d) One
+    LoRA GRPO step through build_train_step (32 rows x 512 tokens, 128
+    frames; token_logprob 1 forward and 1 backward launch): every adapter
+    leaf moves, its time and analytic share of peak; then the same step on
+    a contiguous copy of the head and again on the padded one, timed
+    alone: the same bits, and W by 16-byte copies in every backward chunk
+    but the last on the padded head only. (e) The same step at
+    remat_block 4 (6 blocks of 4): loss and gradient against (d) within
+    phase 7's bf16 tolerances, and both peaks of memory.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -176,15 +204,13 @@ import gc
 import json
 import random
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
+PEAKS = None            # the card's data-sheet peaks (launch.roofline), set in main
 ARCH = "qwen3-0.6b"
 TENANTS, PER_TENANT, MAX_NEW, MAX_LEN = 4, 4, 32, 256
 B_SCALE = 0.02          # adapter b ~ N(0, B_SCALE^2): a delta of ~10% of a projection
@@ -319,8 +345,8 @@ def copies_for(nbytes, floor=2):
 
 
 def bound_ms(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAKS.hbm_bytes_per_s
+    t_ops = flops / PEAKS.flops[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -367,13 +393,6 @@ def ptxas_kernels(text):
         elif out and "Used " in line:
             out[-1][1] = int(line.split("Used ")[1].split()[0])
     return [tuple(k) for k in out]
-
-
-def nvidia_smi_line():
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True,
-                       timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +800,10 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
     the kernel and the merge), and the backward's the scratch one call
     allocated (peak allocator bytes less dh); the bf16 backward's scratch
     must stay within tlp.SCRATCH_LIMIT and its launches must match its plan
-    (two products per vocab chunk and a reduce). The bf16 records also
+    (two products per vocab chunk and a reduce). Each record carries how
+    the launchers loaded W (tlp.FWD_W_VECTOR, tlp.BWD_W_VECTOR: the vocab
+    chunks loaded by 16-byte copies); a head padded to a multiple of 8 a
+    row must take them in every backward chunk but the last. The bf16 records also
     carry their plans (forward: vocab slices and blocks; backward: vocab
     chunk, K-splits, planned scratch) and, where timed, the TFLOP/s.
     `cases` (R, d, V, dtype, softcap, layout, timed) replaces the case list
@@ -802,24 +824,27 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
         h = torch.randn(R, d, generator=g, device="cuda").to(dt)
         if layout == "tied":     # the embedding table [V, d] read as W = table.T
             w = (torch.randn(Vc, d, generator=g, device="cuda") * 0.02).to(dt).T
-        else:
+        elif layout == "untied":
             w = (torch.randn(d, Vc, generator=g, device="cuda") * 0.02).to(dt)
+        else:                    # "padded": a [:, :V] view of rows padded to 8
+            w = (torch.randn(d, -(-Vc // 8) * 8, generator=g, device="cuda")
+                 * 0.02).to(dt)[:, :Vc]
         t = torch.randint(0, Vc, (R,), generator=g, device="cuda", dtype=torch.int32)
         g_lp = torch.randn(R, generator=g, device="cuda") / R
         g_ent = torch.randn(R, generator=g, device="cuda") / R
-        n_fwd = tlp.FWD_CUDA_LAUNCHES.n
+        n_fwd, v_fwd = tlp.FWD_CUDA_LAUNCHES.n, tlp.FWD_W_VECTOR.n
         lp, ent, lse = tlp.token_logprob_fwd(h, w, t, cap)
-        n_fwd = tlp.FWD_CUDA_LAUNCHES.n - n_fwd
+        n_fwd, v_fwd = tlp.FWD_CUDA_LAUNCHES.n - n_fwd, tlp.FWD_W_VECTOR.n - v_fwd
         fwd_again = tlp.token_logprob_fwd(h, w, t, cap)
         want_lp, want_ent, want_lse = ref.token_logprob_stats_ref(h, w, t, cap)
         dh = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent, cap)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        n_bwd = tlp.BWD_CUDA_LAUNCHES.n
+        n_bwd, v_bwd = tlp.BWD_CUDA_LAUNCHES.n, tlp.BWD_W_VECTOR.n
         dh_again = tlp.token_logprob_bwd(h, w, t, want_lse, want_ent, g_lp, g_ent,
                                          cap)
-        n_bwd = tlp.BWD_CUDA_LAUNCHES.n - n_bwd
+        n_bwd, v_bwd = tlp.BWD_CUDA_LAUNCHES.n - n_bwd, tlp.BWD_W_VECTOR.n - v_bwd
         torch.cuda.synchronize()
         scratch = torch.cuda.max_memory_allocated() - base - dh_again.nbytes
         want_dh = ref.token_logprob_bwd_ref(h, w, t, want_lse, want_ent, g_lp,
@@ -849,6 +874,14 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
                                  f"{dh_tol} x {dh_scale:.3e})")
         shape = dict(R=R, d=d, V=Vc, dtype=str(dt).split(".")[1], softcap=cap,
                      layout=layout, main=main_cases and R == R_main and timed)
+        # how the launchers loaded W, as they report it: a vocab chunk's tiles
+        # by 16-byte copies ("vector") or element by element ("scalar")
+        chunks = (n_bwd - 1) // 2 if dt == torch.bfloat16 else 1
+        shape["staging"] = dict(
+            forward="vector" if v_fwd else "scalar",
+            backward=("vector" if v_bwd == chunks else "scalar" if not v_bwd
+                      else "mixed"),
+            backward_vector_chunks=v_bwd, backward_chunks=chunks)
         fc = dict(shape, max_abs_err=f_err, tol=tol, cuda_launches_per_call=n_fwd)
         bc = dict(shape, max_abs_err=b_err, tol=dh_tol * dh_scale,
                   cuda_launches_per_call=n_bwd, scratch_bytes=scratch)
@@ -864,6 +897,13 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
                 raise AssertionError(f"token_logprob {name}: backward scratch "
                                      f"{scratch} B (limit {tlp.SCRATCH_LIMIT}), "
                                      f"{n_bwd} CUDA launches for plan {bc['plan']}")
+            # what the padded head is for: 16-byte loads of W in every chunk
+            # of the backward but a ragged last one
+            if layout == "padded" and v_bwd < chunks - 1:
+                raise AssertionError(f"token_logprob {name}: the backward loaded W "
+                                     f"by 16-byte copies in {v_bwd} of {chunks} "
+                                     f"chunks")
+        name += " staging fwd {forward} bwd {backward}".format(**shape["staging"])
         line = f"  token_logprob {name}: fwd err {f_err:.2e} (tol {tol}) dh err " \
                f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e}), two calls of each " \
                f"bit-identical; CUDA launches a call fwd {n_fwd} bwd {n_bwd}, bwd " \
@@ -1128,9 +1168,11 @@ def kernel_entry(name, source, replaces, cases, launches, extra):
 # phase 5: teacher-forced fp32 check, card vs CPU
 # ---------------------------------------------------------------------------
 
-def teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, device):
+def teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, device,
+                            enc=None):
     """Per-token logprobs of each row's generated tokens, teacher-forced
-    through forward_seq in fp32 on `device`."""
+    through forward_seq in fp32 on `device` (encdec: with the rows' frame
+    embeddings `enc`)."""
     from repro_torch.lora.adapters import batched_ctx, stack_adapters
     from repro_torch.rollout.prefill import _bucket_len
 
@@ -1144,9 +1186,11 @@ def teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, device):
     for i, (r, _) in enumerate(rows):
         tokens[i, :len(r["tokens"])] = torch.tensor(r["tokens"])
     ids = torch.tensor([a for _, a in rows], dtype=torch.int32, device=device)
+    if enc is not None:
+        enc = enc.to(device=device, dtype=torch.float32)
     with torch.inference_mode():
         h, _, _ = M.forward_seq(p32, tokens.to(device), cfg,
-                                batched_ctx(stacked, ids, cfg))
+                                batched_ctx(stacked, ids, cfg), enc_embeds=enc)
         logp = torch.log_softmax(M.lm_logits(h, p32, cfg), dim=-1)
     out = []
     for i, (r, _) in enumerate(rows):
@@ -2880,16 +2924,18 @@ P14_VOCAB = ((P14_HYBRID, 2048, 32000, "tied"), (P14_SSM, 1536, 50280, "tied"),
 P14_DECODE = ((P14_MOE, 16, 128), (P14_HYBRID, 32, 64))   # (arch, H = KVH, hd)
 
 
-def check_family_decode(torch, gqa, paged, ref, g):
-    """Both decode kernels at phase 14's rep-1 shapes (deepseek-moe's MHA,
-    16 heads of 128, and zamba2's shared block, 32 heads of 64): B=16, a
-    512-token cache (contiguous; paged in 16-token pages handed out in a
-    random order), pos 1 to 512, bf16 and fp32. Each against its plain
-    version, two calls with the same bits, one CUDA launch a call; the bf16
-    cases timed (kernel, plain, library, eager call, bound)."""
+def check_family_decode(torch, gqa, paged, ref, g, shapes=P14_DECODE,
+                        kernels=("gqa_decode", "paged_gqa_decode"), tag="14"):
+    """Both decode kernels (or those of `kernels`) at phase 14's rep-1
+    shapes (deepseek-moe's MHA, 16 heads of 128, and zamba2's shared block,
+    32 heads of 64; `shapes` replaces them): B=16, a 512-token cache
+    (contiguous; paged in 16-token pages handed out in a random order), pos
+    1 to 512, bf16 and fp32. Each against its plain version, two calls with
+    the same bits, one CUDA launch a call; the bf16 cases timed (kernel,
+    plain, library, eager call, bound)."""
     B, S, page = 16, 512, 16
-    out = {"gqa_decode": [], "paged_gqa_decode": []}
-    for arch, H, hd in P14_DECODE:
+    out = {k: [] for k in kernels}
+    for arch, H, hd in shapes:
         for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
             dname = str(dt).split(".")[1]
             timed = dt == torch.bfloat16
@@ -2910,6 +2956,8 @@ def check_family_decode(torch, gqa, paged, ref, g):
             idx = torch.arange(S, device="cuda")
             mask = (idx[None, :] < pos.long()[:, None])[:, None, None, :]
             for kname, mod in (("gqa_decode", gqa), ("paged_gqa_decode", paged)):
+                if kname not in kernels:
+                    continue
                 if kname == "gqa_decode":
                     sets = [(q, k, v, pos) for k, v in caches]
                     kern, plain = gqa.gqa_decode, ref.gqa_decode_ref
@@ -2940,7 +2988,7 @@ def check_family_decode(torch, gqa, paged, ref, g):
                 err = (got.float() - want.float()).abs()
                 if not bool((err <= tol + tol * want.float().abs()).all()) or not same \
                         or n_cuda != 1:
-                    raise AssertionError(f"phase 14 {kname} {arch} {dname}: max err "
+                    raise AssertionError(f"phase {tag} {kname} {arch} {dname}: max err "
                                          f"{err.max().item():.3e} (tol {tol}), same "
                                          f"bits {same}, CUDA launches {n_cuda}")
                 rec = dict(arch=arch, B=B, S=S, H=H, KVH=H, hd=hd, rep=1,
@@ -3031,28 +3079,42 @@ def family_serve(torch, cfg, params, adapters, counters, card, tag):
     return rec, [(r, q.adapter_index) for r, q in zip(results, reqs)]
 
 
-def family_tf_check(torch, M, cfg, params, adapters, rows, tag, depth=None):
+def first_layers(M, cfg, params, adapters, depth):
+    """(cfg, params, adapters) of the model's first `depth` layers: views of
+    the stacked layer leaves, the adapters' too."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, num_layers=depth)
+    params = dict(params, layers=M.tree_map(lambda t: t[:depth], params["layers"]))
+    adapters = [{k: M.tree_map(lambda t: t[:depth], v) for k, v in a.items()}
+                for a in adapters]
+    return cfg, params, adapters
+
+
+def family_tf_check(torch, M, cfg, params, adapters, rows, tag, depth=None,
+                    enc=None):
     """Teacher-forced fp32 logprobs of TF_ROWS served rows through
     forward_seq on the card (the sgmv kernel, sgmv_per_forward launches)
     against the CPU (plain versions), within TF_TOL; with `depth`, the
-    model's first `depth` layers (their adapters too) on the same tokens."""
+    model's first `depth` layers (their adapters too) on the same tokens;
+    encdec's rows with their frame embeddings (`enc`, a row each)."""
     from repro_torch.kernels import sgmv
-    import dataclasses
-    rows = rows[::max(1, len(rows) // TF_ROWS)][:TF_ROWS]
+    idx = list(range(0, len(rows), max(1, len(rows) // TF_ROWS)))[:TF_ROWS]
+    rows = [rows[i] for i in idx]
+    if enc is not None:
+        enc = enc[idx]
     if depth is not None:
-        cfg = dataclasses.replace(cfg, num_layers=depth)
-        params = dict(params, layers=M.tree_map(lambda t: t[:depth], params["layers"]))
-        adapters = [{k: M.tree_map(lambda t: t[:depth], v) for k, v in a.items()}
-                    for a in adapters]
+        cfg, params, adapters = first_layers(M, cfg, params, adapters, depth)
     n0 = sgmv.CUDA_LAUNCHES.n
-    on_card = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cuda")
+    on_card = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cuda",
+                                      enc)
     launched = sgmv.CUDA_LAUNCHES.n - n0
     if launched != sgmv_per_forward(cfg):
         raise AssertionError(f"phase {tag} check: {launched} sgmv launches, want "
                              f"{sgmv_per_forward(cfg)}")
     gc.collect()
     torch.cuda.empty_cache()
-    on_cpu = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cpu")
+    on_cpu = teacher_forced_logprobs(torch, M, cfg, params, adapters, rows, "cpu",
+                                     enc)
     err = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
     rec = dict(rows=len(rows), tokens=sum(len(a) for a in on_card),
                layers=cfg.num_layers, max_abs_diff=err, tol=TF_TOL)
@@ -3181,6 +3243,392 @@ def family_phase(torch, M, counters, card, gqa, paged, sgmv, tlp, ref, g, R_main
     return out, kern
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encdec family (seamless-m4t-large-v2) through launch.specs
+# ---------------------------------------------------------------------------
+
+P15_ARCH = "seamless-m4t-large-v2"
+P15_CACHE, P15_ENC_LEN, P15_STEPS = 512, 128, 32   # (b): dense cache, frames, steps
+P15_TRAIN_ROWS, P15_TRAIN_SEQ = 32, 512            # (d): the step's ShapeConfig
+P15_REMAT_BLOCK = 4                                # (e): 24 layers in 6 blocks
+P15_SGMV = (("q/k/v/o", 1024, 1024), ("mlp_in", 1024, 8192),
+            ("mlp_out", 8192, 1024))
+P15_D, P15_V = 1024, 256206                        # the untied head [d, V]
+
+
+def encdec_kernels(torch, gqa, paged, sgmv, tlp, ref, g, R_main, S_p):
+    """Phase 15 (a): the three kernels of seamless's path at its shapes
+    against their plain versions, timed beside one library call and the
+    bound: gqa_decode (B=16, 16/16 heads of 64, a 512-token cache; bf16 and
+    fp32), sgmv at the decoder's three projection shapes in decode (R=16)
+    and the served prefill (R=16 x the prompt bucket), token_logprob forward
+    and backward at V=256206 on the untied head and on a [:, :V] view of a
+    head whose rows are padded to 256208 (R_main and PROD_ROWS rows), each
+    with the staging path its W took, as the launchers report it."""
+    bf16 = torch.bfloat16
+    kern = check_family_decode(torch, gqa, paged, ref, g, shapes=((P15_ARCH, 16, 64),),
+                               kernels=("gqa_decode",), tag="15")
+    kern["sgmv"] = check_sgmv(torch, sgmv, ref, g, 0, specs=[
+        (R, 4, d, dout, bf16, f"{P15_ARCH} {name} {label}")
+        for label, R in (("decode", 16), ("prefill", 16 * S_p))
+        for name, d, dout in P15_SGMV])
+    kern["token_logprob_fwd"], kern["token_logprob_bwd"] = check_token_logprob(
+        torch, tlp, ref, g, R_main, cases=[
+            (R, P15_D, P15_V, bf16, 0.0, layout, True)
+            for layout in ("untied", "padded") for R in (R_main, PROD_ROWS)])
+    return kern
+
+
+def encdec_round_flops(cfg, B, S_p, lens, steps):
+    """launch.analytic's FLOPs of phase 15's served round: the prefill of B
+    rows of S_p tokens, and each decode step at the rows' mean context. (The
+    analytic model amortises an encoder of S/4 frames over the decoder's
+    tokens; the round's 128 frames are counted separately, in
+    encoder_flops.)"""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import analytic
+    pre = analytic.analytic_terms(cfg, ShapeConfig("p15 prefill", S_p, B, "prefill"),
+                                  1, 1, 1).flops
+    mean0 = sum(lens) / len(lens)
+    dec = sum(analytic.analytic_terms(
+        cfg, ShapeConfig("p15 decode", int(round(mean0 + t + 1)), B, "decode"),
+        1, 1, 1).flops for t in range(steps))
+    return pre, dec
+
+
+def encoder_flops(cfg, B, frames):
+    """FLOPs of the encoder over B rows of `frames` frames: its matmuls and
+    its bidirectional attention (launch.analytic's per-token terms)."""
+    from repro_torch.launch import analytic
+    per = (2.0 * analytic._layer_matmul_params(cfg, "dense")
+           + 4.0 * frames * cfg.num_heads * cfg.head_dim)
+    return B * frames * cfg.encoder_layers * per
+
+
+def encdec_serve(torch, M, cfg, params, adapters, counters, card, peaks):
+    """Phase 15 (b): a served round through launch.specs' step builders:
+    TENANTS x PER_TENANT gsm8k prompts, each on its tenant's adapter of
+    NUM_TENANTS stacked, with N(0, 1) frame embeddings (P15_ENC_LEN frames,
+    seeded, in bf16) for the stub frontend; build_prefill_step fills the
+    dense cache (P15_CACHE tokens) and the cross-attention memory, then
+    P15_STEPS build_decode_step steps, each sampled by the port's per-row
+    sampler (temperature 0.8). gqa_decode attn_per_step launches a decode
+    step (the cross-attention is plain), sgmv sgmv_per_forward a forward
+    (the decoder's six projections; the encoder has no adapters).
+    Returns the record, the rows and their frame embeddings."""
+    import numpy as np
+    from repro_torch.launch import specs
+    from repro_torch.launch.roofline import share_of_peak
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.lora.adapters import stack_adapters
+    from repro_torch.models.common import dtype_of
+    from repro_torch.rollout import prng
+    from repro_torch.rollout.prefill import _bucket_len, _log_softmax_at, _sample_rows
+    reqs = make_requests(TENANTS, PER_TENANT, max_new_tokens=P15_STEPS, seed=0)
+    B = len(reqs)
+    S_p = _bucket_len(max(len(r.prompt) for r in reqs))
+    tokens = torch.zeros((B, S_p), dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        tokens[i, :len(r.prompt)] = torch.tensor(r.prompt)
+    tokens = tokens.cuda()
+    lens_l = [len(r.prompt) for r in reqs]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    ids = torch.tensor([r.adapter_index for r in reqs], dtype=torch.int32,
+                       device="cuda")
+    enc = torch.randn(B, P15_ENC_LEN, cfg.d_model, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0)
+                      ).to(dtype_of(cfg.dtype))
+    stacked = stack_adapters(adapters)
+    keys = torch.as_tensor(np.stack([prng.fold_in_host(prng.prng_key(0), i)
+                                     for i in range(B)]), dtype=torch.int64,
+                           device="cuda")
+    temps = torch.full((B,), 0.8, device="cuda")
+    prefill, decode = specs.build_prefill_step(cfg), specs.build_decode_step(cfg)
+
+    def served(steps):
+        cache = M.init_cache(cfg, B, P15_CACHE, enc_len=P15_ENC_LEN, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = prefill(params, stacked, ids, tokens, lens, cache, enc)
+        cur = _sample_rows(logits, keys, torch.zeros_like(lens), temps).to(torch.int32)
+        lps = [_log_softmax_at(logits, cur)]
+        outs = [cur]
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for t in range(steps):
+            logits, cache = decode(params, stacked, ids, cur, cache)
+            cur = _sample_rows(logits, keys, torch.full_like(lens, t + 1),
+                               temps).to(torch.int32)
+            lps.append(_log_softmax_at(logits, cur))
+            outs.append(cur)
+        torch.cuda.synchronize()
+        return (t1 - t0, time.monotonic() - t1, torch.stack(outs, 1).cpu(),
+                torch.stack(lps, 1).cpu(), cache, logits)
+
+    served(2)                                      # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    count_all(counters, reset=True)
+    prefill_s, decode_s, gen, lps, cache, logits = served(P15_STEPS)
+    launches = count_all(counters)
+    n_fwd = P15_STEPS + 1
+    want = {"gqa_decode": attn_per_step(cfg) * P15_STEPS, "paged_gqa_decode": 0,
+            "sgmv": sgmv_per_forward(cfg) * n_fwd,
+            "sgmv_cuda": sgmv_per_forward(cfg) * n_fwd,
+            "token_logprob_fwd": 0, "token_logprob_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"phase 15b: launches {launches}, want {want}")
+    if not (bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+            and bool(torch.isfinite(lps).all()) and bool((lps <= 0).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("phase 15b: a token outside the vocabulary or a bad logprob")
+    for k in ("xk", "xv", "k", "v"):
+        if not (bool(torch.isfinite(cache[k]).all()) and bool(cache[k].abs().amax() > 0)):
+            raise AssertionError(f"phase 15b: cache {k} empty or non-finite")
+    if not torch.equal(cache["pos"].cpu(), torch.tensor(lens_l, dtype=torch.int32)
+                       + P15_STEPS):
+        raise AssertionError(f"phase 15b: cache pos {cache['pos'].tolist()}")
+    pre_f, dec_f = encdec_round_flops(cfg, B, S_p, lens_l, P15_STEPS)
+    enc_f = encoder_flops(cfg, B, P15_ENC_LEN)
+    wall = prefill_s + decode_s
+    rec = dict(arch=cfg.name, rows=B, prompt_bucket=S_p, enc_len=P15_ENC_LEN,
+               cache=P15_CACHE, decode_steps=P15_STEPS, prefill_ms=1e3 * prefill_s,
+               decode_ms_per_step=1e3 * decode_s / P15_STEPS,
+               decode_tokens_per_s=B * P15_STEPS / decode_s, wall_s=wall,
+               analytic_flops=pre_f + dec_f, encoder_flops_at_frames=enc_f,
+               analytic_share_of_peak=share_of_peak(pre_f + dec_f, wall, peaks),
+               prefill_share_with_encoder=share_of_peak(enc_f + pre_f, prefill_s, peaks),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches, card=card)
+    log(f"[15b serve] {cfg.name} through launch.specs: {B} rows on {TENANTS} of "
+        f"{len(adapters)} stacked adapters, prompt bucket {S_p}, {P15_ENC_LEN} frames, "
+        f"cache {P15_CACHE}: prefill {rec['prefill_ms']:.2f} ms, decode "
+        f"{rec['decode_ms_per_step']:.2f} ms/step ({rec['decode_tokens_per_s']:.1f} "
+        f"tok/s, the sampler included), {P15_STEPS} steps; analytic FLOPs "
+        f"{rec['analytic_flops'] / 1e12:.4f} T over {wall:.4f} s = "
+        f"{rec['analytic_share_of_peak']:.5f} of {peaks.flops['bfloat16'] / 1e12:.0f} "
+        f"TFLOP/s; the prefill with its encoder at {P15_ENC_LEN} frames "
+        f"{rec['prefill_share_with_encoder']:.5f}; peak {rec['peak_mem_gib']:.2f} GiB; "
+        f"launches {launches} on {card}")
+    rows = [(dict(tokens=list(r.prompt) + gen[i].tolist(), prompt_len=len(r.prompt),
+                  gen_logprobs=lps[i].tolist()), r.adapter_index)
+            for i, r in enumerate(reqs)]
+    return rec, rows, enc
+
+
+def encdec_train_batch(torch, cfg, rows, seq):
+    """A GRPO batch of `rows` rows of `seq` tokens (seeded random ids,
+    prompts of 16-128 tokens, completions to the half or more of seq,
+    uniform rewards) with N(0, 1) frame embeddings of seq // 4 frames."""
+    from repro_torch.models.common import dtype_of
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    return {"tokens": ints(1, cfg.vocab_size, (rows, seq)),
+            "prompt_lens": ints(16, 129, (rows,)),
+            "total_lens": ints(seq // 2, seq + 1, (rows,)),
+            "rewards": torch.rand(rows, generator=g, device="cuda"),
+            "enc_embeds": torch.randn(rows, seq // 4, cfg.d_model, generator=g,
+                                      device="cuda").to(dtype_of(cfg.dtype))}
+
+
+def encdec_train(torch, cfg, params, counters, card, peaks):
+    """Phase 15 (d) and (e): one LoRA GRPO step through
+    launch.specs.build_train_step at ShapeConfig(P15_TRAIN_SEQ,
+    P15_TRAIN_ROWS, "train") (GROUP_SIZE groups, one micro-batch, the KL
+    term off: token_logprob 1 forward and 1 backward launch, no other
+    kernel: one task's adapters are plain products), from the same
+    adapter and fresh AdamW state at REPRO_REMAT_BLOCK unset (remat_block 0)
+    and at P15_REMAT_BLOCK, after one untimed step. Each: every adapter leaf
+    moves, grad_norm > 0, the wall time, analytic.py's train FLOPs over it
+    as a share of peak, the peak memory. The two agree in loss and metrics
+    within BF16_METRIC_TOL and in the adapter gradient (AdamW's first moment
+    after the step, 0.1 x the clipped gradient) within BF16_GRAD_TOL of its
+    norm."""
+    import math
+    import os
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import analytic, specs
+    from repro_torch.launch.roofline import share_of_peak
+    from repro_torch.launch.serve import make_adapters
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import adamw_init, global_norm
+    shape = ShapeConfig("p15_train", P15_TRAIN_SEQ, P15_TRAIN_ROWS, "train")
+    batch = encdec_train_batch(torch, cfg, P15_TRAIN_ROWS, P15_TRAIN_SEQ)
+    lora = make_adapters(cfg, 1, seed=3, device="cuda", b_scale=B_SCALE)[0]
+    flops = analytic.analytic_terms(cfg, shape, 1, 1, 1,
+                                    specs.accum_steps(cfg, shape)).flops
+    want = dict({k: 0 for k in counters}, token_logprob_fwd=1, token_logprob_bwd=1)
+    out = {}
+    for blk in (None, 0, P15_REMAT_BLOCK):          # None: the untimed warm-up
+        os.environ.pop("REPRO_REMAT_BLOCK", None)
+        if blk:
+            os.environ["REPRO_REMAT_BLOCK"] = str(blk)
+        step = specs.build_train_step(cfg, shape)
+        os.environ.pop("REPRO_REMAT_BLOCK", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        count_all(counters, reset=True)
+        t0 = time.monotonic()
+        new, opt, m = step(params, lora, adamw_init(lora), batch)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        launches = count_all(counters)
+        if blk is None:
+            continue
+        m = {k: float(v) for k, v in m.items()}
+        la = (launches["token_logprob_fwd"], launches["token_logprob_bwd"])
+        moved = [not bool(torch.equal(a, b)) for a, b in zip(tree_leaves(lora),
+                                                              tree_leaves(new))]
+        # one task's adapters train as plain products (LoraCtx "single"), as
+        # in the JAX package: no sgmv launch, no decode attention
+        if launches != want or not all(math.isfinite(v) for v in m.values()) \
+                or not m["grad_norm"] > 0 or not all(moved):
+            raise AssertionError(f"phase 15 train (remat_block {blk}): launches "
+                                 f"{launches}, metrics {m}, {sum(moved)} of "
+                                 f"{len(moved)} adapter leaves moved")
+        rec = dict(remat_block=blk, rows=P15_TRAIN_ROWS, seq=P15_TRAIN_SEQ,
+                   enc_len=P15_TRAIN_SEQ // 4, train_ms=1e3 * secs,
+                   analytic_flops=flops,
+                   analytic_share_of_peak=share_of_peak(flops, secs, peaks),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   peak_above_resident_gib=(torch.cuda.max_memory_allocated() - base)
+                   / 2 ** 30, launches=launches, card=card,
+                   **{k: m[k] for k in ("loss", "pg_loss", "entropy", "ratio_mean",
+                                        "clip_frac", "grad_norm")})
+        out[blk] = (rec, opt["m"])
+        log(f"[15{'d' if blk == 0 else 'e'} train] {cfg.name} LoRA GRPO step through "
+            f"launch.specs.build_train_step, remat_block {blk}: {P15_TRAIN_ROWS} rows x "
+            f"{P15_TRAIN_SEQ} tokens, {P15_TRAIN_SEQ // 4} frames: {rec['train_ms']:.1f} "
+            f"ms, analytic {flops / 1e12:.2f} TFLOP = {rec['analytic_share_of_peak']:.4f} "
+            f"of peak; peak memory {rec['peak_mem_gib']:.2f} GiB "
+            f"({rec['peak_above_resident_gib']:.2f} above the resident "
+            f"{base / 2 ** 30:.2f}); loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}; "
+            f"token_logprob {la[0]} fwd + {la[1]} bwd on {card}")
+    (r0, m0), (r4, m4) = out[0], out[P15_REMAT_BLOCK]
+    m_err = max(abs(r0[k] - r4[k]) for k in ("loss", "pg_loss", "entropy",
+                                             "ratio_mean", "clip_frac", "grad_norm"))
+    g_norm = float(global_norm(m0))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(m0),
+                                                          tree_leaves(m4)))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(m0), tree_leaves(m4)))
+    cmp = dict(metric_max_abs_diff=m_err, metric_tol=BF16_METRIC_TOL,
+               grad_max_abs_diff=g_err, grad_norm=g_norm,
+               grad_tol=BF16_GRAD_TOL * g_norm, same_bits=same)
+    log(f"[15e remat] remat_block {P15_REMAT_BLOCK} vs 0: metrics max abs diff "
+        f"{m_err:.3e} (tol {BF16_METRIC_TOL}), gradient max abs diff {g_err:.3e} of "
+        f"norm {g_norm:.4e} (tol {BF16_GRAD_TOL} x norm), same bits {same}; peak "
+        f"memory {r4['peak_mem_gib']:.2f} vs {r0['peak_mem_gib']:.2f} GiB, step "
+        f"{r4['train_ms']:.1f} vs {r0['train_ms']:.1f} ms on {card}")
+    if m_err > BF16_METRIC_TOL or g_err > BF16_GRAD_TOL * g_norm:
+        raise AssertionError(f"phase 15e: remat_block {P15_REMAT_BLOCK} and 0 differ: {cmp}")
+    head = encdec_head_layouts(torch, cfg, params, counters, card, shape, batch, lora,
+                               r0, m0)
+    return dict(steps=[r0, r4], compare=cmp, head_layout=head)
+
+
+def encdec_head_layouts(torch, cfg, params, counters, card, shape, batch, lora,
+                        r_padded, m_padded):
+    """Phase 15 (d), the head's layout: the remat_block 0 step again with
+    a contiguous copy of the untied head ([d, V] with V = 256206 not a
+    multiple of 8) in place of init_params' [:, :V] view of rows padded to
+    a multiple of 8, then once more on the padded head, each timed alone.
+    The values are equal, so loss, metrics and the first moment must keep
+    their bits; token_logprob's backward must load W by 16-byte copies in
+    every vocab chunk but the last on the padded head, and in none on the
+    contiguous one (tlp.BWD_W_VECTOR)."""
+    from repro_torch.kernels import token_logprob as tlp
+    from repro_torch.launch import specs
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    step = specs.build_train_step(cfg, shape)
+    heads = {"contiguous": params["lm_head"].contiguous(), "padded": params["lm_head"]}
+    out = {}
+    for name, w in heads.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        count_all(counters, reset=True)
+        n0, v0 = tlp.BWD_CUDA_LAUNCHES.n, tlp.BWD_W_VECTOR.n
+        t0 = time.monotonic()
+        _, opt, m = step(dict(params, lm_head=w), lora, adamw_init(lora), batch)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        chunks = (tlp.BWD_CUDA_LAUNCHES.n - n0 - 1) // 2
+        vec = tlp.BWD_W_VECTOR.n - v0
+        same = float(m["loss"]) == r_padded["loss"] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(opt["m"]),
+                                              tree_leaves(m_padded)))
+        out[name] = dict(train_ms=1e3 * secs, lm_head_stride=list(w.stride()),
+                         bwd_chunks=chunks, bwd_w_vector_chunks=vec,
+                         same_bits_as_padded=same, launches=count_all(counters))
+        if not same or vec != (chunks - 1 if name == "padded" else 0):
+            raise AssertionError(f"phase 15d head layout {name}: {out[name]}")
+    del heads
+    c, p = out["contiguous"], out["padded"]
+    log(f"[15d head] the same step on a contiguous head (stride {c['lm_head_stride']}, "
+        f"token_logprob bwd W by 16-byte copies in {c['bwd_w_vector_chunks']} of "
+        f"{c['bwd_chunks']} chunks): {c['train_ms']:.1f} ms; on the padded head "
+        f"(stride {p['lm_head_stride']}, {p['bwd_w_vector_chunks']} of "
+        f"{p['bwd_chunks']}): {p['train_ms']:.1f} ms, after "
+        f"{r_padded['train_ms']:.1f}; loss and first moment bit-equal on {card}")
+    out["card"] = card
+    return out
+
+
+def encdec_phase(torch, M, counters, card, peaks, gqa, paged, sgmv, tlp, ref, g,
+                 R_main, S_p):
+    """Phase 15: seamless-m4t-large-v2 at its full published size in bf16
+    (random weights from seed 0, drawn on the card layer by layer; adapters
+    with b ~ N(0, B_SCALE^2)): (a) the kernels at its shapes, (b) a served
+    round through launch.specs, (c) 4 of its rows in fp32 on the card
+    against the CPU, (d) one LoRA GRPO step, (e) the same at remat_block
+    P15_REMAT_BLOCK."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.serve import make_adapters
+    t_all = time.monotonic()
+    log("[15 kernels] each kernel of the encdec path at seamless's shapes")
+    kern = encdec_kernels(torch, gqa, paged, sgmv, tlp, ref, g, R_main, S_p)
+    out = {"kernels_s": time.monotonic() - t_all}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(P15_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    adapters = make_adapters(cfg, specs.NUM_TENANTS, seed=0, device="cuda",
+                             b_scale=B_SCALE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in M.tree_leaves(params))
+    log(f"[15 {cfg.name}] encdec: {cfg.encoder_layers} encoder and {cfg.num_layers} "
+        f"decoder layers, d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, {cfg.mlp_act} MLP of {cfg.d_ff}, V={cfg.vocab_size} "
+        f"untied: {n / 1e9:.3f} B parameters "
+        f"({sum(t.nbytes for t in M.tree_leaves(params)) / 1e9:.2f} GB bf16) drawn in "
+        f"{time.monotonic() - t0:.1f} s; sgmv {sgmv_per_forward(cfg)} launches a "
+        f"forward, gqa_decode {attn_per_step(cfg)} a decode step")
+    serve, rows, enc = encdec_serve(torch, M, cfg, params, adapters, counters, card,
+                                    peaks)
+    out["serve"] = serve
+    out["check"] = family_tf_check(torch, M, cfg, params, adapters, rows, "15c",
+                                   enc=enc)
+    del rows, enc
+    out["train"] = encdec_train(torch, cfg, params, counters, card, peaks)
+    del params, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t_all
+    runs = out["train"]["steps"] + [out["train"]["head_layout"][n]
+                                    for n in ("contiguous", "padded")]
+    out["launches"] = {k: serve["launches"][k] + sum(r["launches"][k] for r in runs)
+                       for k in counters}
+    log(f"[15 encdec] wall {out['wall_s']:.1f} s (kernels {out['kernels_s']:.1f} s); "
+        f"launches {out['launches']}")
+    return out, kern
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -3207,16 +3655,20 @@ def main(argv):
     from repro_torch.kernels import sgmv
     from repro_torch.kernels import token_logprob as tlp
     from repro_torch import models as M
+    from repro_torch.launch import roofline
     from repro_torch.launch.serve import (make_adapters, make_requests,
                                           serve_config)
     from repro_torch.rollout.engine import RolloutEngine
     from repro_torch.rollout.prefill import _bucket_len
 
     t_all = time.monotonic()
+    phase_end_s = {}     # seconds from the start at the end of each phase
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi_line()
+    global PEAKS
+    card = roofline.card_line()
     kind = torch.cuda.get_device_name(0)
+    PEAKS = roofline.device_peaks()
     log(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| devices {torch.cuda.device_count()}")
 
@@ -3260,6 +3712,8 @@ def main(argv):
     edges = check_decode_edges(torch, gqa, paged, ref, g)
     gqa_cases += [c for c in edges if c["kernel"] == "gqa_decode"]
     paged_cases += [c for c in edges if c["kernel"] == "paged_gqa_decode"]
+
+    phase_end_s["1-3"] = time.monotonic() - t_all
 
     # -- phase 4: serve ---------------------------------------------------
     cfg = serve_config(ARCH, reduce=False)
@@ -3306,6 +3760,8 @@ def main(argv):
     if profile_dir is not None:
         profile_serve(torch, cfg, params, adapters, profile_dir)
 
+    phase_end_s["4"] = time.monotonic() - t_all
+
     # -- phase 5: teacher-forced fp32, card (kernels) vs CPU (plain) --------
     rows = [(results[i], reqs[i].adapter_index)
             for i in range(0, B, B // TF_ROWS)][:TF_ROWS]
@@ -3326,6 +3782,8 @@ def main(argv):
     if not tf_err <= TF_TOL:
         raise AssertionError(f"fp32 card vs CPU logprobs differ by {tf_err}")
 
+    phase_end_s["5"] = time.monotonic() - t_all
+
     # -- phases 6 and 7: GRPO training, then fp32 card vs CPU ---------------
     train, last_tb, start, tc = train_phase(torch, cfg, params, counters, card)
     n_fwd = train["launches"]["token_logprob_fwd"]
@@ -3338,11 +3796,15 @@ def main(argv):
     train["check"] = train_check(torch, M, cfg, params, last_tb, start, tc)
     train["check_bf16"] = train_check_bf16(torch, cfg, params, last_tb, start, tc)
 
+    phase_end_s["6-7"] = time.monotonic() - t_all
+
     # -- phases 8 and 9: continuous engine over the paged pool --------------
     cont, comps = continuous_phase(torch, cfg, params, adapters, counters, card)
     if profile_dir is not None:
         profile_continuous(torch, cfg, params, adapters, profile_dir)
     cont["check"] = paged_check(torch, M, cfg, params, adapters, comps)
+
+    phase_end_s["8-9"] = time.monotonic() - t_all
 
     # -- phase 10: the runtime, rollout and trainer threads ------------------
     runtime = {run: runtime_phase(torch, cfg, params, counters, card, run)
@@ -3359,19 +3821,27 @@ def main(argv):
         f"{d['summary']['slot_util_pct']:.1f}% vs "
         f"{d0['summary']['slot_util_pct']:.1f}% on {card}")
 
+    phase_end_s["10"] = time.monotonic() - t_all
+
     # -- phase 11: the copy-on-write prefix cache ----------------------------
     prefix = prefix_phase(torch, cfg, params, adapters, counters, card)
     p11_launch = prefix["shared"]["launches"]
+
+    phase_end_s["11"] = time.monotonic() - t_all
 
     # -- phase 12: the disaggregated prefill and env stages ------------------
     stages = stage_phase(torch, cfg, params, adapters, counters, card)
     p12_launch = {k: sum(r["launches"][k] for r in stages["modes"].values())
                   for k in counters}
 
+    phase_end_s["12"] = time.monotonic() - t_all
+
     # -- phase 13: tracing, chaos and restart from a checkpoint --------------
     faults = fault_phase(torch, cfg, params, counters, card, runtime["D"])
     p13_launch = {k: faults["T"]["launches"][k] + faults["R"]["launches"][k]
                   for k in counters}
+
+    phase_end_s["13"] = time.monotonic() - t_all
 
     # -- phase 14: the moe, ssm and hybrid families at full width ------------
     del params, adapters
@@ -3384,11 +3854,27 @@ def main(argv):
     tlp_fwd_cases += fam_kern["token_logprob_fwd"]
     tlp_bwd_cases += fam_kern["token_logprob_bwd"]
 
+    phase_end_s["14"] = time.monotonic() - t_all
+
+    # -- phase 15: the encdec family through launch.specs --------------------
+    encdec, enc_kern = encdec_phase(torch, M, counters, card, PEAKS, gqa, paged, sgmv,
+                                    tlp, ref, g, train_rows, S_p)
+    p15_launch = encdec["launches"]
+    gqa_cases += enc_kern["gqa_decode"]
+    sgmv_cases += enc_kern["sgmv"]
+    tlp_fwd_cases += enc_kern["token_logprob_fwd"]
+    tlp_bwd_cases += enc_kern["token_logprob_bwd"]
+
+    phase_end_s["15"] = time.monotonic() - t_all
+    log("[time] seconds from the start at the end of each phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_end_s.items()))
+
     print(json.dumps({"serve": dict(
         arch=ARCH, decode_tokens_per_s=tok_s, decode_steps=steps,
         decode_s=stats.decode_seconds, prefill_s=stats.prefill_seconds,
         peak_mem_gib=peak_gib, tf_max_abs_diff=tf_err,
-        seconds=time.monotonic() - t_all, build_s=secs, card=card)}), flush=True)
+        seconds=time.monotonic() - t_all, build_s=secs, phase_end_s=phase_end_s,
+        card=card)}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"continuous": cont}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
@@ -3396,6 +3882,7 @@ def main(argv):
     print(json.dumps({"stages": stages}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"families": families}), flush=True)
+    print(json.dumps({"encdec": encdec}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -3405,12 +3892,13 @@ def main(argv):
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
                      n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"]
-                     + p14_launch["gqa_decode"],
+                     + p14_launch["gqa_decode"] + p15_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
                          for r in runtime},
                          "stages DED (12)": p12_launch["gqa_decode"],
-                         "families (14)": p14_launch["gqa_decode"]},
+                         "families (14)": p14_launch["gqa_decode"],
+                         "encdec (15)": p15_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
@@ -3418,7 +3906,7 @@ def main(argv):
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
                      + p11_launch["sgmv"] + p12_launch["sgmv"]
-                     + p13_launch["sgmv"] + p14_launch["sgmv"],
+                     + p13_launch["sgmv"] + p14_launch["sgmv"] + p15_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -3429,7 +3917,8 @@ def main(argv):
                             for m, r in stages["modes"].items()},
                          **{f"faults {r} (13)": faults[r]["launches"]["sgmv"]
                             for r in ("T", "R")},
-                         "families (14)": p14_launch["sgmv"]},
+                         "families (14)": p14_launch["sgmv"],
+                         "encdec (15)": p15_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -3440,13 +3929,15 @@ def main(argv):
                      "src/repro/kernels/token_logprob.py:87", tlp_fwd_cases,
                      n_fwd + rt_launch["token_logprob_fwd"]
                      + p13_launch["token_logprob_fwd"]
-                     + p14_launch["token_logprob_fwd"],
+                     + p14_launch["token_logprob_fwd"]
+                     + p15_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_fwd"]
                          for r in ("T", "R")},
-                         "families (14)": p14_launch["token_logprob_fwd"]},
+                         "families (14)": p14_launch["token_logprob_fwd"],
+                         "encdec (15)": p15_launch["token_logprob_fwd"]},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
@@ -3454,13 +3945,15 @@ def main(argv):
                      "src/repro/kernels/token_logprob.py:87", tlp_bwd_cases,
                      n_bwd + rt_launch["token_logprob_bwd"]
                      + p13_launch["token_logprob_bwd"]
-                     + p14_launch["token_logprob_bwd"],
+                     + p14_launch["token_logprob_bwd"]
+                     + p15_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_bwd"]
                          for r in ("T", "R")},
-                         "families (14)": p14_launch["token_logprob_bwd"]},
+                         "families (14)": p14_launch["token_logprob_bwd"],
+                         "encdec (15)": p15_launch["token_logprob_bwd"]},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],

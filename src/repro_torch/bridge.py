@@ -6,7 +6,8 @@ arrays (``jax.device_get`` of the JAX trees, or ``np.asarray`` leaf by
 leaf) — the port never imports jax. The
 port keeps JAX's ``[d_in, d_out]`` weight orientation and its tree, so the
 bridge is a copy and not a transpose: dicts stay dicts (the hybrid's
-``shared`` block and adapter subtree included), the JAX package's
+``shared`` block and adapter subtree, encdec's ``encoder`` stack and its
+decoder layers' ``lnx``/``xattn`` included), the JAX package's
 ``AttnParams`` / ``MLPParams`` / ``MambaParams`` / ``MoEParams`` NamedTuples
 become the port's of the same name and fields, and each array becomes a tensor of the same dtype (bf16
 included, through its 16-bit pattern). ``to_numpy`` goes the other way:
@@ -25,7 +26,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.mamba2 import MambaParams
 from repro_torch.models.mlp import MLPParams
 from repro_torch.models.moe import MoEParams
-from repro_torch.models.model import tree_map
+from repro_torch.models.model import padded_head, tree_map
 
 _TUPLES = {cls.__name__: cls
            for cls in (AttnParams, MLPParams, MambaParams, MoEParams)}
@@ -54,9 +55,12 @@ def _convert(tree, device):
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     """The JAX package's ``init_params`` tree (numpy leaves) as the port's
-    parameters on ``device``."""
+    parameters on ``device``; an untied head lies in a row-padded buffer, as
+    ``init_params`` lays it out (``models.model.padded_head``)."""
     dev = resolve_device(device)
     out = _convert(tree, dev)
+    if "lm_head" in out:
+        out["lm_head"] = padded_head(out["lm_head"])
     emb = out["embed"]
     if tuple(emb.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tuple(emb.shape)} does not fit {cfg.name}")

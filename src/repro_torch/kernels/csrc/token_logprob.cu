@@ -773,7 +773,8 @@ cudaError_t merge_parts(const float4* part, float* lp, float* ent, float* lse, i
 
 cudaError_t fwd_f32(const float* h, const float* w, const int* tgt, float4* part, float* lp,
                     float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
-                    int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
+                    int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched,
+                    int* w_vector) {
   int vh, vw;
   vec_flags(h, w, d, ws_k, ws_v, &vh, &vw);
   tlp_fwd<<<dim3((R + BM_FWD - 1) / BM_FWD, vsplit), kThreads, 0, st>>>(
@@ -781,12 +782,14 @@ cudaError_t fwd_f32(const float* h, const float* w, const int* tgt, float4* part
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*launched;
+  *w_vector += vw;
   return merge_parts(part, lp, ent, lse, R, vsplit, st, launched);
 }
 
 cudaError_t fwd_bf16(const bf16* h, const bf16* w, const int* tgt, float4* part, float* lp,
                      float* ent, float* lse, int R, int d, int V, long long ws_k, long long ws_v,
-                     int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched) {
+                     int vsplit, int slice_tiles, float cap, cudaStream_t st, int* launched,
+                     int* w_vector) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = allow_mm_smem(tlp_fwd_mm<true>);
@@ -809,6 +812,7 @@ cudaError_t fwd_bf16(const bf16* h, const bf16* w, const int* tgt, float4* part,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*launched;
+  *w_vector += wvec;
   return merge_parts(part, lp, ent, lse, R, vsplit, st, launched);
 }
 
@@ -826,7 +830,8 @@ cudaError_t reduce_parts(const float* part, T* dh, int R, int d, int nparts, cud
 cudaError_t bwd_f32(const float* h, const float* w, const int* tgt, const float* lse,
                     const float* ent, const float* g_lp, const float* g_ent, float* dpart,
                     float* dh, int R, int d, int V, long long ws_k, long long ws_v, int vsplit,
-                    int slice_tiles, float cap, cudaStream_t st, int* launched) {
+                    int slice_tiles, float cap, cudaStream_t st, int* launched,
+                    int* w_vector) {
   static bool attr_set = false;
   const int dch = d < 1024 ? (d + BK - 1) / BK * BK : 1024;   // dh columns per block
   if (!attr_set) {
@@ -844,6 +849,7 @@ cudaError_t bwd_f32(const float* h, const float* w, const int* tgt, const float*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*launched;
+  *w_vector += vw;
   return reduce_parts(dpart, dh, R, d, vsplit, st, launched);
 }
 
@@ -851,7 +857,7 @@ cudaError_t bwd_bf16(const bf16* h, const bf16* w, const int* tgt, const float* 
                      const float* ent, const float* g_lp, const float* g_ent, bf16* dz,
                      float* part, bf16* dh, int R, int d, int V, long long ws_k, long long ws_v,
                      int vc, int splits, int piece, float cap, cudaStream_t st,
-                     int* launched) {
+                     int* launched, int* w_vector) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = allow_mm_smem(tlp_bwd_logits<true>);
@@ -891,6 +897,7 @@ cudaError_t bwd_bf16(const bf16* h, const bf16* w, const int* tgt, const float* 
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
+    *w_vector += wvec;
   }
   return reduce_parts(part, dh, R, d, splits, st, launched);
 }
@@ -909,12 +916,14 @@ bool bad_args(int R, int d, int V, int vsplit, int slice_tiles, int tile) {
 // float4 scratch; lp, ent, lse: [R] float32 outputs. Vocab slice s covers
 // tiles [s * slice_tiles, (s + 1) * slice_tiles) of 64 columns (float32) or
 // 128 (bfloat16). Each launcher adds one to *launched (a host int) for every
-// kernel it launches.
+// kernel it launches, and one to *w_vector (a host int) for every vocab chunk
+// whose W tiles it loads by 16-byte copies (the forward and the fp32 backward
+// have one chunk; the rest load W element by element).
 extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void* tgt,
                                         void* part, void* lp, void* ent, void* lse, int R,
                                         int d, int V, long long ws_k, long long ws_v,
                                         int vsplit, int slice_tiles, float cap, int dtype,
-                                        void* stream, int* launched) {
+                                        void* stream, int* launched, int* w_vector) {
   if (dtype < 0 || dtype > 1 || bad_args(R, d, V, vsplit, slice_tiles, dtype ? TN : BN))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
@@ -926,9 +935,11 @@ extern "C" int token_logprob_fwd_launch(const void* h, const void* w, const void
   float* c = static_cast<float*>(lse);
   if (dtype == 0)
     return (int)fwd_f32(static_cast<const float*>(h), static_cast<const float*>(w), t, p, a, b,
-                        c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched);
+                        c, R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched,
+                        w_vector);
   return (int)fwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w), t, p, a, b, c,
-                       R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched);
+                       R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap, st, launched,
+                       w_vector);
 }
 
 // The fp32 backward. lse, ent: the forward's [R] float32; g_lp, g_ent:
@@ -939,7 +950,7 @@ extern "C" int token_logprob_bwd_f32_launch(const void* h, const void* w, const 
                                             const void* g_ent, void* dpart, void* dh, int R,
                                             int d, int V, long long ws_k, long long ws_v,
                                             int vsplit, int slice_tiles, float cap,
-                                            void* stream, int* launched) {
+                                            void* stream, int* launched, int* w_vector) {
   if (bad_args(R, d, V, vsplit, slice_tiles, BN)) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   return (int)bwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
@@ -947,7 +958,7 @@ extern "C" int token_logprob_bwd_f32_launch(const void* h, const void* w, const 
                       static_cast<const float*>(ent), static_cast<const float*>(g_lp),
                       static_cast<const float*>(g_ent), static_cast<float*>(dpart),
                       static_cast<float*>(dh), R, d, V, ws_k, ws_v, vsplit, slice_tiles, cap,
-                      static_cast<cudaStream_t>(stream), launched);
+                      static_cast<cudaStream_t>(stream), launched, w_vector);
 }
 
 // The bf16 backward. w's k or v stride must be 1. Vocab chunks of vc
@@ -960,7 +971,8 @@ extern "C" int token_logprob_bwd_bf16_launch(const void* h, const void* w, const
                                              const void* g_ent, void* dz, void* part, void* dh,
                                              int R, int d, int V, long long ws_k,
                                              long long ws_v, int vc, int splits, int piece,
-                                             float cap, void* stream, int* launched) {
+                                             float cap, void* stream, int* launched,
+                                             int* w_vector) {
   if (R < 0 || d <= 0 || V <= 0 || vc <= 0 || vc % TN || splits < 1 || splits > 65535 ||
       piece <= 0 || piece % TK || (long long)splits * piece < vc || (ws_k != 1 && ws_v != 1))
     return (int)cudaErrorInvalidValue;
@@ -970,5 +982,6 @@ extern "C" int token_logprob_bwd_bf16_launch(const void* h, const void* w, const
                        static_cast<const float*>(ent), static_cast<const float*>(g_lp),
                        static_cast<const float*>(g_ent), static_cast<bf16*>(dz),
                        static_cast<float*>(part), static_cast<bf16*>(dh), R, d, V, ws_k, ws_v,
-                       vc, splits, piece, cap, static_cast<cudaStream_t>(stream), launched);
+                       vc, splits, piece, cap, static_cast<cudaStream_t>(stream), launched,
+                       w_vector);
 }

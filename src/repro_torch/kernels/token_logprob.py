@@ -33,7 +33,8 @@ from .ref import (token_logprob_bwd_ref, token_logprob_ref,
 __all__ = ["token_logprob_flat", "token_logprob_fwd", "token_logprob_bwd",
            "token_logprob_ref", "token_logprob_bwd_ref", "backward_plan",
            "forward_plan", "FWD_LAUNCHES", "BWD_LAUNCHES",
-           "FWD_CUDA_LAUNCHES", "BWD_CUDA_LAUNCHES"]
+           "FWD_CUDA_LAUNCHES", "BWD_CUDA_LAUNCHES", "FWD_W_VECTOR",
+           "BWD_W_VECTOR"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the fp32 kernels' row blocks and vocab tiles (as in the .cu)
@@ -57,6 +58,11 @@ BWD_LAUNCHES = _build.LaunchCount()
 # the CUDA kernels those calls launched, as the C launchers count them
 FWD_CUDA_LAUNCHES = _build.LaunchCount()
 BWD_CUDA_LAUNCHES = _build.LaunchCount()
+# the vocab chunks whose W tiles those calls loaded by 16-byte copies, as the
+# C launchers report them (a forward and an fp32 backward have one chunk, a
+# bf16 backward one a pair of products); the others load W element by element
+FWD_W_VECTOR = _build.LaunchCount()
+BWD_W_VECTOR = _build.LaunchCount()
 
 
 def vocab_split(R: int, V: int, bm: int, target_blocks: int):
@@ -175,13 +181,15 @@ def token_logprob_fwd(h, w, targets, softcap: float = 0.0):
     part = torch.empty((vsplit, R, 4), dtype=torch.float32, device=h.device)
     lp, ent, lse = (torch.empty((R,), dtype=torch.float32, device=h.device)
                     for _ in range(3))
-    launched = ctypes.c_int(0)
+    launched, w_vector = ctypes.c_int(0), ctypes.c_int(0)
     err = _build.library("token_logprob").token_logprob_fwd_launch(
         h.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
         lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), R, d, V,
         w.stride(0), w.stride(1), vsplit, per, float(softcap),
-        _DTYPE_CODE[h.dtype], _stream(h), ctypes.addressof(launched))
+        _DTYPE_CODE[h.dtype], _stream(h), ctypes.addressof(launched),
+        ctypes.addressof(w_vector))
     FWD_CUDA_LAUNCHES.add(launched.value)
+    FWD_W_VECTOR.add(w_vector.value)
     _build.check(err, "token_logprob forward")
     FWD_LAUNCHES.add(1)
     return lp, ent, lse
@@ -204,7 +212,7 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
                          "on h's card")
     lib = _build.library("token_logprob")
     dh = torch.empty_like(h)
-    launched = ctypes.c_int(0)
+    launched, w_vector = ctypes.c_int(0), ctypes.c_int(0)
     if h.dtype == torch.bfloat16:
         if 1 not in w.stride():
             raise ValueError(f"token_logprob: the bf16 backward reads w with "
@@ -219,7 +227,7 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
             *(t.data_ptr() for t in f32), dz.data_ptr(), part.data_ptr(),
             dh.data_ptr(), R, d, V, w.stride(0), w.stride(1), plan.vc,
             plan.splits, plan.piece, float(softcap), _stream(h),
-            ctypes.addressof(launched))
+            ctypes.addressof(launched), ctypes.addressof(w_vector))
     else:
         vsplit, per = vocab_split(R, V, _BM_F32_BWD, _F32_BWD_TARGET_BLOCKS)
         dpart = torch.empty((vsplit, R, d), dtype=torch.float32,
@@ -228,8 +236,9 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
             h.data_ptr(), w.data_ptr(), targets.data_ptr(),
             *(t.data_ptr() for t in f32), dpart.data_ptr(), dh.data_ptr(), R,
             d, V, w.stride(0), w.stride(1), vsplit, per, float(softcap),
-            _stream(h), ctypes.addressof(launched))
+            _stream(h), ctypes.addressof(launched), ctypes.addressof(w_vector))
     BWD_CUDA_LAUNCHES.add(launched.value)
+    BWD_W_VECTOR.add(w_vector.value)
     _build.check(err, "token_logprob backward")
     BWD_LAUNCHES.add(1)
     return dh

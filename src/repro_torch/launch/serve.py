@@ -8,7 +8,10 @@ layers, d=1024, V=151936) in bf16 on the card, with random weights from seed
 0, 32 new tokens a request and a 256-token cache. ``--arch`` takes every
 configuration of a ported family: the dense and vlm ones,
 ``deepseek-moe-16b`` (moe), ``mamba2-780m`` (ssm) and ``zamba2-1.2b``
-(hybrid); encdec raises ``NotImplementedError``. ``--reduced`` serves the
+(hybrid). ``seamless-m4t-large-v2`` (encdec) raises ``NotImplementedError``
+before any weight is drawn: the rollout engines do not serve that family (the
+JAX engines pass its encoder no ``enc_embeds``); ``launch.specs``'s prefill
+and decode step builders do. ``--reduced`` serves the
 tiny same-family config in fp32 with the rollout tokenizer's vocabulary, 6
 new tokens and a 64-token cache (the JAX CLI's setting). Prompts come from
 the repo's gsm8k environment; token ids the 54-symbol character tokenizer
@@ -29,7 +32,8 @@ from repro_torch.envs.tasks import make_env
 from repro_torch.lora.adapters import init_lora
 from repro_torch.models import init_params
 from repro_torch.models.common import resolve_device
-from repro_torch.rollout.engine import RolloutEngine, RolloutRequest
+from repro_torch.rollout.engine import (RolloutEngine, RolloutRequest,
+                                       refuse_encdec)
 
 
 def serve_config(arch: str, *, reduce: bool) -> ModelConfig:
@@ -131,8 +135,9 @@ def main(argv=None):
     ap.add_argument("--per-tenant", type=int, default=4)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = serve_config(args.arch, reduce=args.reduced)
+    refuse_encdec(cfg)
+    dev = resolve_device(args.device)
     max_new, max_len = (6, 64) if args.reduced else (32, 256)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     adapters = make_adapters(cfg, args.tenants, seed=0, device=dev)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import LoraCtx, dtype_of, resolve_device
+from repro_torch.models.common import LoraCtx, dtype_of, randn, resolve_device
 
 
 # projection in/out dims per target name
@@ -79,9 +79,8 @@ def init_lora(cfg: ModelConfig, generator: torch.Generator,
 
     def make(n_stack: int, target: str):
         d_in, d_out = target_dims(cfg, target)
-        a = torch.randn((n_stack, d_in, lc.rank), generator=generator,
-                        device=dev, dtype=torch.float32)
-        a = (a * (1.0 / np.sqrt(d_in))).to(dt)
+        a = (randn((n_stack, d_in, lc.rank), generator, dev)
+             * (1.0 / np.sqrt(d_in))).to(dt)
         b = torch.zeros((n_stack, lc.rank, d_out), dtype=dt, device=dev)
         return {"a": a, "b": b}
 

@@ -182,6 +182,27 @@ def attention_decode(q, cache_k, cache_v, pos, cfg: ModelConfig, *,
                       window=int(window))
 
 
+def attention_decode_plain(q, cache_k, cache_v, pos, cfg: ModelConfig, *,
+                           window: int = 0):
+    """``attention_decode`` as plain tensor code on every device: the JAX
+    package's grouped-einsum path (scores in q's dtype, then fp32 with the
+    scale, the softcap and the mask; the softmax cast back to q's dtype).
+    For attention the JAX package computes outside its kernel whatever
+    ``use_kernel`` is (encdec's cross-attention at decode)."""
+    B, H, hd = q.shape
+    Smax, KVH = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(B, KVH, H // KVH, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, cache_k.to(q.dtype)).float() * _scale(hd)
+    s = softcap(s, cfg.attn_softcap)
+    idx = torch.arange(Smax, device=q.device)
+    pos = pos.to(torch.int64)
+    valid = (idx[None, :] < pos[:, None]) \
+        & ((pos[:, None] - 1 - idx[None, :]) < _effective_window(window))
+    s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgrk,bkgd->bgrd", p, cache_v.to(q.dtype)).reshape(B, H, hd)
+
+
 def attention_decode_paged(q, kp, vp, tbl, pos, cfg: ModelConfig, *,
                            window: int = 0):
     """Single-token decode over the shared page pool (paged KV cache).

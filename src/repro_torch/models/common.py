@@ -49,18 +49,32 @@ def synchronize(device: torch.device):
 # init
 # ---------------------------------------------------------------------------
 
+def _draw(fn, shape, gen, device):
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return fn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def randn(shape, gen: Optional[torch.Generator], device):
+    """fp32 N(0, 1) draws from `gen` on `device`. On the meta device (the
+    shape trees of ``launch.specs``) nothing is drawn or allocated, and
+    `gen` may be None; every other device needs its generator."""
+    return _draw(torch.randn, shape, gen, device)
+
+
+def rand(shape, gen: Optional[torch.Generator], device):
+    """fp32 U[0, 1) draws, as ``randn``."""
+    return _draw(torch.rand, shape, gen, device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: float = None):
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=device,
-                    dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return (randn((d_in, d_out), gen, device) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):
-    w = torch.randn((vocab, d), generator=gen, device=device,
-                    dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return (randn((vocab, d), gen, device) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from .common import LoraCtx, dense_init, proj, rmsnorm
+from .common import LoraCtx, dense_init, proj, rand, randn, rmsnorm
 
 
 class MambaParams(NamedTuple):
@@ -54,13 +54,13 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     proj_cols = 2 * d_in + 2 * G * N + H
     f32 = dict(dtype=torch.float32, device=device)
     in_proj = dense_init(gen, d, proj_cols, dtype, device)
-    conv_w = (torch.randn((conv_dim, s.conv_width), generator=gen, **f32)
+    conv_w = (randn((conv_dim, s.conv_width), gen, device)
               * (1.0 / np.sqrt(s.conv_width))).to(dtype)
     # dt bias such that softplus(bias) spans [dt_min, dt_max]
-    u = torch.rand((H,), generator=gen, **f32)
+    u = rand((H,), gen, device)
     dt = torch.exp(u * (np.log(s.dt_max) - np.log(s.dt_min)) + np.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))              # inverse softplus
-    a_log = torch.log(1.0 + 15.0 * torch.rand((H,), generator=gen, **f32))
+    a_log = torch.log(1.0 + 15.0 * rand((H,), gen, device))
     return MambaParams(
         in_proj=in_proj, conv_w=conv_w,
         conv_b=torch.zeros((conv_dim,), dtype=dtype, device=device),

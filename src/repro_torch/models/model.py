@@ -1,13 +1,17 @@
-"""Model assembly: init / prefill / decode / train forward for the dense,
-vlm, moe, ssm (mamba2) and hybrid (zamba2) families (port of
-``repro.models.model``; encdec is not ported yet).
+"""Model assembly: init / prefill / decode / train forward for every family
+of the JAX package: dense, vlm, moe, ssm (mamba2), hybrid (zamba2) and
+encdec (the seamless backbone behind a stub frontend). Port of
+``repro.models.model``.
 
 The parameter tree is the JAX package's: per-layer weights stacked on a
-leading layer axis, plus the hybrid's one ``shared`` attention+MLP block.
-Where the JAX package ``lax.scan``s over that axis, the port loops over it in
-Python; the hybrid's grouped scan (groups of ``hybrid_attn_every`` mamba
-blocks and one shared-block invocation) and its per-layer loop are then one
-loop.
+leading layer axis, plus the hybrid's one ``shared`` attention+MLP block and
+encdec's ``encoder`` stack (its decoder layers carry a cross-attention,
+``lnx``/``xattn``, after the self-attention). Where the JAX package
+``lax.scan``s over that axis, the port loops over it in Python; the hybrid's
+grouped scan (groups of ``hybrid_attn_every`` mamba blocks and one
+shared-block invocation) and its per-layer loop are then one loop. An untied
+head whose vocabulary is not a multiple of 8 (seamless's 256206) is a view
+of a row-padded buffer (``padded_head``), for the token_logprob kernels.
 
 The cache is a plain dict of tensors, updated IN PLACE (JAX's arrays are
 immutable, so its functions return a new cache; the port writes into the
@@ -17,6 +21,8 @@ same dict with a new ``pos``). Dense (``init_cache``):
                                             the hybrid's invocations)
   pos         [B] int32 — valid entries per row
   ssm, conv   [L, B, H, N, P] fp32, [L, B, conv_dim, W-1]  (ssm, hybrid)
+  xk, xv      [L, B, S_enc, KVH, hd]  (encdec: the cross-attention memory,
+                                       written by the prefill)
 or paged (``init_paged_cache``; ``decode_step`` tells them apart by ``tbl``):
   kp, vp      [L_attn, n_pages+1, page, KVH, hd] — the shared page pool
   tbl         [B, max_pages] int32 — per-row physical page ids
@@ -31,8 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from .attention import (attention_chunked, attention_decode,
-                        attention_decode_paged, attention_prefill_chunk,
-                        attn_init, qkv)
+                        attention_decode_paged, attention_decode_plain,
+                        attention_prefill_chunk, attn_init, qkv)
 from .common import (LoraCtx, dense_init, dtype_of, embed_init, proj,
                      resolve_device, rmsnorm, rmsnorm_init, rope_tables,
                      softcap)
@@ -42,15 +48,12 @@ from .moe import moe_apply, moe_init
 
 Params = Dict[str, Any]
 
-_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")   # the ported stacks
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {_FAMILIES}); "
-            f"encdec's cross-attention cache comes with a later slice "
-            f"(ROADMAP §1 item 8)")
+        raise ValueError(f"unknown family {cfg.family!r} (have {_FAMILIES})")
 
 
 # ===========================================================================
@@ -103,11 +106,27 @@ def _stack_layers(make, n: int):
     return out
 
 
+def padded_head(w: torch.Tensor) -> torch.Tensor:
+    """An untied head w [d, V] as the [:, :V] view of a [d, V'] buffer, V'
+    the next multiple of 8, every value unchanged (the pad is 0 and never
+    read): the bf16 token_logprob backward then loads W's tiles with 16-byte
+    copies, which need a row stride of a multiple of 8 elements (the
+    forward's launcher also needs V itself to be one). w itself when V is a
+    multiple of 8."""
+    d, V = w.shape
+    Vp = -(-V // 8) * 8
+    if Vp == V:
+        return w
+    return w.new_zeros((d, Vp))[:, :V].copy_(w)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random weights with the JAX package's tree and scales (``init_params``
     there), drawn from ``generator`` (a ``torch.Generator`` on ``device``)
-    one layer at a time (``_stack_layers``)."""
+    one layer at a time (``_stack_layers``). On the meta device the tree's
+    shapes and dtypes come without memory or draws, and `generator` may be
+    None (``launch.specs.eval_shapes``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
@@ -115,7 +134,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                      dt, dev),
                  "final_norm": rmsnorm_init(cfg.d_model, dt, dev)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt, dev)
+        p["lm_head"] = padded_head(dense_init(generator, cfg.d_model,
+                                              cfg.vocab_size, dt, dev))
 
     def dense_layer():
         return {"ln1": rmsnorm_init(cfg.d_model, dt, dev),
@@ -134,8 +154,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return {"ln1": rmsnorm_init(cfg.d_model, dt, dev),
                 "mamba": mamba_init(generator, cfg, dt, dev)}
 
+    def dec_layer():
+        return {"ln1": rmsnorm_init(cfg.d_model, dt, dev),
+                "attn": attn_init(generator, cfg, dt, dev),
+                "lnx": rmsnorm_init(cfg.d_model, dt, dev),
+                "xattn": attn_init(generator, cfg, dt, dev),
+                "ln2": rmsnorm_init(cfg.d_model, dt, dev),
+                "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                dt, dev)}
+
+    if cfg.family == "encdec":
+        p["encoder"] = _stack_layers(dense_layer, cfg.encoder_layers)
     make = {"dense": dense_layer, "vlm": dense_layer, "moe": moe_layer,
-            "ssm": mamba_layer, "hybrid": mamba_layer}[cfg.family]
+            "ssm": mamba_layer, "hybrid": mamba_layer,
+            "encdec": dec_layer}[cfg.family]
     p["layers"] = _stack_layers(make, cfg.num_layers)
     if cfg.family == "hybrid":
         p["shared"] = dense_layer()
@@ -168,12 +200,19 @@ def _recurrent_state(c: Params, cfg: ModelConfig, batch: int, dt, dev):
                              cfg.ssm.conv_width - 1), dtype=dt, device=dev)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
-               device="cuda") -> Params:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               enc_len: int = 0, dtype=None, device="cuda") -> Params:
+    """The dense cache (module docstring); encdec's also holds `enc_len`
+    frames of cross-attention memory a layer (``xk``/``xv``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or dtype_of(cfg.dtype)
     c: Params = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, batch, enc_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["xv"] = torch.zeros(shape, dtype=dt, device=dev)
     n_attn = n_attn_layers(cfg)
     if n_attn:
         shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -196,8 +235,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, pool_pages: int,
     function only lays out device memory. Pages hold the attention layers
     only (``n_attn_layers``: none for ssm); recurrent ssm/conv state is per
     row and fixed-size, so it stays dense as in ``init_cache``. Keys, shapes
-    and the sentinel are the JAX package's."""
+    and the sentinel are the JAX package's. encdec is not paged (its
+    cross-attention memory is written once), as in the JAX package."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("paged KV cache unsupported for encdec")
     dev = resolve_device(device)
     dt = dtype or dtype_of(cfg.dtype)
     c: Params = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
@@ -360,26 +402,107 @@ def _run(fn, remat: bool, *args):
     return fn(*args)
 
 
+def _add_aux(total, aux):
+    """The MoE aux losses summed; None (no launch) while there are none."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+# ===========================================================================
+# encdec: the encoder and the decoder's cross-attention
+# ===========================================================================
+
+def _encode(params, enc_embeds, cfg, q_chunk, remat):
+    """The seamless encoder: a bidirectional transformer (rope at frame
+    positions 0..S_enc-1, no adapters) over the stub frontend's embeddings
+    [B, S_enc, d], then the model's final norm. Each layer is checkpointed
+    under `remat`; ``remat_block`` does not reach the encoder, as in the
+    JAX package."""
+    if enc_embeds is None:
+        raise ValueError("the encdec family needs enc_embeds [B, S_enc, d]")
+    x = enc_embeds
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.encoder_layers):
+        x, _, _ = _run(_dense_block_seq, remat, x,
+                       tree_index(params["encoder"], i), cfg, None, 0,
+                       positions, rope, q_chunk, False)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _cross_attn_seq(x, lp, cfg, enc_memory, q_chunk):
+    """Decoder cross-attention over the encoder memory: no mask, no rope,
+    no adapters. Returns (x, (k, v)); k/v [B, S_enc, KVH, hd] are the
+    layer's cross-attention memory, which a prefill keeps in the cache."""
+    h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
+    B, S, _ = h.shape
+    p = lp["xattn"]
+    q = proj(h, p.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = proj(enc_memory, p.wk).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    v = proj(enc_memory, p.wv).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    o = attention_chunked(q, k, v, cfg, causal=False, window=0,
+                          q_chunk=q_chunk)
+    return x + proj(o.reshape(B, S, cfg.q_dim), p.wo), (k, v)
+
+
+def _cross_attn_decode(x, lp, cfg, xk, xv, enc_pos):
+    """x: [B, d]; xk/xv: [B, S_enc, KVH, hd], the whole memory of every row
+    (enc_pos [B] = S_enc). Plain attention on every device
+    (``attention_decode_plain``): the JAX package computes it outside its
+    kernel too (ROADMAP §2 lists the kernel as a candidate)."""
+    h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
+    p = lp["xattn"]
+    B = x.shape[0]
+    q = proj(h, p.wq).reshape(B, cfg.num_heads, cfg.head_dim)
+    o = attention_decode_plain(q, xk, xv, enc_pos, cfg)
+    return x + proj(o.reshape(B, cfg.q_dim), p.wo)
+
+
 # ===========================================================================
 # sequence forward (prefill) — returns hidden states (+ cache)
 # ===========================================================================
 
+def _attn_layer_seq(x, lp, cfg, lora, window, positions, rope, q_chunk,
+                    enc_memory):
+    """One layer of an attention stack over a sequence: the block, then
+    encdec's cross-attention. Returns (x, (k, v), aux, (xk, xv) or None)."""
+    x, kv, aux = _dense_block_seq(x, lp, cfg, lora, window, positions, rope,
+                                  q_chunk)
+    xkv = None
+    if enc_memory is not None:
+        x, xkv = _cross_attn_seq(x, lp, cfg, enc_memory, q_chunk)
+    return x, kv, aux, xkv
+
+
 def forward_seq(params: Params, tokens, cfg: ModelConfig,
                 lora: Optional[LoraCtx] = None, cache: Optional[Params] = None,
-                *, q_chunk: int = 512, seq_lens=None
+                *, enc_embeds=None, q_chunk: int = 512, seq_lens=None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full-sequence forward. Returns (hidden [B,S,d], cache, aux_loss):
     aux is the MoE layers' load-balance loss summed over layers (a tensor
-    autograd sees), 0 for the other families.
+    autograd sees), 0 for the other families. encdec takes the frontend's
+    `enc_embeds` [B, S_enc, d], which the encoder turns into the memory
+    every decoder layer's cross-attention reads.
 
     With a cache, each attention layer's K/V is written into it at [0, S)
     of every row, pads included, and each mamba layer's ssm/conv state
-    replaces the cache's; the caller sets cache["pos"] afterwards (per-row
-    prompt lengths). Reads beyond ``pos`` never happen and decode overwrites
-    in place, so attention needs no mask; the recurrent families take
-    `seq_lens` [B] so that their states are those at each row's true length
-    and not at the padded width. With ``cfg.remat`` and grad enabled, every
-    layer runs under ``torch.utils.checkpoint``."""
+    replaces the cache's; encdec's cross-attention memory fills ``xk``/``xv``
+    (S_enc must be the cache's). The caller sets cache["pos"] afterwards
+    (per-row prompt lengths). Reads beyond ``pos`` never happen and decode
+    overwrites in place, so attention needs no mask; the recurrent families
+    take `seq_lens` [B] so that their states are those at each row's true
+    length and not at the padded width.
+
+    With grad enabled: under ``cfg.remat`` every layer runs under
+    ``torch.utils.checkpoint``. Under ``cfg.remat_block`` = k > 0, with no
+    cache, an attention stack (dense, vlm, moe, encdec's decoder) whose
+    depth k divides is also checkpointed k layers at a time (two-level
+    remat): backward keeps only every k-th layer's input and recomputes a
+    block, whose layers recompute theirs again under ``cfg.remat``. The JAX
+    package applies it to its layer scan only, so here too it needs
+    ``cfg.scan_layers`` (the port's loop stands for both the scan and the
+    unrolled loop of that flag); the encoder keeps per-layer checkpoints."""
     _check_family(cfg)
     B, S = tokens.shape[:2]
     x = params["embed"][tokens.long()]                       # [B,S,d]
@@ -390,32 +513,56 @@ def forward_seq(params: Params, tokens, cfg: ModelConfig,
     # remat, as the JAX package's checkpointed scan body: with grad on, each
     # layer keeps only its input and recomputes its activations backward
     remat = cfg.remat and torch.is_grad_enabled()
-    inv = 0
-    for i in range(cfg.num_layers):
-        lp = tree_index(params["layers"], i)
-        if cfg.ssm is None:
-            x, (k, v), aux = _run(_dense_block_seq, remat, x, lp, cfg,
-                                  _lora_layer(lora, i), _window_for(cfg, i),
-                                  positions, rope, q_chunk)
-            if aux is not None:
-                aux_total = aux if aux_total is None else aux_total + aux
+    if cfg.ssm is None:
+        enc = (_encode(params, enc_embeds, cfg, q_chunk, remat)
+               if cfg.family == "encdec" else None)
+
+        def layer(x, i):
+            return _run(_attn_layer_seq, remat, x,
+                        tree_index(params["layers"], i), cfg,
+                        _lora_layer(lora, i), _window_for(cfg, i), positions,
+                        rope, q_chunk, enc)
+
+        blk = cfg.remat_block
+        if (blk and cfg.scan_layers and cache is None
+                and torch.is_grad_enabled() and cfg.num_layers % blk == 0):
+            def block(x, aux, i0):
+                for i in range(i0, i0 + blk):
+                    x, _, a, _ = layer(x, i)
+                    aux = _add_aux(aux, a)
+                return x, aux
+
+            for i0 in range(0, cfg.num_layers, blk):
+                x, aux_total = checkpoint(block, x, aux_total, i0,
+                                          use_reentrant=False)
+        else:
+            for i in range(cfg.num_layers):
+                x, (k, v), aux, xkv = layer(x, i)
+                aux_total = _add_aux(aux_total, aux)
+                if cache is not None:
+                    cache["k"][i, :, :S] = k.to(cache["k"].dtype)
+                    cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+                    if xkv is not None:
+                        cache["xk"][i] = xkv[0].to(cache["xk"].dtype)
+                        cache["xv"][i] = xkv[1].to(cache["xv"].dtype)
+    else:
+        inv = 0
+        for i in range(cfg.num_layers):
+            lp = tree_index(params["layers"], i)
+            x, (st, cs) = _run(_mamba_layer_seq, remat, x, lp, cfg,
+                               _lora_layer(lora, i), None, None, seq_lens)
             if cache is not None:
-                cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-                cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-            continue
-        x, (st, cs) = _run(_mamba_layer_seq, remat, x, lp, cfg,
-                           _lora_layer(lora, i), None, None, seq_lens)
-        if cache is not None:
-            cache["ssm"][i] = st
-            cache["conv"][i] = cs.to(cache["conv"].dtype)
-        if cfg.family == "hybrid" and _hybrid_invokes(cfg, i):
-            x, (k, v), _ = _run(_dense_block_seq, remat, x, params["shared"],
-                                cfg, _lora_layer(lora, inv, "shared"), 0,
-                                positions, rope, q_chunk)
-            if cache is not None:
-                cache["k"][inv, :, :S] = k.to(cache["k"].dtype)
-                cache["v"][inv, :, :S] = v.to(cache["v"].dtype)
-            inv += 1
+                cache["ssm"][i] = st
+                cache["conv"][i] = cs.to(cache["conv"].dtype)
+            if cfg.family == "hybrid" and _hybrid_invokes(cfg, i):
+                x, (k, v), _ = _run(_dense_block_seq, remat, x,
+                                    params["shared"], cfg,
+                                    _lora_layer(lora, inv, "shared"), 0,
+                                    positions, rope, q_chunk)
+                if cache is not None:
+                    cache["k"][inv, :, :S] = k.to(cache["k"].dtype)
+                    cache["v"][inv, :, :S] = v.to(cache["v"].dtype)
+                inv += 1
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if aux_total is None:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -464,8 +611,11 @@ def forward_prefill_chunk(params: Params, tokens, cfg: ModelConfig,
     (exactly, for the SSD scan, when `start` is a multiple of
     ``cfg.ssm.chunk_size``: the prefill worker rounds its chunk so).
     Returns (hidden [B, C, d] final-normed, cache); the caller sets
-    ``cache["pos"]``."""
+    ``cache["pos"]``. encdec raises, as in the JAX package."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError("chunked prefill unsupported for family "
+                                  "'encdec'")
     C = tokens.shape[1]
     x = params["embed"][tokens.long()]
     positions = (start + torch.arange(C, device=x.device))[None, :]
@@ -515,7 +665,10 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
     told apart by its ``tbl`` block table): the paged path writes the
     token's K/V into the row's current page and attends through the table
     (the ``paged_gqa_decode`` kernel on the card), with the dense path's
-    values."""
+    values.
+
+    encdec attends to the prefill's cross-attention memory (``xk``/``xv``)
+    after each self-attention block, over all of its S_enc frames."""
     _check_family(cfg)
     B = new_tokens.shape[0]
     pos = cache["pos"]
@@ -530,6 +683,10 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
             if cfg.head_dim else None)
     ck, cv = ((cache.get("kp"), cache.get("vp")) if paged
               else (cache.get("k"), cache.get("v")))
+    if cfg.family == "encdec":
+        xk, xv = cache["xk"], cache["xv"]
+        enc_pos = torch.full((B,), xk.shape[2], dtype=torch.int32,
+                             device=pos.device)
     inv = 0
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
@@ -537,6 +694,8 @@ def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
             x = _block_decode(x, lp, cfg, _lora_layer(lora, i),
                               _window_for(cfg, i), ck[i], cv[i], pos, rope,
                               cache.get("tbl"), live)
+            if cfg.family == "encdec":
+                x = _cross_attn_decode(x, lp, cfg, xk[i], xv[i], enc_pos)
             continue
         x, st, cs = _mamba_layer_decode(x, lp, cfg, _lora_layer(lora, i),
                                         cache["ssm"][i], cache["conv"][i],
@@ -569,8 +728,11 @@ def lm_logits(h, params: Params, cfg: ModelConfig):
 
 
 def forward_train(params: Params, tokens, cfg: ModelConfig,
-                  lora: Optional[LoraCtx] = None, *, q_chunk: int = 512):
+                  lora: Optional[LoraCtx] = None, *, enc_embeds=None,
+                  q_chunk: int = 512):
     """Teacher-forced full-sequence logits [B, S, V] (+ aux loss: the MoE
-    load-balance loss, 0 for the other families)."""
-    h, _, aux = forward_seq(params, tokens, cfg, lora, None, q_chunk=q_chunk)
+    load-balance loss, 0 for the other families); encdec takes
+    `enc_embeds`."""
+    h, _, aux = forward_seq(params, tokens, cfg, lora, None,
+                            enc_embeds=enc_embeds, q_chunk=q_chunk)
     return lm_logits(h, params, cfg), aux

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig, MoEConfig
-from .common import LoraCtx, dense_init
+from .common import LoraCtx, dense_init, randn
 from .mlp import MLPParams, mlp_apply, mlp_init
 
 
@@ -52,10 +52,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> MoEParams
     w_in = torch.empty((E, d, in_cols), dtype=dtype, device=device)
     w_out = torch.empty((E, ff, d), dtype=dtype, device=device)
     for e in range(E):
-        w_in[e] = torch.randn((d, in_cols), generator=gen, device=device,
-                              dtype=torch.float32) * (1.0 / np.sqrt(d))
-        w_out[e] = torch.randn((ff, d), generator=gen, device=device,
-                               dtype=torch.float32) * (1.0 / np.sqrt(ff))
+        w_in[e] = randn((d, in_cols), gen, device) * (1.0 / np.sqrt(d))
+        w_out[e] = randn((ff, d), gen, device) * (1.0 / np.sqrt(ff))
     shared = (mlp_init(gen, d, m.num_shared * ff, cfg.mlp_act, dtype, device)
               if m.num_shared else None)
     return MoEParams(router=dense_init(gen, d, E, dtype, device, scale=0.02),

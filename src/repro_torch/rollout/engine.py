@@ -317,6 +317,19 @@ def _cache_dtype(cache):
     raise KeyError("cache without K/V or conv state")
 
 
+def refuse_encdec(cfg: ModelConfig):
+    """Raise NotImplementedError for the encdec family: no engine of the
+    JAX package serves it (they allocate its cross-attention cache but pass
+    no ``enc_embeds``, and fail at the first prefill; ROADMAP §3). The family
+    is served through ``launch.specs``'s prefill and decode step builders."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the rollout engines do not serve the encdec family "
+            f"(the JAX engines pass no enc_embeds to its encoder); serve it "
+            f"through repro_torch.launch.specs.build_prefill_step and "
+            f"build_decode_step (ROADMAP §3)")
+
+
 def _layout(cfg: ModelConfig):
     """(kv, recurrent) of the family's cache: whether it holds attention
     K/V (``k``/``v``, or ``kp``/``vp`` + ``tbl`` when paged) and whether it
@@ -744,10 +757,12 @@ class RolloutEngine:
 
     ``base_params`` live on ``device`` (default "cuda", which raises when no
     card is present); adapters passed to ``generate`` must live there too.
+    encdec raises (``refuse_encdec``), as does the continuous engine.
     """
 
     def __init__(self, cfg: ModelConfig, base_params, *, max_len: int = 128,
                  seed: int = 0, device="cuda"):
+        refuse_encdec(cfg)
         self.cfg = cfg
         self.base_params = base_params
         self.max_len = max_len
@@ -1009,6 +1024,7 @@ class ContinuousRolloutEngine:
                  tool_retry_max_s: float = 2.0,
                  tool_retry_episode_cap: int = 0,
                  supervise_wedge_s: float = 0.0, device="cuda"):
+        refuse_encdec(cfg)
         self.cfg = cfg
         self.base_params = base_params
         self.max_slots = max_slots

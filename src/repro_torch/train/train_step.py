@@ -60,10 +60,12 @@ def _completion_mask(prompt_lens, total_lens, S):
 
 
 def _policy_logprobs(params, tokens, cfg: ModelConfig,
-                     lora: Optional[LoraCtx], tc: TrainConfig):
+                     lora: Optional[LoraCtx], tc: TrainConfig,
+                     enc_embeds=None):
     """Token logprobs [R, S-1] for predicting tokens[:, 1:] (+ entropy,
-    aux)."""
-    h, _, aux = forward_seq(params, tokens, cfg, lora, None)
+    aux); encdec's rows come with their frontend embeddings."""
+    h, _, aux = forward_seq(params, tokens, cfg, lora, None,
+                            enc_embeds=enc_embeds)
     lp, ent = token_logprobs_chunked(h[:, :-1], vocab_matrix(params, cfg),
                                      tokens[:, 1:], cfg.logit_softcap,
                                      use_kernel=tc.use_logprob_kernel)
@@ -90,7 +92,9 @@ def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
             mask = mask * batch["loss_mask"][:, :S - 1]
         adv = group_advantages(batch["rewards"], tc.group_size)
 
-        new_lp, ent, aux = _policy_logprobs(params, tokens, cfg, lora, tc)
+        enc = batch.get("enc_embeds")
+        new_lp, ent, aux = _policy_logprobs(params, tokens, cfg, lora, tc,
+                                            enc)
         if tc.recompute_old or "behavior_logprobs" not in batch:
             old_lp = new_lp.detach()
         else:
@@ -98,7 +102,8 @@ def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
         ref_lp = None
         if tc.kl_coef:
             with torch.no_grad():
-                ref_lp, _, _ = _policy_logprobs(params, tokens, cfg, None, tc)
+                ref_lp, _, _ = _policy_logprobs(params, tokens, cfg, None, tc,
+                                                enc)
         # off-policy correction: the behaviour logprobs recorded at sample
         # time enter ONLY as the truncated importance weight; the clip ratio
         # stays anchored to the recomputed (proximal) old_lp
@@ -168,7 +173,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     (new_lora, new_opt_state, metrics). batch keys (tensors on the device
     the parameters live on):
       tokens [R, S] int32, prompt_lens [R], total_lens [R], rewards [R],
-      loss_mask [R, S] (optional), behavior_logprobs [R, S-1] (optional).
+      loss_mask [R, S] (optional), behavior_logprobs [R, S-1] (optional),
+      enc_embeds [R, S_enc, d] (encdec only).
     R = num_groups * tc.group_size; groups contiguous. With
     trainable="full" the base parameters are updated and returned in place
     of the adapters."""

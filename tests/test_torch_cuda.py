@@ -1414,3 +1414,156 @@ def test_family_continuous_paged_on_card_matches_cpu(card, arch):
         assert (i, ta) == (j, tb)
         torch.testing.assert_close(torch.tensor(lb), torch.tensor(la),
                                    rtol=1e-4, atol=1e-4)
+
+
+# -- the encdec family (seamless-m4t-large-v2) and the launch layer -----------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_gqa_decode_at_seamless_decoder_shape(card, dtype, tol):
+    """gqa_decode at the decoder's self-attention (16/16 heads of 64, rep
+    1), 16 rows over a 512-key cache, against the plain version; two calls
+    give the same bits."""
+    case = _split_case(card, 16, 16, 16, 64, 512, 16, dtype,
+                       [1, 2, 16, 17, 63, 64, 65, 128, 200, 255, 256, 300,
+                        400, 500, 511, 512])
+    got, want = _both_kernels(case, 0.0, 0)["gqa"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again, _ = _both_kernels(case, 0.0, 0)["gqa"]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("R", [16, 128])
+@pytest.mark.parametrize("d,dout", [(1024, 1024), (1024, 8192), (8192, 1024)],
+                         ids=["qkvo", "mlp_in", "mlp_out"])
+def test_sgmv_at_seamless_projections(card, d, dout, R):
+    """Both sgmv epilogues at the decoder's adapted projections (gelu MLP
+    of 8192), in decode (16 rows) and the served prefill (128 rows)."""
+    test_sgmv_at_the_families_projections(card, d, dout, R)
+
+
+@pytest.mark.parametrize("layout", ["untied", "padded"])
+def test_token_logprob_at_seamless_vocabulary(card, layout):
+    """The bf16 forward and backward at seamless's untied head, d 1024 and
+    V 256206 (not a multiple of 8: W's tiles load 2 bytes at a time), 300
+    rows, against the plain versions, and on a [:, :V] view of a head whose
+    rows are padded to 256208 (the backward's chunks but the last load 16
+    bytes at a time): lp, entropy and lse within 1e-3, dh within 1e-2 of
+    its scale, two calls of each with the same bits."""
+    R, d, V = 300, 1024, 256206
+    h, w, t = _bf16_inputs(card, R, d, V, "untied")
+    if layout == "padded":
+        w = torch.zeros(d, V + 2, device="cuda", dtype=torch.bfloat16)[:, :V] \
+            .copy_(w)
+        assert w.stride() == (V + 2, 1)
+    lp, ent, lse = tlp.token_logprob_fwd(h, w, t)
+    again = tlp.token_logprob_fwd(h, w, t)
+    want = ref.token_logprob_stats_ref(h, w, t)
+    for got, g2, wv in zip((lp, ent, lse), again, want):
+        torch.testing.assert_close(got, wv, rtol=1e-3, atol=1e-3)
+        assert torch.equal(got, g2)
+    g_lp = torch.randn(R, generator=card, device="cuda") / R
+    g_ent = torch.randn(R, generator=card, device="cuda") / R
+    dh = tlp.token_logprob_bwd(h, w, t, want[2], want[1], g_lp, g_ent)
+    dh2 = tlp.token_logprob_bwd(h, w, t, want[2], want[1], g_lp, g_ent)
+    want_dh = ref.token_logprob_bwd_ref(h, w, t, want[2], want[1], g_lp, g_ent)
+    assert torch.equal(dh, dh2)
+    err = (dh.float() - want_dh.float()).abs().max()
+    assert err <= 1e-2 * want_dh.float().abs().max(), err
+
+
+@pytest.mark.parametrize("layout,V,fwd,bwd_scalar", [
+    ("tied", 5003, 1, 0), ("untied", 5003, 0, "all"), ("untied", 5008, 1, 0),
+    ("padded", 256206, 0, 1)])
+def test_token_logprob_reports_how_it_loads_w(card, layout, V, fwd, bwd_scalar):
+    """The launchers' report of W's staging (FWD_W_VECTOR, BWD_W_VECTOR):
+    16-byte copies where the contiguous stride is 1 and the other stride
+    and the extent along it are multiples of 8 (the tied transpose at any
+    V; an untied head whose V is a multiple of 8), element loads otherwise
+    (an untied head at V 5003); a [:, :V] view of rows padded to 8 takes
+    them in every backward chunk but the ragged last one."""
+    R, d = 300, 1024
+    h, w, t = _bf16_inputs(card, R, d, V, "untied" if layout == "padded" else layout)
+    if layout == "padded":
+        w = torch.zeros(d, V + 2, device="cuda", dtype=torch.bfloat16)[:, :V] \
+            .copy_(w)
+    f0 = tlp.FWD_W_VECTOR.n
+    _, ent, lse = tlp.token_logprob_fwd(h, w, t)
+    assert tlp.FWD_W_VECTOR.n - f0 == fwd
+    g = torch.full((R,), 1.0 / R, device="cuda")
+    n0, b0 = tlp.BWD_CUDA_LAUNCHES.n, tlp.BWD_W_VECTOR.n
+    tlp.token_logprob_bwd(h, w, t, lse, ent, g, g)
+    chunks = (tlp.BWD_CUDA_LAUNCHES.n - n0 - 1) // 2
+    assert chunks == -(-V // tlp.backward_plan(R, d, V).vc)
+    scalar = chunks if bwd_scalar == "all" else bwd_scalar
+    assert tlp.BWD_W_VECTOR.n - b0 == chunks - scalar
+
+
+def test_encdec_step_builders_on_card_match_cpu(card):
+    """launch.specs' prefill and decode step builders on the reduced fp32
+    seamless: the card (sgmv, gqa_decode; the cross-attention plain) against
+    the CPU, logits within 1e-4; exact launches (6 x layers sgmv a forward,
+    layers gqa_decode a decode step); then the LoRA GRPO step through
+    build_train_step (token_logprob 1 forward, 1 backward) against the CPU,
+    loss and metrics within 1e-4."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.lora.adapters import stack_adapters
+    from repro_torch.models import init_cache
+    from repro_torch.train.optimizer import adamw_init
+    cfg = reduced(REGISTRY["seamless-m4t-large-v2"], dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ads = make_adapters(cfg, specs.NUM_TENANTS, seed=0, device="cpu", b_scale=0.2)
+    g = torch.Generator().manual_seed(1)
+    B, S, L = 4, 16, cfg.num_layers
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=g, dtype=torch.int32)
+    lens = torch.tensor([16, 9, 12, 5], dtype=torch.int32)
+    ids = torch.tensor([0, 3, 5, 7], dtype=torch.int32)
+    enc = torch.randn(B, S // 4, cfg.d_model, generator=g)
+    cur = torch.randint(1, cfg.vocab_size, (3, B), generator=g, dtype=torch.int32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (16, 12), generator=g,
+                                     dtype=torch.int32),
+             "prompt_lens": torch.randint(2, 6, (16,), generator=g, dtype=torch.int32),
+             "total_lens": torch.randint(7, 13, (16,), generator=g, dtype=torch.int32),
+             "rewards": torch.rand(16, generator=g),
+             "enc_embeds": torch.randn(16, 3, cfg.d_model, generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        def mv(tree, dev=dev):
+            return tree_map(lambda x: x.to(dev), tree)
+        p, stacked = mv(params), stack_adapters([mv(a) for a in ads])
+        n0 = (gqa.LAUNCHES.n, sgmv.CUDA_LAUNCHES.n)
+        logs = []
+        lg, cache = specs.build_prefill_step(cfg)(
+            p, stacked, ids.to(dev), toks.to(dev), lens.to(dev),
+            init_cache(cfg, B, 32, enc_len=S // 4, device=dev), enc.to(dev))
+        logs.append(lg.cpu())
+        for t in range(3):
+            lg, cache = specs.build_decode_step(cfg)(p, stacked, ids.to(dev),
+                                                     cur[t].to(dev), cache)
+            logs.append(lg.cpu())
+        if dev == "cuda":
+            assert (gqa.LAUNCHES.n - n0[0], sgmv.CUDA_LAUNCHES.n - n0[1]) == \
+                (3 * L, 6 * L * 4)
+        n1 = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
+        lora = mv(ads[1])
+        _, _, m = specs.build_train_step(cfg, ShapeConfig("t", 12, 16, "train"))(
+            p, lora, adamw_init(lora), mv(batch))
+        if dev == "cuda":
+            assert (tlp.FWD_LAUNCHES.n - n1[0], tlp.BWD_LAUNCHES.n - n1[1]) == (1, 1)
+        out[dev] = (logs, {k: float(v) for k, v in m.items()})
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+    for k, v in out["cpu"][1].items():
+        assert abs(out["cuda"][1][k] - v) <= 1e-4, k
+
+
+def test_roofline_peaks_of_this_card(card):
+    """launch.roofline finds the card's data-sheet peaks by its name (an H100
+    SXM here), and nvidia-smi's line names the same card."""
+    from repro_torch.launch import roofline
+    name = torch.cuda.get_device_name(0)
+    peaks = roofline.device_peaks()
+    assert peaks is roofline.peaks_for(name) is roofline.H100_SXM
+    line = roofline.card_line()
+    assert "H100" in line and line.strip().endswith("W"), line

@@ -132,14 +132,6 @@ def test_init_params_and_caches_have_the_jax_trees(name):
             == _shapes(jax_init_paged_cache(jcfg, 2, **kw)))
 
 
-def test_encdec_is_not_ported_yet():
-    cfg = pt_reduced(PT_REGISTRY["seamless-m4t-large-v2"], dtype="float32")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        init_cache(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("name", FAMILIES)
 def test_forward_train_logits_and_aux_match_jax(name):
     m = _model(name)

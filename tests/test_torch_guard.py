@@ -39,6 +39,8 @@ SLICE_MODULES = [
     "repro_torch.core.chaos", "repro_torch.core.manager",
     "repro_torch.core.metrics", "repro_torch.core.runtime",
     "repro_torch.core.supervisor", "repro_torch.launch.multi_tenant_train",
+    "repro_torch.launch.analytic", "repro_torch.launch.roofline",
+    "repro_torch.launch.specs", "repro_torch.launch.train",
     "repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.obs.report",
     "repro_torch.checkpoint", "repro_torch.checkpoint.store",
 ]
