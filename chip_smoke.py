@@ -118,7 +118,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     tokens (DER); splices and no decode stall (D modes), stall = prefill
     time (F); page invariants after every step; exact launches (decode
     attention 28 a decode step, sgmv 168 a forward, worker calls included);
-    then F, DE, DER and DED in fp32 at 32 new tokens: streams equal, or
+    then F, DE, DER and DED in fp32 at 16 new tokens: streams equal, or
     parting at near-ties. Prints decode ms/step (median, p90), prefill
     time and where it ran, splice time and wait, stall, occupancy, parks,
     wall and peak memory.
@@ -197,6 +197,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     but the last on the padded head only. (e) The same step at
     remat_block 4 (6 blocks of 4): loss and gradient against (d) within
     phase 7's bf16 tolerances, and both peaks of memory.
+16. sharding (launch.mesh, launch.shardings, train.sharding). (a) The dry
+    run (launch.dryrun, torch's fake process group on the meta device, no
+    card work) of P16_CELLS at published size, started as subprocesses
+    after the build in two lanes of one host core each (at the lowest
+    priority) and read here:
+    qwen3-0.6b train_4k on the multi-pod mesh twice, on a "cuda" and a
+    "cpu" mesh (records equal but for timings, the card and the device
+    type: the collective count does not depend on the mesh's device),
+    qwen3-32b and zamba2-1.2b decode_32k, deepseek-moe-16b train_4k; each
+    ok, with bytes per device against 80 GB, collectives and the dominant
+    roofline term. (b) qwen3-0.6b's LoRA GRPO step and one multi-LoRA
+    decode step through launch.specs on the host mesh (a (1, 1) mesh over
+    NCCL, world size 1; everything placed by the specs as DTensors; the
+    kernels take them through their wrappers' boundary), against the same
+    steps without a mesh: the same bits (loss and metrics, new adapters,
+    AdamW's first moment; logits and cache) and the same kernel launches,
+    each step timed with and without the mesh.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -257,7 +274,7 @@ P12_MODES["DER"] = dict(P12_MODES["DE"], resume_restore=False)
 # second tool turn (15 tokens) prefill in two chunks on the workers
 P12_MODES["DED"] = dict(P12_MODES["DE"], paged_kv=False, prefill_chunk=8)
 P12_FP32_MODES = ("F", "DE", "DER", "DED")
-P12_FP32_NEW = 32       # new tokens a row in phase 12's fp32 card check
+P12_FP32_NEW = 16       # new tokens a row in phase 12's fp32 card check
 # phase 13: run T is run D traced; run R is run T with chaos, a snapshot after
 # every commit and a crash after P13_FAIL_AFTER commits, through
 # run_with_recovery
@@ -3629,6 +3646,272 @@ def encdec_phase(torch, M, counters, card, peaks, gqa, paged, sgmv, tlp, ref, g,
     return out, kern
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the launch layer's sharding: the dry run on a fake process group
+# and the GRPO and decode steps on the host mesh
+# ---------------------------------------------------------------------------
+
+# (a) the dry run's cells at published size, in two lanes of one host core
+# each, each lane's cells one after another: (lane, arch, shape, mesh, the
+# mesh's device type). qwen3-0.6b's train cell runs on a "cuda" and a "cpu"
+# mesh: the two records must be equal, leaving out timings, the card and the
+# device type. qwen3-32b's train cell (16 micro-batches of 64 layers) is left
+# to the CPU sweep.
+P16_CELLS = ((0, "qwen3-0.6b", "train_4k", "multipod", "cuda"),
+             (0, "qwen3-32b", "decode_32k", "single", "cuda"),
+             (0, "zamba2-1.2b", "decode_32k", "single", "cuda"),
+             (1, "qwen3-0.6b", "train_4k", "multipod", "cpu"),
+             (1, "deepseek-moe-16b", "train_4k", "single", "cuda"))
+P16_CELL_TIMEOUT = 900
+HBM_GB = 80.0           # one H100's device memory, against bytes per device
+# (b) the host mesh: one GRPO step and one decode step of qwen3-0.6b
+P16_TRAIN_ROWS, P16_TRAIN_SEQ = 16, 256
+P16_DECODE_ROWS, P16_PROMPT, P16_MAX_LEN = 16, 128, 160
+
+
+class DryRunLanes:
+    """Phase 16 (a)'s cells, each a ``python -m repro_torch.launch.dryrun``
+    subprocess on the host's CPU (the meta device: nothing on the card) at
+    the lowest priority, one lane a thread that runs its cells one after
+    another. Started after the build, so that the cells run beside the card
+    phases; ``records`` waits for them. ``stop`` kills what still runs."""
+
+    def __init__(self, out_dir):
+        import os
+        import subprocess
+        import threading
+        self.out = Path(out_dir)
+        self.procs = []
+        self.logs = {}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+        def lane(cells):
+            for _, arch, shape, mesh, dev in cells:
+                key = f"{arch}_{shape}_{mesh}_{dev}"
+                p = subprocess.Popen(
+                    ["nice", "-n", "19", sys.executable, "-m",
+                     "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, "--mesh", mesh, "--mesh-device", dev, "--out",
+                     str(self.out / f"{key}.jsonl")], cwd=str(ROOT), env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                self.procs.append(p)
+                try:
+                    text, _ = p.communicate(timeout=P16_CELL_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    text, _ = p.communicate()
+                self.logs[key] = (p.returncode, text)
+
+        lanes = sorted({c[0] for c in P16_CELLS})
+        self.threads = [threading.Thread(target=lane, daemon=True,
+                                         args=([c for c in P16_CELLS if c[0] == n],))
+                        for n in lanes]
+        self.t0 = time.monotonic()
+        for t in self.threads:
+            t.start()
+
+    def records(self):
+        """{(arch, shape, mesh, device): record} once every cell ended, and
+        the seconds waited for them here."""
+        t0 = time.monotonic()
+        for t in self.threads:
+            t.join()
+        waited = time.monotonic() - t0
+        out = {}
+        for _, arch, shape, mesh, dev in P16_CELLS:
+            key = f"{arch}_{shape}_{mesh}_{dev}"
+            rc, text = self.logs[key]
+            path = self.out / f"{key}.jsonl"
+            recs = ([json.loads(line) for line in path.read_text().splitlines()]
+                    if path.exists() else [])
+            if rc != 0 or len(recs) != 1 or not recs[0].get("ok"):
+                raise AssertionError(f"phase 16a: dry run {key} exit {rc}, records "
+                                     f"{[r.get('error') for r in recs]}: {text[-3000:]}")
+            out[(arch, shape, mesh, dev)] = recs[0]
+        return out, waited
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+LANES = None            # phase 16 (a)'s dry run, started by main
+
+
+def dryrun_phase(card):
+    """Phase 16 (a): every cell ok; bytes per device against HBM_GB,
+    collectives, the dominant term; qwen3-0.6b's "cuda" and "cpu" mesh
+    records equal but for timings, the card and the device type."""
+    from repro_torch.launch.dryrun import TIMING_FIELDS
+    recs, waited = LANES.records()
+    out = {"cells": [], "waited_s": waited}
+    for (arch, shape, mesh, dev), r in recs.items():
+        cell = {k: r[k] for k in (
+            "arch", "shape", "mesh", "mesh_device", "chips", "argument_size_in_bytes",
+            "temp_size_in_bytes", "bytes_per_device", "collectives",
+            "collective_bytes_per_chip", "analytic_collective_bytes", "compute_s",
+            "memory_s", "collective_s", "dominant", "roofline_frac", "reshards",
+            "trace_s", "card")}
+        out["cells"].append(cell)
+        log(f"[16a dryrun] {arch} {shape} {mesh} ({r['chips']} chips, {dev} mesh): "
+            f"{r['bytes_per_device'] / 1e9:.2f} GB a device of {HBM_GB:.0f} "
+            f"(arguments {r['argument_size_in_bytes'] / 1e9:.3f}, temporaries "
+            f"{r['temp_size_in_bytes'] / 1e9:.3f}); collectives "
+            f"{r['collectives']} = {r['collective_bytes_per_chip'] / 1e9:.3f} GB a chip "
+            f"(analytic {r['analytic_collective_bytes'] / r['chips'] / 1e9:.3f}); "
+            f"dominant {r['dominant']} (compute {r['compute_s']:.3e} s, memory "
+            f"{r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s); reshards "
+            f"{r['reshards']}; traced in {r['trace_s']} s on {card}")
+    skip = set(TIMING_FIELDS) | {"card", "mesh_device"}
+    a, b = (recs[("qwen3-0.6b", "train_4k", "multipod", d)] for d in ("cuda", "cpu"))
+    diff = sorted(k for k in set(a) | set(b) if k not in skip and a.get(k) != b.get(k))
+    out["cuda_vs_cpu_mesh_equal"] = not diff
+    log(f"[16a dryrun] qwen3-0.6b train_4k multipod: the cuda and cpu meshes' records "
+        f"{'equal' if not diff else 'differ in ' + str(diff)}; waited {waited:.1f} s "
+        f"for the cells, {time.monotonic() - LANES.t0:.1f} s since they started")
+    if diff:
+        raise AssertionError(f"phase 16a: cuda and cpu mesh records differ in {diff}")
+    return out
+
+
+def mesh_train_batch(torch, cfg, rows, seq):
+    """A GRPO batch of `rows` rows of `seq` tokens (seeded random ids,
+    prompts of 16-64 tokens, completions to the half or more of seq,
+    uniform rewards)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    return {"tokens": ints(1, cfg.vocab_size, (rows, seq)),
+            "prompt_lens": ints(16, 65, (rows,)),
+            "total_lens": ints(seq // 2, seq + 1, (rows,)),
+            "rewards": torch.rand(rows, generator=g, device="cuda")}
+
+
+def host_mesh_phase(torch, M, counters, card):
+    """Phase 16 (b): qwen3-0.6b at full width in bf16 (random weights from
+    seed 0) through launch.specs' LoRA GRPO step (P16_TRAIN_ROWS rows of
+    P16_TRAIN_SEQ tokens, one micro-batch) and one multi-LoRA decode step
+    over the dense cache (P16_DECODE_ROWS rows on the stacked adapters, a
+    cache prefilled without the mesh), each without a mesh and then on the
+    host mesh (launch.mesh.make_host_mesh: a (1, 1) mesh over NCCL, world
+    size 1) with params, adapters, optimizer state, batch and cache placed
+    by launch.shardings' specs as DTensors, under mesh_context and
+    implicit_replication. The kernels take the DTensors through their
+    wrappers' boundary (kernels.boundary.on_replicas). The mesh's results
+    equal the plain ones bit for bit (loss and metrics, new adapters,
+    AdamW's first moment; logits and every cache entry) with the same
+    kernel launches; each step timed after an untimed one."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import shardings as sh, specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import make_adapters
+    from repro_torch.lora.adapters import stack_adapters
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.sharding import mesh_context
+    cfg = get_config(ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    lora = make_adapters(cfg, 1, seed=3, device="cuda", b_scale=B_SCALE)[0]
+    ads = stack_adapters(make_adapters(cfg, specs.NUM_TENANTS, seed=0, device="cuda",
+                                       b_scale=B_SCALE))
+    R, S, B = P16_TRAIN_ROWS, P16_TRAIN_SEQ, P16_DECODE_ROWS
+    batch = mesh_train_batch(torch, cfg, R, S)
+    train = specs.build_train_step(cfg, ShapeConfig("p16_train", S, R, "train"))
+    prefill, decode = specs.build_prefill_step(cfg), specs.build_decode_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    row_ids = (torch.arange(B, device="cuda") % specs.NUM_TENANTS).to(torch.int32)
+    toks = torch.randint(1, cfg.vocab_size, (B, P16_PROMPT), generator=g,
+                         device="cuda", dtype=torch.int32)
+    lens = torch.randint(P16_PROMPT // 2, P16_PROMPT + 1, (B,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    cur = torch.randint(1, cfg.vocab_size, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    _, cache0 = prefill(params, ads, row_ids, toks, lens,
+                        M.init_cache(cfg, B, P16_MAX_LEN, device="cuda"))
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def timed(fn, *args):
+        """fn(*args) twice (the second timed), with the second's launches."""
+        fn(*args)
+        torch.cuda.synchronize()
+        count_all(counters, reset=True)
+        t0 = time.monotonic()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.monotonic() - t0), count_all(counters)
+
+    def clone(tree):
+        return {k: v.clone() for k, v in tree.items()}
+
+    plain_train = timed(train, params, lora, adamw_init(lora), batch)
+    plain_decode = timed(lambda c: decode(params, ads, row_ids, cur, clone(c)), cache0)
+    mesh = make_host_mesh()
+    try:
+        with mesh_context(mesh), implicit_replication():
+            p_in = sh.distribute(params, sh.param_specs(cfg, params, mesh), mesh)
+            lspec = sh.lora_specs(cfg, lora, mesh)
+            mesh_train = timed(train, p_in, sh.distribute(lora, lspec, mesh),
+                               sh.distribute(adamw_init(lora), sh.opt_specs(lspec), mesh),
+                               sh.distribute(batch, sh.batch_specs(batch, mesh, R), mesh))
+            ads_in = sh.distribute(ads, sh.lora_specs(cfg, ads, mesh, batched=True), mesh)
+            rest = sh.distribute({"row_ids": row_ids, "cur": cur},
+                                 sh.batch_specs({"row_ids": row_ids, "cur": cur}, mesh, B),
+                                 mesh)
+            cspec = sh.cache_specs(cfg, cache0, mesh, B)
+            mesh_decode = timed(
+                lambda c: decode(p_in, ads_in, rest["row_ids"], rest["cur"],
+                                 sh.distribute(clone(c), cspec, mesh)), cache0)
+            placed = {"params": sum(isinstance(t, DTensor) for t in tree_leaves(p_in)),
+                      "cache": sum(isinstance(t, DTensor)
+                                   for t in mesh_decode[0][1].values())}
+            (new_m, opt_m, met_m), (logits_m, cache_m) = mesh_train[0], mesh_decode[0]
+            new_m, mom_m = sh.gather(new_m), sh.gather(opt_m["m"])
+            met_m = {k: whole(v) for k, v in met_m.items()}
+            logits_m, cache_m = whole(logits_m), sh.gather(cache_m)
+    finally:
+        dist.destroy_process_group()
+    (new_p, opt_p, met_p), (logits_p, cache_p) = plain_train[0], plain_decode[0]
+    same = {
+        "metrics": all(torch.equal(met_p[k], met_m[k]) for k in met_p),
+        "lora": all(torch.equal(a, b) for a, b in zip(tree_leaves(new_p),
+                                                       tree_leaves(new_m))),
+        "first_moment": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(opt_p["m"]), tree_leaves(mom_m))),
+        "logits": bool(torch.equal(logits_p, logits_m)),
+        "cache": all(torch.equal(cache_p[k], cache_m[k]) for k in cache_p)}
+    out = dict(mesh=list(mesh.shape), placed_dtensors=placed, same_bits=same,
+               train=dict(rows=R, seq=S, plain_ms=plain_train[1], mesh_ms=mesh_train[1],
+                          plain_launches=plain_train[2], mesh_launches=mesh_train[2],
+                          loss=float(met_p["loss"])),
+               decode=dict(rows=B, cache_len=P16_MAX_LEN, plain_ms=plain_decode[1],
+                           mesh_ms=mesh_decode[1], plain_launches=plain_decode[2],
+                           mesh_launches=mesh_decode[2]), card=card)
+    log(f"[16b host mesh] {cfg.name} on a {tuple(mesh.shape)} mesh ({placed['params']} "
+        f"parameter and {placed['cache']} cache DTensors): GRPO step {R} x {S} "
+        f"{mesh_train[1]:.1f} ms vs {plain_train[1]:.1f} ms without the mesh, "
+        f"launches {mesh_train[2]} vs {plain_train[2]}; decode step of {B} rows "
+        f"{mesh_decode[1]:.2f} ms vs {plain_decode[1]:.2f} ms, launches "
+        f"{mesh_decode[2]} vs {plain_decode[2]}; same bits {same} on {card}")
+    want_train = dict({k: 0 for k in counters}, token_logprob_fwd=1, token_logprob_bwd=1)
+    if plain_train[2] != want_train or mesh_train[2] != plain_train[2] \
+            or mesh_decode[2] != plain_decode[2] \
+            or plain_decode[2]["gqa_decode"] != cfg.num_layers \
+            or plain_decode[2]["sgmv"] != 6 * cfg.num_layers:
+        raise AssertionError(f"phase 16b: launches {out}")
+    if not all(same.values()) or not placed["params"] or not placed["cache"]:
+        raise AssertionError(f"phase 16b: the host mesh's steps differ: {out}")
+    out["launches"] = {k: mesh_train[2][k] + mesh_decode[2][k] for k in counters}
+    return out
+
+
 def main(argv):
     if "--launches-of" in argv:
         # the launches a forward in a served round's profile table, as
@@ -3665,7 +3948,7 @@ def main(argv):
     phase_end_s = {}     # seconds from the start at the end of each phase
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    global PEAKS
+    global PEAKS, LANES
     card = roofline.card_line()
     kind = torch.cuda.get_device_name(0)
     PEAKS = roofline.device_peaks()
@@ -3674,6 +3957,8 @@ def main(argv):
 
     secs = _build.build_all()
     log(f"[2 build] kernels built in {secs:.2f} s")
+    import tempfile
+    LANES = DryRunLanes(tempfile.mkdtemp(prefix="dryrun_"))
     for name, text in _build.build_logs().items():
         kernels = ptxas_kernels(text)
         if not kernels:
@@ -3866,6 +4151,13 @@ def main(argv):
     tlp_bwd_cases += enc_kern["token_logprob_bwd"]
 
     phase_end_s["15"] = time.monotonic() - t_all
+
+    # -- phase 16: the dry run's cells, then the host mesh -------------------
+    sharding = {"dryrun": dryrun_phase(card)}
+    sharding["host_mesh"] = host_mesh_phase(torch, M, counters, card)
+    p16_launch = sharding["host_mesh"]["launches"]
+
+    phase_end_s["16"] = time.monotonic() - t_all
     log("[time] seconds from the start at the end of each phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_end_s.items()))
 
@@ -3883,6 +4175,7 @@ def main(argv):
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"encdec": encdec}), flush=True)
+    print(json.dumps({"sharding": sharding}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -3892,13 +4185,15 @@ def main(argv):
         kernel_entry("gqa_decode", "src/repro_torch/kernels/csrc/gqa_decode.cu",
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
                      n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"]
-                     + p14_launch["gqa_decode"] + p15_launch["gqa_decode"],
+                     + p14_launch["gqa_decode"] + p15_launch["gqa_decode"]
+                     + p16_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
                          for r in runtime},
                          "stages DED (12)": p12_launch["gqa_decode"],
                          "families (14)": p14_launch["gqa_decode"],
-                         "encdec (15)": p15_launch["gqa_decode"]},
+                         "encdec (15)": p15_launch["gqa_decode"],
+                         "host mesh (16)": p16_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
@@ -3906,7 +4201,8 @@ def main(argv):
                      "src/repro/kernels/sgmv.py:64", sgmv_cases,
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
                      + p11_launch["sgmv"] + p12_launch["sgmv"]
-                     + p13_launch["sgmv"] + p14_launch["sgmv"] + p15_launch["sgmv"],
+                     + p13_launch["sgmv"] + p14_launch["sgmv"] + p15_launch["sgmv"]
+                     + p16_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -3918,7 +4214,8 @@ def main(argv):
                          **{f"faults {r} (13)": faults[r]["launches"]["sgmv"]
                             for r in ("T", "R")},
                          "families (14)": p14_launch["sgmv"],
-                         "encdec (15)": p15_launch["sgmv"]},
+                         "encdec (15)": p15_launch["sgmv"],
+                         "host mesh (16)": p16_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -3930,14 +4227,15 @@ def main(argv):
                      n_fwd + rt_launch["token_logprob_fwd"]
                      + p13_launch["token_logprob_fwd"]
                      + p14_launch["token_logprob_fwd"]
-                     + p15_launch["token_logprob_fwd"],
+                     + p15_launch["token_logprob_fwd"] + p16_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_fwd"]
                          for r in ("T", "R")},
                          "families (14)": p14_launch["token_logprob_fwd"],
-                         "encdec (15)": p15_launch["token_logprob_fwd"]},
+                         "encdec (15)": p15_launch["token_logprob_fwd"],
+                         "host mesh (16)": p16_launch["token_logprob_fwd"]},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
@@ -3946,14 +4244,15 @@ def main(argv):
                      n_bwd + rt_launch["token_logprob_bwd"]
                      + p13_launch["token_logprob_bwd"]
                      + p14_launch["token_logprob_bwd"]
-                     + p15_launch["token_logprob_bwd"],
+                     + p15_launch["token_logprob_bwd"] + p16_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
                          for r in runtime}, **{
                          f"faults {r} (13)": faults[r]["launches"]["token_logprob_bwd"]
                          for r in ("T", "R")},
                          "families (14)": p14_launch["token_logprob_bwd"],
-                         "encdec (15)": p15_launch["token_logprob_bwd"]},
+                         "encdec (15)": p15_launch["token_logprob_bwd"],
+                         "host mesh (16)": p16_launch["token_logprob_bwd"]},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
@@ -3988,4 +4287,9 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        rc = main(sys.argv[1:])
+    finally:
+        if LANES is not None:
+            LANES.stop()
+    sys.exit(rc)

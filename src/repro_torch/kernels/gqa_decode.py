@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .boundary import heads_parallel, is_dtensor, on_replicas, plain
 from .ref import gqa_decode_ref
 
 __all__ = ["gqa_decode", "gqa_decode_ref", "decode_plan", "DecodePlan",
@@ -160,10 +161,17 @@ def gqa_decode(q, cache_k, cache_v, pos, *, softcap: float = 0.0,
                window: int = 0):
     """q: [B, H, hd]; cache_k/v: [B, S, KVH, hd]; pos: [B] valid lengths
     (including the just-written token, >= 1). Returns [B, H, hd] in q's dtype.
-    """
-    if q.device.type == "cpu":
+    DTensors on the card go through ``boundary.on_replicas``; on the CPU and
+    the meta device through ``boundary.heads_parallel``."""
+    if plain(q):
+        if is_dtensor(q):
+            return heads_parallel(gqa_decode_ref, q, cache_k, cache_v, pos,
+                                  softcap=softcap, window=window)
         return gqa_decode_ref(q, cache_k, cache_v, pos, softcap=softcap,
                               window=window)
+    if is_dtensor(q):
+        return on_replicas(gqa_decode, q, cache_k, cache_v, pos,
+                           softcap=softcap, window=window)
     if not q.is_cuda:
         raise ValueError(f"gqa_decode: no kernel for device {q.device}")
     _check(q, cache_k, cache_v, pos)

@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from . import _build
+from .boundary import is_dtensor, on_replicas, plain
 from .gqa_decode import _ptr, decode_plan, merge_scratch
 from .ref import paged_gqa_decode_ref
 
@@ -75,10 +76,14 @@ def paged_gqa_decode(q, kp, vp, tbl, pos, *, softcap: float = 0.0,
     """q: [B, H, hd]; kp/vp: [n_pages+1, page, KVH, hd] (one layer's pool;
     the last page is scratch); tbl: [B, max_pages] int32 physical page ids;
     pos: [B] valid lengths (including the just-written token, >= 1).
-    Returns [B, H, hd] in q's dtype."""
-    if q.device.type == "cpu":
+    Returns [B, H, hd] in q's dtype. DTensors on the card go through
+    ``boundary.on_replicas``."""
+    if plain(q):
         return paged_gqa_decode_ref(q, kp, vp, tbl, pos, softcap=softcap,
                                     window=window)
+    if is_dtensor(q):
+        return on_replicas(paged_gqa_decode, q, kp, vp, tbl, pos,
+                           softcap=softcap, window=window)
     if not q.is_cuda:
         raise ValueError(f"paged_gqa_decode: no kernel for device {q.device}")
     _check(q, kp, vp, tbl, pos)

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .boundary import is_dtensor, on_replicas, plain
 from .ref import sgmv_add_ref, sgmv_ref
 
 __all__ = ["sgmv", "sgmv_add_", "sgmv_ref", "sgmv_add_ref", "sgmv_plan",
@@ -290,10 +291,13 @@ def _launch(rows, a, b, table, scaling, add, checked):
 
 def sgmv(rows, a, b, ids, *, table: SgmvTable = None):
     """rows: [R, d]; a: [T, d, r]; b: [T, r, dout]; ids: [R] in [0, T) (or
-    `table`, ids' segment table, already built). Returns [R, dout] float32."""
+    `table`, ids' segment table, already built). Returns [R, dout] float32.
+    DTensors on the card go through ``boundary.on_replicas``."""
+    if plain(rows):
+        return sgmv_ref(rows, a, b, ids if table is None else table.ids)
+    if is_dtensor(rows):
+        return on_replicas(sgmv, rows, a, b, ids, table=table)
     if not rows.is_cuda:
-        if rows.device.type == "cpu":
-            return sgmv_ref(rows, a, b, ids if table is None else table.ids)
         raise ValueError(f"sgmv: no kernel for device {rows.device}")
     _refuse_grad(rows, a, b)
     check_adapters(a, b)
@@ -317,10 +321,16 @@ def sgmv_add_(y, rows, a, b, table: SgmvTable, scaling: float, *,
     rows [..., d] and y [..., dout] in rows' dtype holding the table's R
     rows; `table` from ``sgmv_table``. `checked`: the caller has passed a
     and b (or their stacked leaves) through ``check_adapters``, as the
-    batched ``LoraCtx`` does once a forward. Allocates nothing. Returns y."""
+    batched ``LoraCtx`` does once a forward. Allocates nothing. Returns y.
+    DTensors on the card go through ``boundary.on_replicas``: the add is
+    then made in y's replica, so use the returned DTensor (y's own storage
+    only where y was replicated already)."""
+    if plain(rows):
+        return sgmv_add_ref(y, rows, a, b, table.ids, scaling)
+    if is_dtensor(rows):
+        return on_replicas(sgmv_add_, y, rows, a, b, table, scaling,
+                           checked=checked)
     if not rows.is_cuda:
-        if rows.device.type == "cpu":
-            return sgmv_add_ref(y, rows, a, b, table.ids, scaling)
         raise ValueError(f"sgmv_add_: no kernel for device {rows.device}")
     _refuse_grad(y, rows, a, b)
     if not checked:

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .boundary import is_dtensor, on_replicas, plain
 from .ref import (token_logprob_bwd_ref, token_logprob_ref,
                   token_logprob_stats_ref)
 
@@ -169,7 +170,7 @@ def token_logprob_fwd(h, w, targets, softcap: float = 0.0):
     h: [R, d] contiguous; w: [d, V] with any positive strides (the tied
     embedding's transpose is read in place); targets: [R] int32. CPU
     tensors take the plain version."""
-    if h.device.type == "cpu":
+    if plain(h):
         return token_logprob_stats_ref(h, w, targets, softcap)
     _check(h, w, targets)
     R, d = h.shape
@@ -200,7 +201,7 @@ def token_logprob_bwd(h, w, targets, lse, ent, g_lp, g_ent,
     """The backward kernel: dh [R, d] in h's dtype, from the forward's lse
     and entropy and the upstream grads g_lp, g_ent ([R] fp32 each). CPU
     tensors take the plain version."""
-    if h.device.type == "cpu":
+    if plain(h):
         return token_logprob_bwd_ref(h, w, targets, lse, ent, g_lp, g_ent,
                                      softcap)
     _check(h, w, targets)
@@ -268,9 +269,12 @@ class _TokenLogprob(torch.autograd.Function):
 
 def token_logprob_flat(h, w, targets, softcap: float = 0.0):
     """h: [R, d]; w: [d, V]; targets: [R] int32 in [0, V).
-    Returns (logprob [R], entropy [R]) float32, differentiable in h."""
-    if h.device.type == "cpu":
+    Returns (logprob [R], entropy [R]) float32, differentiable in h.
+    DTensors on the card go through ``boundary.on_replicas``."""
+    if plain(h):
         return token_logprob_ref(h, w, targets, softcap)
+    if is_dtensor(h):
+        return on_replicas(token_logprob_flat, h, w, targets, softcap)
     if not h.is_cuda:
         raise ValueError(f"token_logprob: no kernel for device {h.device}")
     if w.requires_grad and torch.is_grad_enabled():

@@ -19,15 +19,22 @@ A card may run below its data sheet under a power limit below the maximum
 (700 W for the H100 SXM): keep ``card_line()`` (``nvidia-smi``'s name and
 power limit) beside every share of peak; ``RooflineTerms.card`` carries it.
 
-``parse_collectives``, which reads collective traffic out of XLA's HLO
-text, has no counterpart here: it waits for the port's mesh (ROADMAP §1
-item 9). ``roofline`` takes the same ``CollectiveStats`` from any other
-count, such as ``launch.analytic``'s terms.
+Where the JAX package reads collective traffic out of XLA's HLO text
+(``parse_collectives``), the port counts the collectives DTensor issues
+while a step runs (``collective_counter``), with the same per-chip ring
+formulas (``ring_traffic``) into the same ``CollectiveStats``:
+
+  all-gather       result_bytes · (g-1)/g          per chip
+  reduce-scatter   input_bytes  · (g-1)/g  = result·(g-1)
+  all-reduce       2 · bytes · (g-1)/g             (RS + AG)
+  all-to-all       bytes · (g-1)/g
+  collective-permute  bytes
 """
 from __future__ import annotations
 
 import subprocess
-from dataclasses import dataclass
+import sys
+from dataclasses import dataclass, field
 from typing import Dict
 
 
@@ -86,9 +93,114 @@ def share_of_peak(flops: float, seconds: float, peaks: Peaks,
 
 @dataclass
 class CollectiveStats:
-    """Collective bytes a chip moves in one step (the JAX package's type
-    also splits them by kind, as ``parse_collectives`` reads them)."""
+    """Collective bytes a chip moves in one step, in all and by kind
+    ("all-gather", "reduce-scatter", "all-reduce", "all-to-all", ...), and
+    the number of collectives of each kind."""
+    per_op: Dict[str, float] = field(default_factory=dict)   # kind -> bytes/chip
+    count: Dict[str, int] = field(default_factory=dict)
     total_per_chip: float = 0.0
+
+    def add(self, kind: str, traffic: float):
+        self.per_op[kind] = self.per_op.get(kind, 0.0) + traffic
+        self.count[kind] = self.count.get(kind, 0) + 1
+        self.total_per_chip += traffic
+
+
+def ring_traffic(kind: str, bytes_: float, g: int) -> float:
+    """Bytes one chip sends for a collective over a group of `g` under the
+    ring algorithms; `bytes_` is the result's size (the whole tensor for an
+    all-gather, one shard for a reduce-scatter), as in the HLO the JAX
+    package parses."""
+    ring = (g - 1) / g
+    if kind == "all-gather":
+        return bytes_ * ring
+    if kind == "reduce-scatter":
+        return bytes_ * (g - 1)
+    if kind == "all-reduce":
+        return 2 * bytes_ * ring
+    if kind == "all-to-all":
+        return bytes_ * ring
+    return bytes_                                  # collective-permute
+
+
+# DTensor's collectives: (namespace, op) -> kind
+_KINDS = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+}
+
+
+def _group_size(group_name) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group_name).size()
+
+
+def _in_cpu_alltoall() -> bool:
+    """True inside DTensor's ``shard_dim_alltoall`` (called by a frame of
+    the stack): on a "cpu" mesh it runs an all-to-all as an all-gather and
+    a chunk, since gloo has no all-to-all."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name == "shard_dim_alltoall":
+            return True
+        f = f.f_back
+    return False
+
+
+def collective_counter():
+    """A ``TorchDispatchMode`` whose ``stats`` (``CollectiveStats``) count
+    every collective DTensor issues inside it, by kind, with its per-chip
+    ring traffic (``ring_traffic``) from its bytes and group size;
+    ``records`` keeps (kind, result bytes, group size) of each. It counts
+    what DTensor asks for, whatever the mesh's device type: an all-to-all
+    that a "cpu" mesh runs as an all-gather and a chunk counts as the
+    all-to-all. Ops on DTensors pass through: the mode defers to DTensor,
+    then sees the collectives it issues on the local tensors (as torch's
+    ``CommDebugMode`` does)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CollectiveCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.stats = CollectiveStats()
+            self.records = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **kwargs)
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            kind = _KINDS.get((getattr(func, "namespace", ""),
+                               getattr(func, "_opname", "")))
+            if kind is not None:
+                self._record(kind, args)
+            return func(*args, **kwargs)
+
+        def _record(self, kind, args):
+            x = args[0]
+            nbytes = x.numel() * x.element_size()
+            if kind == "all-gather":
+                g = int(args[1])
+                if _in_cpu_alltoall():
+                    kind = "all-to-all"          # its result is x's size
+                else:
+                    nbytes *= g                  # the gathered result
+            elif kind == "reduce-scatter":
+                g = int(args[2])
+                nbytes //= g                     # the shard
+            else:
+                g = _group_size(args[-1])
+            if g > 1:
+                self.records.append((kind, nbytes, g))
+                self.stats.add(kind, ring_traffic(kind, nbytes, g))
+
+    return CollectiveCounter()
 
 
 @dataclass

@@ -107,17 +107,22 @@ def serve_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 # step functions
 # ---------------------------------------------------------------------------
 
-def build_train_step(cfg: ModelConfig, shape: ShapeConfig):
+def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                     use_logprob_kernel: bool = True):
     """The LoRA GRPO step of the train cell: ``make_train_step(base_params,
     lora, opt_state, batch)`` at GROUP_SIZE and the cell's micro-batching,
     under REPRO_REMAT_BLOCK. The policy logprobs go through the fused
     ``token_logprob`` kernel, forward and backward (its plain version on the
     CPU), where the JAX package's step takes its chunked path: ``jax.grad``
-    cannot pass through its Pallas kernel (ROADMAP §3). The two agree."""
+    cannot pass through its Pallas kernel (ROADMAP §3). The two agree.
+    ``use_logprob_kernel=False`` takes the chunked path (the dry run's: on
+    the meta device no kernel launches, and it is the path the JAX
+    package's dry run lowers)."""
     cfg = maybe_remat_block(cfg)
     tc = TrainConfig(group_size=GROUP_SIZE,
                      accum_steps=accum_steps(cfg, shape),
-                     use_logprob_kernel=True, adamw=AdamWConfig())
+                     use_logprob_kernel=use_logprob_kernel,
+                     adamw=AdamWConfig())
     return make_train_step(cfg, tc)
 
 

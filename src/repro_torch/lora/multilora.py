@@ -21,13 +21,16 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+from repro_torch.kernels.boundary import is_dtensor, on_replicas, plain
 from repro_torch.kernels.sgmv import sgmv, sgmv_table
 
 
 def multi_lora_delta(x, a, b, row_task_ids, scaling: float):
     """x: [B, d] or [B, S, d]; a: [T, d, r]; b: [T, r, dout]; ids: [B]."""
-    if x.device.type == "cpu":
+    if plain(x):
         return multi_lora_delta_ref(x, a, b, row_task_ids, scaling)
+    if is_dtensor(x):
+        return on_replicas(multi_lora_delta, x, a, b, row_task_ids, scaling)
     x3 = x[:, None, :] if x.dim() == 2 else x
     B, S, d = x3.shape
     table = sgmv_table(row_task_ids, a.shape[0], S)

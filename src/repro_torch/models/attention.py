@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels.boundary import heads_parallel, is_dtensor
 from repro_torch.kernels.gqa_decode import gqa_decode
 from repro_torch.kernels.paged_decode import paged_gqa_decode
+from repro_torch.train.sharding import fit_split
 from .common import (LoraCtx, apply_rope, dense_init, proj, rmsnorm,
                      rmsnorm_init, softcap)
 
@@ -69,9 +71,12 @@ def qkv(x, p: AttnParams, cfg: ModelConfig, positions, lora: Optional[LoraCtx],
     `rope_tables`: ``common.rope_tables(positions, hd, theta)``, shared by
     the layers of one forward."""
     B, S, _ = x.shape
-    q = proj(x, p.wq, p.bq, lora=lora, name="attn_q").reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = proj(x, p.wk, p.bk, lora=lora, name="attn_k").reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = proj(x, p.wv, p.bv, lora=lora, name="attn_v").reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(proj(x, p.wq, p.bq, lora=lora, name="attn_q"),
+                    cfg.num_heads, cfg.head_dim)
+    k = split_heads(proj(x, p.wk, p.bk, lora=lora, name="attn_k"),
+                    cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(proj(x, p.wv, p.bv, lora=lora, name="attn_v"),
+                    cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -79,6 +84,15 @@ def qkv(x, p: AttnParams, cfg: ModelConfig, positions, lora: Optional[LoraCtx],
         q = apply_rope(q, positions, cfg.rope_theta, rope_tables)
         k = apply_rope(k, positions, cfg.rope_theta, rope_tables)
     return q, k, v
+
+
+def split_heads(y, n: int, hd: int):
+    """[..., n * hd] -> [..., n, hd]. Under a mesh whose tp splits the
+    projection's outputs more ways than there are heads (8 kv heads, tp
+    16), the outputs are made whole first (``fit_split``): GSPMD reshards
+    across the view by itself, DTensor refuses."""
+    y = fit_split(y, -1, n, note="heads_view")
+    return y.reshape(*y.shape[:-1], n, hd)
 
 
 def repeat_kv(k, n_rep: int):
@@ -120,8 +134,8 @@ def attention_dense(q, k, v, cfg: ModelConfig, *, causal: bool, window: int = 0)
     """Plain softmax attention. q:[B,Sq,H,hd], k/v:[B,Sk,KVH,hd]."""
     H = q.shape[2]
     Sq, Sk = q.shape[1], k.shape[1]
-    k = repeat_kv(k, H // cfg.num_kv_heads)
-    v = repeat_kv(v, H // cfg.num_kv_heads)
+    k = repeat_kv(k, H // k.shape[2])
+    v = repeat_kv(v, H // v.shape[2])
     dev = q.device
     mask = _pair_mask(torch.arange(Sq, device=dev), torch.arange(Sk, device=dev),
                       causal=causal, window=window)
@@ -131,15 +145,19 @@ def attention_dense(q, k, v, cfg: ModelConfig, *, causal: bool, window: int = 0)
 def attention_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
                       window: int = 0, q_chunk: int = 512):
     """Query-chunked attention: a loop over q chunks; peak memory
-    [B, H, q_chunk, Sk]. Used for prefill at long sequence length."""
+    [B, H, q_chunk, Sk]. Used for prefill at long sequence length. Over
+    DTensors it runs shard by shard (``boundary.heads_parallel``)."""
+    if is_dtensor(q):
+        return heads_parallel(attention_chunked, q, k, v, cfg, causal=causal,
+                              window=window, q_chunk=q_chunk)
     B, Sq, H, hd = q.shape
     if Sq <= q_chunk:
         return attention_dense(q, k, v, cfg, causal=causal, window=window)
     if Sq % q_chunk:
         raise ValueError(f"query length {Sq} is not a multiple of {q_chunk}")
     Sk = k.shape[1]
-    k = repeat_kv(k, H // cfg.num_kv_heads)
-    v = repeat_kv(v, H // cfg.num_kv_heads)
+    k = repeat_kv(k, H // k.shape[2])
+    v = repeat_kv(v, H // v.shape[2])
     dev = q.device
     k_pos = torch.arange(Sk, device=dev)
     outs = []
@@ -188,7 +206,11 @@ def attention_decode_plain(q, cache_k, cache_v, pos, cfg: ModelConfig, *,
     package's grouped-einsum path (scores in q's dtype, then fp32 with the
     scale, the softcap and the mask; the softmax cast back to q's dtype).
     For attention the JAX package computes outside its kernel whatever
-    ``use_kernel`` is (encdec's cross-attention at decode)."""
+    ``use_kernel`` is (encdec's cross-attention at decode). Over DTensors it
+    runs shard by shard (``boundary.heads_parallel``)."""
+    if is_dtensor(q):
+        return heads_parallel(attention_decode_plain, q, cache_k, cache_v, pos,
+                              cfg, window=window)
     B, H, hd = q.shape
     Smax, KVH = cache_k.shape[1], cache_k.shape[2]
     qg = q.reshape(B, KVH, H // KVH, hd)

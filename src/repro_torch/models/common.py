@@ -16,8 +16,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.boundary import is_dtensor, plain
 from repro_torch.kernels.sgmv import check_adapters, sgmv_add_, sgmv_table
 from repro_torch.lora.multilora import multi_lora_delta
+from repro_torch.train.sharding import matmul, settle_partial
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -152,7 +154,7 @@ class LoraCtx:
         if mode == "batched" and _tables is None:
             self._tables = {}
             for pair in _adapter_pairs(tree):
-                if pair["a"].is_cuda:
+                if pair["a"].is_cuda and not is_dtensor(pair["a"]):
                     check_adapters(pair["a"], pair["b"])
 
     def at_layer(self, layer_tree):
@@ -167,8 +169,8 @@ class LoraCtx:
         a = self.tree[name]["a"]
         b = self.tree[name]["b"]
         if self.mode == "single":
-            h = x.to(a.dtype) @ a                # [..., r]
-            return (self.scaling * (h @ b)).to(x.dtype)
+            h = matmul(x.to(a.dtype), a)                 # [..., r]
+            return (self.scaling * matmul(h, b)).to(x.dtype)
         # batched multi-LoRA: a [T, d, r], b [T, r, dout]; rows carry task ids
         return multi_lora_delta(x, a, b, self.row_task_ids, self.scaling)
 
@@ -179,16 +181,18 @@ class LoraCtx:
         bit); every other case returns ``y + delta(x).to(y.dtype)``."""
         if self.mode == "off" or self.tree is None or name not in self.tree:
             return y
-        if self.mode == "batched" and x.is_cuda:
+        if self.mode == "batched" and not plain(x):
             a, b = self.tree[name]["a"], self.tree[name]["b"]
             S = x.shape[1] if x.dim() == 3 else 1
             table = self._tables.get(S)
             if table is None:
-                table = self._tables[S] = sgmv_table(self.row_task_ids,
-                                                     a.shape[0], S)
-            sgmv_add_(y, x.contiguous(), a, b, table, self.scaling,
-                      checked=True)
-            return y
+                ids = self.row_task_ids
+                if is_dtensor(ids):
+                    ids = ids.full_tensor()
+                table = self._tables[S] = sgmv_table(ids, a.shape[0], S)
+            # DTensor adapters are checked in their replicas, each call
+            return sgmv_add_(y, x.contiguous(), a, b, table, self.scaling,
+                             checked=not is_dtensor(a))
         return y + self.delta(x, name).to(y.dtype)
 
 
@@ -202,8 +206,11 @@ def _adapter_pairs(tree):
 
 
 def proj(x, w, b=None, *, lora: Optional[LoraCtx] = None, name: str = ""):
-    """y = x @ w (+ b) (+ lora delta). x: [..., d_in], w: [d_in, d_out]."""
-    y = x @ w.to(x.dtype)
+    """y = x @ w (+ b) (+ lora delta). x: [..., d_in], w: [d_in, d_out].
+    Over DTensors the product's pending sums are reduced first
+    (``sharding.settle_partial``); ``sharding.matmul`` is ``@`` on plain
+    tensors."""
+    y = settle_partial(matmul(x, w.to(x.dtype)), x, note="proj_partial")
     if b is not None:
         y = y + b.to(y.dtype)
     if lora is not None:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.train.sharding import fit_split, grad_in_layout
 from .common import LoraCtx, dense_init, proj, rand, randn, rmsnorm
 
 
@@ -131,6 +132,10 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
         B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
         C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
     nc = (S + pad) // chunk
+    # positions split over a mesh axis more ways than there are chunks are
+    # made whole first (GSPMD reshards across the view by itself)
+    x, dt, B_, C_ = (fit_split(t, 1, nc, note="ssd_chunks")
+                     for t in (x, dt, B_, C_))
 
     def tohead(t):  # [B,S,G,N] -> [B,nc,Q,H,N]
         return t.repeat_interleave(rep, dim=2).reshape(Bsz, nc, chunk, H, N)
@@ -166,7 +171,9 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     # inter-chunk (off-diagonal) term
     y_off = torch.einsum("bnqhs,bnhsp->bnqhp", Ch, prev_states) \
         * torch.exp(dA_cs)[..., None]
-    y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :S]
+    # its gradient comes back in the forward's layout, for the view back
+    # into chunks (``grad_in_layout``)
+    y = grad_in_layout((y_diag + y_off).reshape(Bsz, nc * chunk, H, P))[:, :S]
     return y.to(x.dtype), s
 
 
@@ -237,7 +244,10 @@ def mamba_decode_step(x, p: MambaParams, cfg: ModelConfig, ssm_state,
     dA = torch.exp(dt * A[None, :])                          # [B,H]
     st = ssm_state.float() * dA[:, :, None, None] \
         + (Bh * dt[:, :, None])[:, :, :, None] * xh[:, :, None, :]
-    y = torch.einsum("bhs,bhsp->bhp", Ch, st)
+    # C·state as a product and a sum over the state dim: an einsum would
+    # flatten (row, head) into one batch dim, which DTensor (torch 2.11)
+    # refuses when both are split over the mesh
+    y = (Ch[:, :, :, None] * st).sum(dim=2)
     y = y + xh * p.d_skip[None, :, None]
     y = y.reshape(B, d_in).to(x.dtype)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm_w, cfg.norm_eps)

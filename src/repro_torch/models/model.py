@@ -36,9 +36,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels.boundary import is_dtensor
+from repro_torch.train.sharding import grad_in_layout, shard_offset
 from .attention import (attention_chunked, attention_decode,
                         attention_decode_paged, attention_decode_plain,
-                        attention_prefill_chunk, attn_init, qkv)
+                        attention_prefill_chunk, attn_init, qkv,
+                        split_heads)
 from .common import (LoraCtx, dense_init, dtype_of, embed_init, proj,
                      resolve_device, rmsnorm, rmsnorm_init, rope_tables,
                      softcap)
@@ -264,13 +267,38 @@ def _write_kv(ck, cv, k_new, v_new, pos):
     sequence-sharded cache); the port writes the one position, with the same
     values. A row whose pos is past the cache end writes nothing, as the
     where-merge there writes nothing. (Prefill writes [0, S) in
-    ``forward_seq``.)"""
+    ``forward_seq``.)
+
+    A sharded cache (DTensors) is written shard by shard
+    (``_write_kv_sharded``); a row whose pos lies outside a shard's
+    positions (pos < 0 here) writes nothing into that shard."""
+    if is_dtensor(ck):
+        return _write_kv_sharded(ck, cv, k_new, v_new, pos)
     B, Smax = ck.shape[0], ck.shape[1]
     rows = torch.arange(B, device=ck.device)
-    p = pos.long().clamp(max=Smax - 1)
-    inside = (pos < Smax)[:, None, None]
+    p = pos.long().clamp(0, Smax - 1)
+    inside = ((pos >= 0) & (pos < Smax))[:, None, None]
     ck[rows, p] = torch.where(inside, k_new[:, 0].to(ck.dtype), ck[rows, p])
     cv[rows, p] = torch.where(inside, v_new[:, 0].to(cv.dtype), cv[rows, p])
+
+
+def _write_kv_sharded(ck, cv, k_new, v_new, pos):
+    """``_write_kv`` into DTensor caches [B, Smax, KVH, hd] split over rows,
+    positions or kv heads: the token's K/V and the positions are laid out
+    as the cache's rows and heads, and each rank writes its own shard in
+    place at its positions (GSPMD replicated a sequence-split cache for the
+    JAX package's where-merge; DTensor has no in-place rule for the
+    scatter)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, plc = ck.device_mesh, ck.placements
+    kv_plc = [p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
+              for p in plc]
+    pos_plc = [Shard(0) if p.is_shard(0) else Replicate() for p in plc]
+    k_loc = k_new.redistribute(mesh, kv_plc).to_local()
+    v_loc = v_new.redistribute(mesh, kv_plc).to_local()
+    pos_loc = pos.redistribute(mesh, pos_plc).to_local()
+    _write_kv(ck.to_local(), cv.to_local(), k_loc, v_loc,
+              pos_loc - shard_offset(ck, 1))
 
 
 # ===========================================================================
@@ -386,7 +414,10 @@ def _lora_layer(lora: Optional[LoraCtx], i: int,
     tree = lora.tree.get(sub)
     if not tree:
         return None
-    return lora.at_layer(tree_index(tree, i))
+    # over DTensors each layer's slice hands its gradient back in the
+    # slice's own layout, so that the layers' gradients of a stacked leaf
+    # add up in one layout (``sharding.grad_in_layout``)
+    return lora.at_layer(tree_map(lambda t: grad_in_layout(t[i]), tree))
 
 
 def _hybrid_invokes(cfg: ModelConfig, i: int) -> bool:
@@ -438,9 +469,9 @@ def _cross_attn_seq(x, lp, cfg, enc_memory, q_chunk):
     h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
     B, S, _ = h.shape
     p = lp["xattn"]
-    q = proj(h, p.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = proj(enc_memory, p.wk).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
-    v = proj(enc_memory, p.wv).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(proj(h, p.wq), cfg.num_heads, cfg.head_dim)
+    k = split_heads(proj(enc_memory, p.wk), cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(proj(enc_memory, p.wv), cfg.num_kv_heads, cfg.head_dim)
     o = attention_chunked(q, k, v, cfg, causal=False, window=0,
                           q_chunk=q_chunk)
     return x + proj(o.reshape(B, S, cfg.q_dim), p.wo), (k, v)
@@ -454,7 +485,7 @@ def _cross_attn_decode(x, lp, cfg, xk, xv, enc_pos):
     h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
     p = lp["xattn"]
     B = x.shape[0]
-    q = proj(h, p.wq).reshape(B, cfg.num_heads, cfg.head_dim)
+    q = split_heads(proj(h, p.wq), cfg.num_heads, cfg.head_dim)
     o = attention_decode_plain(q, xk, xv, enc_pos, cfg)
     return x + proj(o.reshape(B, cfg.q_dim), p.wo)
 

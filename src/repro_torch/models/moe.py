@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig, MoEConfig
+from repro_torch.kernels.boundary import is_dtensor, on_replicas
+from repro_torch.train.sharding import constrain, fit_split, grad_in_layout
 from .common import LoraCtx, dense_init, randn
 from .mlp import MLPParams, mlp_apply, mlp_init
 
@@ -80,7 +82,12 @@ def dispatch(ids, m: MoEConfig, T: int, live=None):
     it was dropped, src [E*C] the token filling each buffer row, -1 for
     none, C). A token with ``live`` [T] False takes no capacity: its
     assignments go to a null expert E, sorted last and never kept. Integer
-    work only; no gradient flows here."""
+    work only; no gradient flows here. Under a mesh (DTensor ids) every
+    rank computes the whole dispatch from the replicated ids
+    (``boundary.on_replicas``): DTensor has no sharding rule for its sorted
+    search."""
+    if is_dtensor(ids):
+        return on_replicas(dispatch, ids, m, T, live)
     k, E = m.top_k, m.num_experts
     A = T * k
     if live is not None:
@@ -99,9 +106,11 @@ def dispatch(ids, m: MoEConfig, T: int, live=None):
     slot = torch.empty_like(slot_s)
     keep = torch.empty_like(keep_s)
     slot[order], keep[order] = slot_s, keep_s                # back to [T*k]
-    src = torch.full((E * C,), -1, dtype=torch.long, device=ids.device)
-    src[slot_s[keep_s]] = order[keep_s] // k
-    return slot.reshape(T, k), keep.reshape(T, k), src, C
+    # drops park on one dummy row past the buffer (no mask-sized index, so
+    # that the meta device's shape-only run takes it too)
+    src = torch.full((E * C + 1,), -1, dtype=torch.long, device=ids.device)
+    src[torch.where(keep_s, slot_s, E * C)] = order // k
+    return slot.reshape(T, k), keep.reshape(T, k), src[:E * C], C
 
 
 class DropCount:
@@ -134,7 +143,7 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    xf = x.reshape(T, d)
+    xf = grad_in_layout(x.reshape(T, d))
     w, ids, probs = route(xf, p.router, m)                   # [T,k]
     if live is not None:
         live = live.reshape(T)
@@ -145,6 +154,7 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
 
     buf = xf[src.clamp(min=0)] * (src >= 0)[:, None].to(x.dtype)
     buf = buf.reshape(m.num_experts, C, d)
+    buf = constrain(buf, "tp", None, None)        # expert-parallel dispatch
     h = torch.bmm(buf, p.w_in.to(x.dtype))                   # [E, C, ff']
     if cfg.mlp_act == "swiglu":
         g, u = h.chunk(2, dim=-1)
@@ -167,7 +177,9 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
         vals = torch.where(keep_o[:, j:j + 1], vals, torch.zeros_like(vals))
         y = y + vals * a_w[:, j:j + 1]
 
-    y = y.reshape(B, S, d)
+    # over DTensors: rows split over more ranks than B rows divide are
+    # made whole first, and the gradients come back in the forward's layout
+    y = grad_in_layout(fit_split(y, 0, B, note="micro_rows").reshape(B, S, d))
     if p.shared is not None:
         # [B, S, d] kept, so that batched multi-LoRA row ids line up
         y = y + mlp_apply(x, p.shared, cfg.mlp_act, lora=lora, prefix="mlp")

@@ -15,12 +15,18 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.train.sharding import constrain, matmul, vocab_gather
+
 
 def group_advantages(rewards, group_size: int, eps: float = 1e-4):
     """rewards: [R] with contiguous groups of `group_size`.
     A_i = (r_i - mean_group) / (std_group + eps), std with ddof 0 as
     ``jnp.std``."""
     R = rewards.shape[0]
+    # rows split over dp need not split into groups over dp: DTensor does
+    # not reshard across the view as GSPMD does, so the rewards (R floats)
+    # are replicated first
+    rewards = constrain(rewards, None, note="group_rows")
     g = rewards.reshape(R // group_size, group_size)
     mean = g.mean(dim=1, keepdim=True)
     std = g.std(dim=1, keepdim=True, correction=0)
@@ -28,11 +34,11 @@ def group_advantages(rewards, group_size: int, eps: float = 1e-4):
 
 
 def _chunk_logprobs(h, vocab_w, t, logit_softcap):
-    logits = (h @ vocab_w.to(h.dtype)).float()
+    logits = matmul(h, vocab_w.to(h.dtype)).float()
     if logit_softcap:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    tgt = vocab_gather(logits, t.long())
     p = torch.softmax(logits, dim=-1)
     return tgt - lse, lse - (p * logits).sum(-1)
 

@@ -28,6 +28,7 @@ from repro_torch.models.common import LoraCtx, resolve_device
 from repro_torch.rl.grpo import (group_advantages, grpo_loss,
                                  token_logprobs_chunked)
 from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .sharding import constrain, fit_split
 
 METRIC_KEYS = ("loss", "pg_loss", "kl", "entropy", "ratio_mean", "clip_frac",
                "aux", "is_weight_mean", "is_trunc_frac")
@@ -66,8 +67,14 @@ def _policy_logprobs(params, tokens, cfg: ModelConfig,
     aux); encdec's rows come with their frontend embeddings."""
     h, _, aux = forward_seq(params, tokens, cfg, lora, None,
                             enc_embeds=enc_embeds)
-    lp, ent = token_logprobs_chunked(h[:, :-1], vocab_matrix(params, cfg),
-                                     tokens[:, 1:], cfg.logit_softcap,
+    vocab_w = vocab_matrix(params, cfg)
+    if cfg.tie_embeddings:
+        # tied: embed.T is d-sharded; reshard to V-sharded ONCE per
+        # micro-batch (one all-to-all of the table) so the LSE/gather run
+        # vocab-parallel instead of all-gathering the matrix per chunk
+        vocab_w = constrain(vocab_w, None, "tp")
+    lp, ent = token_logprobs_chunked(h[:, :-1], vocab_w, tokens[:, 1:],
+                                     cfg.logit_softcap,
                                      use_kernel=tc.use_logprob_kernel)
     return lp, ent, aux
 
@@ -154,6 +161,10 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig):
         if R % A:
             raise ValueError(f"{R} rows do not split into {A} micro-batches")
         n = R // A
+        # rows split over more ranks than a micro-batch has rows are made
+        # whole first (DTensor cannot fold them back after a matmul)
+        batch = {k: fit_split(v, 0, n, note="micro_rows")
+                 for k, v in batch.items()}
         g_acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                  for t in tree_leaves(trainable)]
         m_acc = {k: 0.0 for k in METRIC_KEYS}

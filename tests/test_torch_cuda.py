@@ -1558,6 +1558,119 @@ def test_encdec_step_builders_on_card_match_cpu(card):
         assert abs(out["cuda"][1][k] - v) <= 1e-4, k
 
 
+def test_build_train_step_launches_the_kernel_by_default(card):
+    """launch.specs.build_train_step on the card: by default the policy
+    logprobs go through token_logprob (1 forward, 1 backward launch);
+    use_logprob_kernel=False (the dry run's chunked path) launches neither;
+    the two steps' loss and metrics agree within 1e-4 (reduced fp32
+    qwen3-0.6b)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.train.optimizer import adamw_init
+    cfg = reduced(REGISTRY["qwen3-0.6b"], dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    lora = make_adapters(cfg, 1, seed=1, device="cuda", b_scale=0.2)[0]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (16, 12), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "prompt_lens": torch.randint(2, 6, (16,), generator=g, device="cuda",
+                                          dtype=torch.int32),
+             "total_lens": torch.randint(7, 13, (16,), generator=g, device="cuda",
+                                         dtype=torch.int32),
+             "rewards": torch.rand(16, generator=g, device="cuda")}
+    shape = ShapeConfig("t", 12, 16, "train")
+    out = {}
+    for kw, want in (({}, (1, 1)), ({"use_logprob_kernel": False}, (0, 0))):
+        n0 = (tlp.FWD_LAUNCHES.n, tlp.BWD_LAUNCHES.n)
+        _, _, m = specs.build_train_step(cfg, shape, **kw)(params, lora,
+                                                           adamw_init(lora), batch)
+        assert (tlp.FWD_LAUNCHES.n - n0[0], tlp.BWD_LAUNCHES.n - n0[1]) == want
+        out[bool(kw)] = {k: float(v) for k, v in m.items()}
+    for k, v in out[False].items():
+        assert abs(out[True][k] - v) <= 1e-4, k
+
+
+def test_host_mesh_steps_on_card_equal_plain(card):
+    """The GRPO step and a decode step of launch.specs on the host mesh (a
+    (1, 1) mesh over NCCL, every input a DTensor placed by the specs) give
+    the plain steps' bits and launch the same kernels, which take the
+    DTensors through their wrappers' boundary (reduced fp32 qwen3-0.6b)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import shardings as sh, specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.lora.adapters import stack_adapters
+    from repro_torch.models import init_cache, tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.sharding import mesh_context
+    cfg = reduced(REGISTRY["qwen3-0.6b"], dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    lora = make_adapters(cfg, 1, seed=1, device="cuda", b_scale=0.2)[0]
+    ads = stack_adapters(make_adapters(cfg, specs.NUM_TENANTS, seed=0,
+                                       device="cuda", b_scale=0.2))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    R, B = 16, 4
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (R, 12), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "prompt_lens": torch.full((R,), 3, device="cuda", dtype=torch.int32),
+             "total_lens": torch.full((R,), 10, device="cuda", dtype=torch.int32),
+             "rewards": torch.rand(R, generator=g, device="cuda")}
+    ids = torch.tensor([0, 3, 5, 7], dtype=torch.int32, device="cuda")
+    cur = torch.randint(1, cfg.vocab_size, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    _, cache = specs.build_prefill_step(cfg)(
+        params, ads, ids, batch["tokens"][:B], torch.full((B,), 12, device="cuda",
+                                                         dtype=torch.int32),
+        init_cache(cfg, B, 16, device="cuda"))
+    train = specs.build_train_step(cfg, ShapeConfig("t", 12, R, "train"))
+    decode = specs.build_decode_step(cfg)
+    counters = (gqa.LAUNCHES, sgmv.LAUNCHES, tlp.FWD_LAUNCHES, tlp.BWD_LAUNCHES)
+
+    def run(p, lo, opt, bt, a, i, c, t):
+        n0 = [k.n for k in counters]
+        res = train(p, lo, opt, bt), decode(p, a, i, t, c)
+        return res, [k.n - n for k, n in zip(counters, n0)]
+
+    def clone(tree):
+        return {k: v.clone() for k, v in tree.items()}
+    (plain, plain_n) = run(params, lora, adamw_init(lora), batch, ads, ids,
+                           clone(cache), cur)
+    mesh = make_host_mesh()
+    try:
+        with mesh_context(mesh), implicit_replication():
+            lspec = sh.lora_specs(cfg, lora, mesh)
+            rest = {"ids": ids, "cur": cur}
+            rest = sh.distribute(rest, sh.batch_specs(rest, mesh, B), mesh)
+            (meshed, mesh_n) = run(
+                sh.distribute(params, sh.param_specs(cfg, params, mesh), mesh),
+                sh.distribute(lora, lspec, mesh),
+                sh.distribute(adamw_init(lora), sh.opt_specs(lspec), mesh),
+                sh.distribute(batch, sh.batch_specs(batch, mesh, R), mesh),
+                sh.distribute(ads, sh.lora_specs(cfg, ads, mesh, batched=True), mesh),
+                rest["ids"], sh.distribute(clone(cache), sh.cache_specs(cfg, cache,
+                                                                        mesh, B), mesh),
+                rest["cur"])
+            (new_m, opt_m, met_m), (log_m, cache_m) = meshed
+            assert isinstance(log_m, DTensor) and isinstance(cache_m["k"], DTensor)
+            new_m, mom_m, cache_m = sh.gather(new_m), sh.gather(opt_m["m"]), \
+                sh.gather(cache_m)
+            met_m = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                     for k, v in met_m.items()}
+            log_m = log_m.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    (new_p, opt_p, met_p), (log_p, cache_p) = plain
+    assert mesh_n == plain_n and plain_n == [cfg.num_layers, 6 * cfg.num_layers, 1, 1]
+    assert all(torch.equal(met_p[k], met_m[k]) for k in met_p)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new_p), tree_leaves(new_m)))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(opt_p["m"]),
+                                                 tree_leaves(mom_m)))
+    assert torch.equal(log_p, log_m)
+    assert all(torch.equal(cache_p[k], cache_m[k]) for k in cache_p)
+
+
 def test_roofline_peaks_of_this_card(card):
     """launch.roofline finds the card's data-sheet peaks by its name (an H100
     SXM here), and nvidia-smi's line names the same card."""

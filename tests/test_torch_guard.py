@@ -43,6 +43,9 @@ SLICE_MODULES = [
     "repro_torch.launch.specs", "repro_torch.launch.train",
     "repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.obs.report",
     "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.kernels.boundary", "repro_torch.train.sharding",
+    "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+    "repro_torch.launch.dryrun",
 ]
 
 
