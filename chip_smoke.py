@@ -56,7 +56,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     steps over shuffled pages on the card (paged_gqa_decode) against a dense
     cache on the CPU (plain versions), logprobs within TF_TOL;
 10. runtime: MARLaaSRuntime at the same full size, 4 tenants (2 gsm8k, 2
-    amc12; groups of 4, 2 groups a round, 32 new tokens, 3 steps each) with
+    amc12; groups of 4, 2 groups a round, 32 new tokens, 3 steps each; run
+    A 2 steps, runs B, C and D0 16 new tokens: P10_CUT) with
     random-b adapters and a graded verifier (the share of even token ids,
     so that rewards differ within a group and every update is nonzero), the
     continuous engine on the rollout thread and the GRPO trainer on the
@@ -205,15 +206,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     qwen3-0.6b train_4k on the multi-pod mesh twice, on a "cuda" and a
     "cpu" mesh (records equal but for timings, the card and the device
     type: the collective count does not depend on the mesh's device),
-    qwen3-32b and zamba2-1.2b decode_32k, deepseek-moe-16b train_4k; each
-    ok, with bytes per device against 80 GB, collectives and the dominant
-    roofline term. (b) qwen3-0.6b's LoRA GRPO step and one multi-LoRA
+    qwen3-32b and zamba2-1.2b decode_32k, zamba2-1.2b and deepseek-moe-16b
+    train_4k; each ok, with bytes per device under 80 GB, collectives and
+    the dominant roofline term. (b) qwen3-0.6b's LoRA GRPO step and one multi-LoRA
     decode step through launch.specs on the host mesh (a (1, 1) mesh over
     NCCL, world size 1; everything placed by the specs as DTensors; the
     kernels take them through their wrappers' boundary), against the same
     steps without a mesh: the same bits (loss and metrics, new adapters,
     AdamW's first moment; logits and cache) and the same kernel launches,
     each step timed with and without the mesh.
+17. entry points and steady state. (a) The four entry points of
+    repro_torch.launch that stand for examples/ (quickstart --steps 2 and
+    serve_multi_lora --tenants 4 at qwen3-0.6b full width in bf16;
+    failover_demo and rl_learning_demo at their examples' reduced fp32
+    granite) as subprocesses on the card, all at once: each exits 0, and
+    each kernel on its path launched (its own "launches" line); the
+    failover demo's row account balances (it raises otherwise); the
+    learning demo's SFT loss and reward first5/last5 are recorded, not
+    asserted. (b) analysis.RecompileSentinel over steady-state continuous
+    decode (phase 8's engine: paged pool, 16 slots, 16 rows decoding):
+    after P17_WARM decode steps, P17_STEPS steps with no new launch plan,
+    library load or step signature, and the same synchronizing calls in
+    every step (set_sync_debug_mode), plus the block table's upload in the
+    steps whose table changed; the number and where each comes from.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -247,6 +262,12 @@ PREEMPT_AT = 10         # phase 8: preempt tenant-1 after this decode step
 PAGED_TF_ROWS, PAGED_TF_STEPS = 4, 16                    # phase 9
 RT_ENVS = ("gsm8k", "gsm8k", "amc12", "amc12")           # phase 10: tenants
 RT_SPEC = dict(group_size=4, num_groups=2, max_new_tokens=32, target_steps=3)
+# phase 10's cut runs: A takes 2 steps a tenant (it trains round-synchronously,
+# so a commit is installed before the next round); B, C and D0 (asynchronous at
+# staleness 1: a commit is installed only in a third round) take 16 new tokens
+# a row; run D, which phase 13 compares with, keeps RT_SPEC
+P10_CUT = {"A": dict(target_steps=2), "B": dict(max_new_tokens=16),
+           "C": dict(max_new_tokens=16), "D0": dict(max_new_tokens=16)}
 RT_SLOTS = 16
 RT_RUNS = {"A": {},                                      # the defaults
            "B": dict(async_train=True, max_staleness=1, min_train_rows=4,
@@ -275,6 +296,7 @@ P12_MODES["DER"] = dict(P12_MODES["DE"], resume_restore=False)
 P12_MODES["DED"] = dict(P12_MODES["DE"], paged_kv=False, prefill_chunk=8)
 P12_FP32_MODES = ("F", "DE", "DER", "DED")
 P12_FP32_NEW = 16       # new tokens a row in phase 12's fp32 card check
+P12_MAX_NEW = 32        # new tokens a row in phase 12's bf16 modes (phase 8: 64)
 # phase 13: run T is run D traced; run R is run T with chaos, a snapshot after
 # every commit and a crash after P13_FAIL_AFTER commits, through
 # run_with_recovery
@@ -1897,6 +1919,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     from repro_torch.models import tree_leaves
 
     envs = RT_RUN_ENVS.get(run, RT_ENVS)
+    spec = dict(RT_SPEC, **P10_CUT.get(run, {}))
     gc.collect()            # earlier phases' engines: out of the peak
     rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
         policy="marlaas", device=device, max_slots=RT_SLOTS,
@@ -1906,7 +1929,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
                              b_scale=B_SCALE)
     tids = [f"{env}-{i}" for i, env in enumerate(envs)]
     for i, (tid, env, tree) in enumerate(zip(tids, envs, adapters)):
-        rt.submit_task(TaskSpec(tid, env, **RT_SPEC), tree)
+        rt.submit_task(TaskSpec(tid, env, **spec), tree)
         rt.envs[tid] = graded_env(rt.envs[tid])
         # the runtime seeds a tenant's prompt stream with the salted str
         # hash; a pinned stream gives every run of a call the same prompts
@@ -1968,7 +1991,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     wall = max(st.last_step_at for _, st in rt.mgr.task_items()) - t0
     states = dict(rt.mgr.task_items())
-    if not rt.mgr.all_done() or any(st.version != RT_SPEC["target_steps"]
+    if not rt.mgr.all_done() or any(st.version != spec["target_steps"]
                                     for st in states.values()):
         raise AssertionError(f"phase 10 {run}: versions "
                              f"{[st.version for st in states.values()]}")
@@ -1998,9 +2021,10 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     want[attn] = attn_per_step(cfg) * decode_steps
     got = {k: launches[k] for k in want}
     if run == "A":
-        if commits != len(RT_ENVS) * RT_SPEC["target_steps"] or acc != dict(
-                completed=96, trained=96, stale_dropped=0, discarded_tails=0,
-                failed=0, quarantine_dropped=0, orphaned=0):
+        rows = commits * spec["group_size"] * spec["num_groups"]
+        if commits != len(RT_ENVS) * spec["target_steps"] or acc != dict(
+                completed=rows, trained=rows, stale_dropped=0,
+                discarded_tails=0, failed=0, quarantine_dropped=0, orphaned=0):
             raise AssertionError(f"phase 10 A: {commits} commits, rows {acc}")
         if not any("+" in iv.task_id for iv in decodes):
             raise AssertionError("phase 10 A: no decode interval served two tenants")
@@ -2044,7 +2068,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
     summary = summarize(rt.mgr, rt.rec)
     counters_ = rt.rec.counters_snapshot()
     drops = rt.mgr.drop_counters()
-    rec = dict(run=run, config=ALL_RUNS[run], envs=envs, **RT_SPEC,
+    rec = dict(run=run, config=ALL_RUNS[run], envs=envs, **spec,
                slots=RT_SLOTS, max_len=MAX_LEN, wall_to_last_commit_s=wall,
                commits=commits, rows=acc, decode_steps=decode_steps,
                prefill_forwards=prefill_forwards, forwards=forwards,
@@ -2083,7 +2107,7 @@ def runtime_phase(torch, cfg, params, counters, card, run, device="cuda"):
             splice_s=st_.splice_seconds, splice_wait_s=st_.splice_wait_seconds,
             env_wait_by_task=rt.rec.env_wait_by_task())
     phase = 13 if run in P13_RUNS else "14a" if run in P14_RUNS else 10
-    log(f"[{phase} runtime {run}] {cfg.name}: {len(envs)} tenants {envs} x {RT_SPEC['target_steps']} "
+    log(f"[{phase} runtime {run}] {cfg.name}: {len(envs)} tenants {envs} x {spec['target_steps']} "
         f"steps ({ALL_RUNS[run] or 'defaults'}): last commit at {wall:.2f} s, "
         f"{commits} commits, rows {acc}; {decode_steps} decode steps "
         f"({prefill_forwards} prefill forwards {forwards}), "
@@ -2538,8 +2562,9 @@ def stage_checks(cfg, rec):
 
 
 def stage_phase(torch, cfg, params, adapters, counters, card):
-    """Phase 12: phase 12's requests in every mode of P12_MODES in bf16,
-    then in fp32 (TF32 off) at P12_FP32_NEW new tokens in P12_FP32_MODES,
+    """Phase 12: phase 12's requests in every mode of P12_MODES in bf16 at
+    P12_MAX_NEW new tokens, then in fp32 (TF32 off) at P12_FP32_NEW new tokens
+    in P12_FP32_MODES,
     all under the biased sampler (undone at the end). Raises on any miss;
     returns the record."""
     import dataclasses
@@ -2547,7 +2572,7 @@ def stage_phase(torch, cfg, params, adapters, counters, card):
     undo = biased_sampler(torch)
     try:
         runs = {m: stage_run(torch, cfg, params, adapters, m, counters,
-                             CONT_MAX_NEW) for m in P12_MODES}
+                             P12_MAX_NEW) for m in P12_MODES}
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         p32 = tree_map(lambda t: t.float(), params)
         a32 = [tree_map(lambda t: t.float(), a) for a in adapters]
@@ -2573,14 +2598,14 @@ def stage_phase(torch, cfg, params, adapters, counters, card):
             problems.append(f"fp32 {m} vs F: shared-token logprobs differ by "
                             f"{shared_err:.3e}, parting scores by {tie_err:.3e}")
     out = dict(requests=len(by_index), envs=P12_ENVS, slots=CONT_SLOTS,
-               page=PAGE, max_len=CONT_MAX_LEN, max_new_tokens=CONT_MAX_NEW,
+               page=PAGE, max_len=CONT_MAX_LEN, max_new_tokens=P12_MAX_NEW,
                call_at=CALL_AT, modes={m: r[2] for m, r in runs.items()},
                bf16_rows_equal_to_F=bf16_equal,
                fp32=dict(new_tokens=P12_FP32_NEW, tol=TF_TOL, vs_F=fp32,
                          modes={m: r[2] for m, r in runs32.items()}),
                card=card)
     log(f"[12 stages] {len(by_index)} requests ({TENANTS} tenants {P12_ENVS} x "
-        f"{CONT_PER_TENANT}, {CONT_MAX_NEW} new, CALL at counters {CALL_AT}), "
+        f"{CONT_PER_TENANT}, {P12_MAX_NEW} new, CALL at counters {CALL_AT}), "
         f"{CONT_SLOTS} slots, pages of {PAGE}, max_len {CONT_MAX_LEN} on {card}")
     for name, r in [(m, runs[m][2]) for m in P12_MODES] + \
             [(f"fp32 {m}", runs32[m][2]) for m in P12_FP32_MODES]:
@@ -3660,6 +3685,7 @@ def encdec_phase(torch, M, counters, card, peaks, gqa, paged, sgmv, tlp, ref, g,
 P16_CELLS = ((0, "qwen3-0.6b", "train_4k", "multipod", "cuda"),
              (0, "qwen3-32b", "decode_32k", "single", "cuda"),
              (0, "zamba2-1.2b", "decode_32k", "single", "cuda"),
+             (0, "zamba2-1.2b", "train_4k", "single", "cuda"),
              (1, "qwen3-0.6b", "train_4k", "multipod", "cpu"),
              (1, "deepseek-moe-16b", "train_4k", "single", "cuda"))
 P16_CELL_TIMEOUT = 900
@@ -3741,7 +3767,7 @@ LANES = None            # phase 16 (a)'s dry run, started by main
 
 
 def dryrun_phase(card):
-    """Phase 16 (a): every cell ok; bytes per device against HBM_GB,
+    """Phase 16 (a): every cell ok; bytes per device under HBM_GB,
     collectives, the dominant term; qwen3-0.6b's "cuda" and "cpu" mesh
     records equal but for timings, the card and the device type."""
     from repro_torch.launch.dryrun import TIMING_FIELDS
@@ -3750,7 +3776,7 @@ def dryrun_phase(card):
     for (arch, shape, mesh, dev), r in recs.items():
         cell = {k: r[k] for k in (
             "arch", "shape", "mesh", "mesh_device", "chips", "argument_size_in_bytes",
-            "temp_size_in_bytes", "bytes_per_device", "collectives",
+            "temp_size_in_bytes", "temp_by_op", "bytes_per_device", "collectives",
             "collective_bytes_per_chip", "analytic_collective_bytes", "compute_s",
             "memory_s", "collective_s", "dominant", "roofline_frac", "reshards",
             "trace_s", "card")}
@@ -3764,6 +3790,11 @@ def dryrun_phase(card):
             f"dominant {r['dominant']} (compute {r['compute_s']:.3e} s, memory "
             f"{r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s); reshards "
             f"{r['reshards']}; traced in {r['trace_s']} s on {card}")
+        if r["bytes_per_device"] >= HBM_GB * 1e9:
+            raise AssertionError(f"phase 16a: {arch} {shape} {mesh} needs "
+                                 f"{r['bytes_per_device'] / 1e9:.2f} GB a device, "
+                                 f"not under {HBM_GB} GB (largest temporaries "
+                                 f"{r['temp_by_op']})")
     skip = set(TIMING_FIELDS) | {"card", "mesh_device"}
     a, b = (recs[("qwen3-0.6b", "train_4k", "multipod", d)] for d in ("cuda", "cpu"))
     diff = sorted(k for k in set(a) | set(b) if k not in skip and a.get(k) != b.get(k))
@@ -3910,6 +3941,167 @@ def host_mesh_phase(torch, M, counters, card):
         raise AssertionError(f"phase 16b: the host mesh's steps differ: {out}")
     out["launches"] = {k: mesh_train[2][k] + mesh_decode[2][k] for k in counters}
     return out
+
+
+# phase 17: (a) the entry points of repro_torch.launch that stand for the
+# JAX package's examples, as subprocesses on the card: (module, arguments,
+# the kernels its path must launch); (b) the steady-state sentinel
+P17_ENTRY = (("quickstart", ["--steps", "2"],
+              ("gqa_decode", "sgmv", "token_logprob_fwd", "token_logprob_bwd")),
+             ("serve_multi_lora", ["--tenants", "4"], ("gqa_decode", "sgmv")),
+             ("failover_demo", [],
+              ("gqa_decode", "sgmv", "token_logprob_fwd", "token_logprob_bwd")),
+             ("rl_learning_demo", [],
+              ("gqa_decode", "sgmv", "token_logprob_fwd", "token_logprob_bwd")))
+P17_TIMEOUT = 300       # seconds an entry point may take
+P17_WARM, P17_STEPS = 4, 8   # (b): decode steps of warm-up, then watched
+
+
+def entry_points_phase(card):
+    """Phase 17 (a): every entry point of P17_ENTRY as a subprocess on the
+    card, all started together; each must exit 0 and print its kernels'
+    launches with every kernel of its path above 0. Returns the record
+    (each one's seconds, launches and what it reports)."""
+    import os
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.monotonic()
+    for name, args, _ in P17_ENTRY:
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.launch.{name}", *args],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.monotonic())
+    out = {}
+    try:
+        for name, args, kernels in P17_ENTRY:
+            p, started = procs[name]
+            try:
+                text, _ = p.communicate(timeout=max(1.0, P17_TIMEOUT - (
+                    time.monotonic() - started)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                raise AssertionError(f"phase 17a: {name} ran past {P17_TIMEOUT} s: "
+                                     f"{text[-2000:]}")
+            secs = time.monotonic() - started
+            lines = text.splitlines()
+            got = [json.loads(x[len("launches "):]) for x in lines
+                   if x.startswith("launches ")]
+            if p.returncode != 0 or len(got) != 1:
+                raise AssertionError(f"phase 17a: {name} exit {p.returncode}: "
+                                     f"{text[-3000:]}")
+            missing = [k for k in kernels if got[0].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase 17a: {name} launched no {missing}: "
+                                     f"{got[0]}")
+            rec = dict(args=args, seconds=secs, launches=got[0])
+            if name == "quickstart":
+                rec["steps"] = [x for x in lines if x.startswith("step ")]
+            if name == "failover_demo":
+                rec["rows"] = next(x for x in lines if x.startswith("finished:"))
+            if name == "rl_learning_demo":
+                rec.update(json.loads(next(x for x in lines
+                                           if x.startswith("result "))[7:]))
+            out[name] = rec
+            log(f"[17a {name}] {' '.join(args) or '(defaults)'}: exit 0 in "
+                f"{secs:.1f} s, launches {got[0]}"
+                + (f"; SFT loss {rec['sft_loss']:.3f}, reward first5 "
+                   f"{rec['first5']:.3f} -> last5 {rec['last5']:.3f}"
+                   if name == "rl_learning_demo" else "")
+                + (f"; {rec['rows']}" if name == "failover_demo" else ""))
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["wall_s"] = time.monotonic() - t0
+    out["card"] = card
+    return out
+
+
+def sentinel_phase(torch, M, counters, card):
+    """Phase 17 (b): analysis.RecompileSentinel over steady-state continuous
+    decode on phase 8's engine (qwen3-0.6b full width, bf16, paged pool, 16
+    slots) with 16 rows of CONT_MAX_NEW new tokens: after the refills and
+    P17_WARM decode steps, P17_STEPS steps each under
+    ``set_sync_debug_mode("warn")`` (``RecompileSentinel.step_syncs``).
+    Requires no new launch plan, library load or step-function signature,
+    every step a decode step of all 16 rows, and the same synchronizing
+    calls in every step but for one upload of the block table in the steps
+    that changed it. Returns the record."""
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.analysis import RecompileSentinel
+    from repro_torch.launch.serve import make_adapters, make_requests, serve_config
+    from repro_torch.rollout.engine import ContinuousRolloutEngine
+
+    cfg = serve_config(ARCH, reduce=False)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    adapters = make_adapters(cfg, TENANTS, seed=0, device="cuda", b_scale=B_SCALE)
+    eng = ContinuousRolloutEngine(
+        cfg, params, max_slots=CONT_SLOTS, max_adapters=TENANTS,
+        max_len=CONT_MAX_LEN, paged_kv=True, prefix_cache=False,
+        kv_page_size=PAGE, kv_pool_pages=POOL_PAGES, device="cuda")
+    for i, a in enumerate(adapters):
+        eng.set_adapters(i, a)
+    reqs = make_requests(TENANTS, CONT_SLOTS // TENANTS,
+                         max_new_tokens=CONT_MAX_NEW, seed=17)
+    for i, r in enumerate(reqs):
+        r.seed = 1700 + i
+        eng.submit(r)
+    sent = RecompileSentinel()
+    tracked = sent.track_engine(eng)
+    for _ in range(200):
+        eng.step()
+        active = sum(r is not None and r.status == "active" for r in eng._rows)
+        if eng.stats.decode_steps >= P17_WARM and active == CONT_SLOTS:
+            break
+    count_all(counters, reset=True)
+    sent.mark()
+    steps, changed = [], []
+    for _ in range(P17_STEPS):
+        before, tbl = eng.stats.decode_steps, eng._tbl_host.copy()
+        active = sum(r is not None and r.status == "active" for r in eng._rows)
+        _, syncs = sent.step_syncs(eng.step)
+        if eng.stats.decode_steps != before + 1 or active != CONT_SLOTS:
+            raise AssertionError(f"phase 17b: not a steady step: {active} rows "
+                                 f"active, decode steps {before} -> "
+                                 f"{eng.stats.decode_steps}")
+        steps.append(syncs)
+        changed.append(not np.array_equal(tbl, eng._tbl_host))
+    launches = count_all(counters)
+    new = sent.new_compiles()
+    if new:
+        raise AssertionError(f"phase 17b: new in steady state: {new} "
+                             f"({sent.cache_sizes()})")
+    base = [c for c, ch in zip(steps, changed) if not ch]
+    if not base or any(c != base[0] for c in base):
+        raise AssertionError(f"phase 17b: syncs differ between steps: {steps}")
+    base = base[0]
+    uploads = Counter()
+    for c, ch in zip(steps, changed):
+        if ch:
+            extra, gone = c - base, base - c
+            if gone or sum(extra.values()) != 1:
+                raise AssertionError(f"phase 17b: a step with a new block table "
+                                     f"synced {dict(c)}, the others {dict(base)}")
+            uploads += extra
+    if launches["paged_gqa_decode"] != attn_per_step(cfg) * P17_STEPS \
+            or launches["sgmv"] != sgmv_per_forward(cfg) * P17_STEPS:
+        raise AssertionError(f"phase 17b: launches {launches}")
+    rec = dict(tracked=tracked, warm_steps=P17_WARM, steps=P17_STEPS,
+               syncs_per_step=sum(base.values()), sync_sources=dict(base),
+               table_upload_steps=sum(changed), table_upload_source=dict(uploads),
+               cache_sizes=sent.cache_sizes(), launches=launches, card=card)
+    log(f"[17b sentinel] {P17_STEPS} steady decode steps of {CONT_SLOTS} rows "
+        f"after {P17_WARM}: no new plan, library load or step signature "
+        f"({rec['cache_sizes']}); {rec['syncs_per_step']} synchronizing calls a "
+        f"step: {dict(base)}; plus the block table's upload in "
+        f"{rec['table_upload_steps']} steps: {dict(uploads)}; on {card}")
+    eng.shutdown()
+    return rec
 
 
 def main(argv):
@@ -4158,6 +4350,17 @@ def main(argv):
     p16_launch = sharding["host_mesh"]["launches"]
 
     phase_end_s["16"] = time.monotonic() - t_all
+
+    # -- phase 17: the entry points, then steady-state decode's sentinel -----
+    entries = entry_points_phase(card)
+    p17_launch = {k: sum(e["launches"].get(k, 0) for n, e in entries.items()
+                         if isinstance(e, dict) and "launches" in e)
+                  for k in counters}
+    sentinel = sentinel_phase(torch, M, counters, card)
+    for k in counters:
+        p17_launch[k] += sentinel["launches"][k]
+
+    phase_end_s["17"] = time.monotonic() - t_all
     log("[time] seconds from the start at the end of each phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_end_s.items()))
 
@@ -4176,6 +4379,7 @@ def main(argv):
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"encdec": encdec}), flush=True)
     print(json.dumps({"sharding": sharding}), flush=True)
+    print(json.dumps({"entry_points": entries, "sentinel": sentinel}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -4186,14 +4390,15 @@ def main(argv):
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
                      n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"]
                      + p14_launch["gqa_decode"] + p15_launch["gqa_decode"]
-                     + p16_launch["gqa_decode"],
+                     + p16_launch["gqa_decode"] + p17_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
                          for r in runtime},
                          "stages DED (12)": p12_launch["gqa_decode"],
                          "families (14)": p14_launch["gqa_decode"],
                          "encdec (15)": p15_launch["gqa_decode"],
-                         "host mesh (16)": p16_launch["gqa_decode"]},
+                         "host mesh (16)": p16_launch["gqa_decode"],
+                         "entry points (17)": p17_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
@@ -4202,7 +4407,7 @@ def main(argv):
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
                      + p11_launch["sgmv"] + p12_launch["sgmv"]
                      + p13_launch["sgmv"] + p14_launch["sgmv"] + p15_launch["sgmv"]
-                     + p16_launch["sgmv"],
+                     + p16_launch["sgmv"] + p17_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -4215,7 +4420,8 @@ def main(argv):
                             for r in ("T", "R")},
                          "families (14)": p14_launch["sgmv"],
                          "encdec (15)": p15_launch["sgmv"],
-                         "host mesh (16)": p16_launch["sgmv"]},
+                         "host mesh (16)": p16_launch["sgmv"],
+                         "entry points and sentinel (17)": p17_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -4227,7 +4433,8 @@ def main(argv):
                      n_fwd + rt_launch["token_logprob_fwd"]
                      + p13_launch["token_logprob_fwd"]
                      + p14_launch["token_logprob_fwd"]
-                     + p15_launch["token_logprob_fwd"] + p16_launch["token_logprob_fwd"],
+                     + p15_launch["token_logprob_fwd"] + p16_launch["token_logprob_fwd"]
+                     + p17_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
                          for r in runtime}, **{
@@ -4235,7 +4442,8 @@ def main(argv):
                          for r in ("T", "R")},
                          "families (14)": p14_launch["token_logprob_fwd"],
                          "encdec (15)": p15_launch["token_logprob_fwd"],
-                         "host mesh (16)": p16_launch["token_logprob_fwd"]},
+                         "host mesh (16)": p16_launch["token_logprob_fwd"],
+                         "entry points (17)": p17_launch["token_logprob_fwd"]},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
@@ -4244,7 +4452,8 @@ def main(argv):
                      n_bwd + rt_launch["token_logprob_bwd"]
                      + p13_launch["token_logprob_bwd"]
                      + p14_launch["token_logprob_bwd"]
-                     + p15_launch["token_logprob_bwd"] + p16_launch["token_logprob_bwd"],
+                     + p15_launch["token_logprob_bwd"] + p16_launch["token_logprob_bwd"]
+                     + p17_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
                          for r in runtime}, **{
@@ -4252,7 +4461,8 @@ def main(argv):
                          for r in ("T", "R")},
                          "families (14)": p14_launch["token_logprob_bwd"],
                          "encdec (15)": p15_launch["token_logprob_bwd"],
-                         "host mesh (16)": p16_launch["token_logprob_bwd"]},
+                         "host mesh (16)": p16_launch["token_logprob_bwd"],
+                         "entry points (17)": p17_launch["token_logprob_bwd"]},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
@@ -4264,7 +4474,8 @@ def main(argv):
                      + p11_launch["paged_gqa_decode"]
                      + p12_launch["paged_gqa_decode"]
                      + p13_launch["paged_gqa_decode"]
-                     + p14_launch["paged_gqa_decode"],
+                     + p14_launch["paged_gqa_decode"]
+                     + p17_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
@@ -4274,7 +4485,8 @@ def main(argv):
                             for m, r in stages["modes"].items() if m != "DED"},
                          **{f"faults {r} (13)": faults[r]["launches"]["paged_gqa_decode"]
                             for r in ("T", "R")},
-                         "families (14)": p14_launch["paged_gqa_decode"]},
+                         "families (14)": p14_launch["paged_gqa_decode"],
+                         "sentinel (17)": p17_launch["paged_gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

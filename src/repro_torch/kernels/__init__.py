@@ -10,3 +10,14 @@
 # the wrappers run for tensors on the CPU. Every Pallas kernel of the JAX
 # package now has a counterpart here.
 from . import ops, ref
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches so far (its ``LAUNCHES`` counters):
+    what the entry points print on a line of their own."""
+    from . import gqa_decode, paged_decode, sgmv, token_logprob
+    return {"gqa_decode": gqa_decode.LAUNCHES.n,
+            "paged_gqa_decode": paged_decode.LAUNCHES.n,
+            "sgmv": sgmv.LAUNCHES.n,
+            "token_logprob_fwd": token_logprob.FWD_LAUNCHES.n,
+            "token_logprob_bwd": token_logprob.BWD_LAUNCHES.n}

@@ -92,6 +92,7 @@ class _Builder:
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.build_seconds: Optional[float] = None
         self.logs: Dict[str, str] = {}
+        self.loads = 0          # libraries loaded (analysis.RecompileSentinel)
 
     def library(self, name: str) -> ctypes.CDLL:
         with self._lock:
@@ -138,6 +139,7 @@ class _Builder:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
             self._libs[name] = handle
+            self.loads += 1
         self.build_seconds = time.monotonic() - t0
 
 

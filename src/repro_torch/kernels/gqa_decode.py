@@ -159,6 +159,7 @@ def _check(q, cache_k, cache_v, pos):
 
 def gqa_decode(q, cache_k, cache_v, pos, *, softcap: float = 0.0,
                window: int = 0):
+    # step: decode attention; tensors=q,cache_k,cache_v,pos
     """q: [B, H, hd]; cache_k/v: [B, S, KVH, hd]; pos: [B] valid lengths
     (including the just-written token, >= 1). Returns [B, H, hd] in q's dtype.
     DTensors on the card go through ``boundary.on_replicas``; on the CPU and

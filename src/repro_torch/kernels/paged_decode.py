@@ -73,6 +73,7 @@ def _check(q, kp, vp, tbl, pos):
 
 def paged_gqa_decode(q, kp, vp, tbl, pos, *, softcap: float = 0.0,
                      window: int = 0):
+    # step: decode attention; tensors=q,kp,vp,tbl,pos
     """q: [B, H, hd]; kp/vp: [n_pages+1, page, KVH, hd] (one layer's pool;
     the last page is scratch); tbl: [B, max_pages] int32 physical page ids;
     pos: [B] valid lengths (including the just-written token, >= 1).

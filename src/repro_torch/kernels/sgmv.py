@@ -317,6 +317,7 @@ def sgmv(rows, a, b, ids, *, table: SgmvTable = None):
 
 def sgmv_add_(y, rows, a, b, table: SgmvTable, scaling: float, *,
               checked: bool = False):
+    # step: the LoRA delta; tensors=y,rows,a,b
     """y += (scaling * rows @ a[id] @ b[id]).to(rows.dtype), in place, for
     rows [..., d] and y [..., dout] in rows' dtype holding the table's R
     rows; `table` from ``sgmv_table``. `checked`: the caller has passed a

@@ -43,6 +43,9 @@ A record holds, under the JAX package's names where the meaning is the same:
                           limit when one is)
   trace_s                 the step's run on the meta device (in place of
                           lower_s/compile_s)
+  temp_by_op              the largest parts of the temporaries' peak, by
+                          the op that made them ("(backward)" for ops of
+                          the backward)
   reshards                {name: count} of the port's reshards where DTensor
                           refuses what GSPMD does on its own
   mesh_device             the mesh's device type ("cuda" or "cpu"); the
@@ -105,8 +108,11 @@ def live_bytes_tracker():
     the global-shape meta tensors DTensor makes to infer its outputs are not
     counted; the collectives of a redistribute are plain ops and are).
     ``peak`` is the most bytes alive at once; a storage counts from the op
-    that returns it until its last reference dies. Enter it inside the
-    collective counter, which must see DTensor's ops as they run."""
+    that returns it until its last reference dies. ``peak_by_op`` splits
+    the peak by the op that made each storage (its name, with
+    " (backward)" for an op run by autograd's backward), and ``top(n)``
+    gives its n largest parts. Enter it inside the collective counter,
+    which must see DTensor's ops as they run."""
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
@@ -116,14 +122,24 @@ def live_bytes_tracker():
             super().__init__()
             self.live = 0
             self.peak = 0
+            self.peak_by_op = {}
+            self._by_op = {}
             self._seen = set()
 
-        def _free(self, key, n):
+        def _free(self, key, n, op):
             self._seen.discard(key)
             self.live -= n
+            self._by_op[op] -= n
+
+        def top(self, n=8):
+            parts = sorted(self.peak_by_op.items(), key=lambda kv: -kv[1])
+            return {k: v for k, v in parts[:n] if v > 0}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
+            op = func.overloadpacket.__name__
+            if torch._C._current_autograd_node() is not None:
+                op += " (backward)"
             for t in tree_leaves(out):
                 if isinstance(t, DTensor):
                     t = t._local_tensor
@@ -136,8 +152,11 @@ def live_bytes_tracker():
                 n = st.nbytes()
                 self._seen.add(key)
                 self.live += n
-                weakref.finalize(st, self._free, key, n)
-                self.peak = max(self.peak, self.live)
+                self._by_op[op] = self._by_op.get(op, 0) + n
+                weakref.finalize(st, self._free, key, n, op)
+                if self.live > self.peak:
+                    self.peak = self.live
+                    self.peak_by_op = dict(self._by_op)
             return out
 
     return LiveBytes()
@@ -234,6 +253,7 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig, mesh,
         reshards = sharding.reshard_log()
     rec["trace_s"] = round(time.time() - t1, 1)
     rec["temp_size_in_bytes"] = live.peak
+    rec["temp_by_op"] = live.top()
     rec["bytes_per_device"] = rec["argument_size_in_bytes"] + live.peak
     coll = counter.stats
     rec["collectives"] = {k: [coll.count[k], round(v, 1)]

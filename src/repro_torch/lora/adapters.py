@@ -99,6 +99,7 @@ def single_ctx(tree, cfg: ModelConfig) -> LoraCtx:
 
 
 def batched_ctx(stacked_tree, row_task_ids, cfg: ModelConfig) -> LoraCtx:
+    # step: tensors=stacked_tree,row_task_ids
     """stacked_tree: task-stacked adapters (``stack_adapters``); the batched
     delta runs the SGMV kernel when the tensors lie on the card."""
     return LoraCtx("batched", stacked_tree, row_task_ids,

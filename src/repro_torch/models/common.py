@@ -104,6 +104,7 @@ def rope_freqs(head_dim: int, theta: float):
 
 
 def rope_tables(positions, head_dim: int, theta: float):
+    # step: the decode step's rotary tables; tensors=positions
     """(sin, cos) of the rotary angles, [..., S, 1, hd/2] each, for
     positions broadcastable to [..., S]. Every layer of a forward shares
     them, so the model computes them once per call: the frequencies come

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.train.sharding import fit_split, grad_in_layout
+from repro_torch.train.sharding import cumsum, fit_split, grad_in_layout
 from .common import LoraCtx, dense_init, proj, rand, randn, rmsnorm
 
 
@@ -84,7 +84,7 @@ def _segsum(dA):
     exp (exp of a masked-to-0 difference would put inf * 0 in the
     backward)."""
     Q = dA.shape[-1]
-    cs = torch.cumsum(dA, dim=-1)
+    cs = cumsum(dA, -1)
     diff = cs[..., :, None] - cs[..., None, :]               # i,j -> cs_i - cs_j
     mask = torch.ones((Q, Q), dtype=torch.bool, device=dA.device).tril()
     return diff.masked_fill(~mask, float("-inf"))
@@ -147,7 +147,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     Bh, Ch = tohead(B_).float(), tohead(C_).float()
 
     dA = dtc * A[None, None, None, :]                        # [B,nc,Q,H]
-    dA_cs = torch.cumsum(dA, dim=2)
+    dA_cs = cumsum(dA, 2)
 
     # intra-chunk (diagonal) term
     L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))           # [B,nc,H,Q,Q]

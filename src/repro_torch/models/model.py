@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.boundary import is_dtensor
-from repro_torch.train.sharding import grad_in_layout, shard_offset
+from repro_torch.train.sharding import embed_rows, grad_in_layout, shard_offset
 from .attention import (attention_chunked, attention_decode,
                         attention_decode_paged, attention_decode_plain,
                         attention_prefill_chunk, attn_init, qkv,
@@ -536,7 +536,7 @@ def forward_seq(params: Params, tokens, cfg: ModelConfig,
     unrolled loop of that flag); the encoder keeps per-layer checkpoints."""
     _check_family(cfg)
     B, S = tokens.shape[:2]
-    x = params["embed"][tokens.long()]                       # [B,S,d]
+    x = embed_rows(params["embed"], tokens)                 # [B,S,d]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.head_dim else None)
@@ -681,6 +681,7 @@ def forward_prefill_chunk(params: Params, tokens, cfg: ModelConfig,
 def decode_step(params: Params, new_tokens, cache: Params, cfg: ModelConfig,
                 lora: Optional[LoraCtx] = None, advance=None
                 ) -> Tuple[torch.Tensor, Params]:
+    # step: the model's decode; tensors=params,new_tokens,cache,advance
     """One token for every row. new_tokens: [B] int.
 
     `advance` ([B] int32 0/1, default all-ones) freezes rows awaiting

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig, MoEConfig
 from repro_torch.kernels.boundary import is_dtensor, on_replicas
-from repro_torch.train.sharding import constrain, fit_split, grad_in_layout
+from repro_torch.train.sharding import (constrain, count_reshard, fit_split,
+                                        grad_in_layout)
 from .common import LoraCtx, dense_init, randn
 from .mlp import MLPParams, mlp_apply, mlp_init
 
@@ -152,9 +153,13 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
         dropped = ~keep if live is None else ~keep & live[:, None]
         DROPS.add(dropped.sum())
 
-    buf = xf[src.clamp(min=0)] * (src >= 0)[:, None].to(x.dtype)
-    buf = buf.reshape(m.num_experts, C, d)
-    buf = constrain(buf, "tp", None, None)        # expert-parallel dispatch
+    ep = _expert_parallel(xf, m.num_experts)
+    if ep is not None:
+        buf = _dispatch_local(xf, src, C, ep)
+    else:
+        buf = xf[src.clamp(min=0)] * (src >= 0)[:, None].to(x.dtype)
+        buf = buf.reshape(m.num_experts, C, d)
+        buf = constrain(buf, "tp", None, None)    # expert-parallel dispatch
     h = torch.bmm(buf, p.w_in.to(x.dtype))                   # [E, C, ff']
     if cfg.mlp_act == "swiglu":
         g, u = h.chunk(2, dim=-1)
@@ -171,11 +176,15 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
     slot_o = slot.gather(1, kord)
     keep_o = keep.gather(1, kord)
     a_w = w.gather(1, kord).to(x.dtype)
-    y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    for j in range(m.top_k):
-        vals = out_buf[slot_o[:, j].clamp(max=m.num_experts * C - 1)]
-        vals = torch.where(keep_o[:, j:j + 1], vals, torch.zeros_like(vals))
-        y = y + vals * a_w[:, j:j + 1]
+    if ep is not None:
+        y = _combine_local(out_buf, slot_o, keep_o, a_w, C, ep)
+    else:
+        y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+        for j in range(m.top_k):
+            vals = out_buf[slot_o[:, j].clamp(max=m.num_experts * C - 1)]
+            vals = torch.where(keep_o[:, j:j + 1], vals,
+                               torch.zeros_like(vals))
+            y = y + vals * a_w[:, j:j + 1]
 
     # over DTensors: rows split over more ranks than B rows divide are
     # made whole first, and the gradients come back in the forward's layout
@@ -184,6 +193,123 @@ def moe_apply(x, p: MoEParams, cfg: ModelConfig,
         # [B, S, d] kept, so that batched multi-LoRA row ids line up
         y = y + mlp_apply(x, p.shared, cfg.mlp_act, lora=lora, prefix="mlp")
     return y, load_balance_loss(probs, ids, m)
+
+
+class _EP(NamedTuple):
+    """The expert-parallel layout of one MoE layer over DTensors: the
+    buffer's placements (experts split as ``constrain(buf, "tp", None,
+    None)`` splits them), the token rows' placements (split over the other
+    mesh dims where they divide evenly, else whole), and this rank's
+    experts [e0, e0 + el) and rows [r0, r0 + rl)."""
+    mesh: object
+    buf_plc: tuple
+    row_plc: tuple
+    e0: int
+    el: int
+    r0: int
+    rl: int
+
+
+def _expert_parallel(xf, E: int) -> Optional[_EP]:
+    """The layout for `xf` [T, d] when it is a DTensor on the current mesh
+    and the experts split evenly; None otherwise (a plain tensor, no mesh:
+    the gathered path then runs as it is)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.train.sharding import named_sharding
+    ns = named_sharding("tp", None, None)
+    if not is_dtensor(xf) or ns is None or ns[0] != xf.device_mesh:
+        return None
+    mesh, buf_plc = ns
+    coord = mesh.get_coordinate()
+    e_split = r_split = 1
+    e_idx = r_idx = 0
+    for i, b in enumerate(buf_plc):
+        if b.is_shard(0):
+            e_idx = e_idx * mesh.size(i) + coord[i]
+            e_split *= mesh.size(i)
+        else:
+            r_idx = r_idx * mesh.size(i) + coord[i]
+            r_split *= mesh.size(i)
+    T = xf.shape[0]
+    if e_split == 1 or E % e_split:
+        return None
+    if T % r_split:                      # rows whole on every rank
+        r_idx, r_split = 0, 1
+    row_plc = tuple(Shard(0) if not b.is_shard(0) and r_split > 1
+                    else Replicate() for b in buf_plc)
+    el, rl = E // e_split, T // r_split
+    return _EP(mesh, tuple(buf_plc), row_plc, e_idx * el, el, r_idx * rl,
+               rl)
+
+
+def _dispatch_local(xf, src, C: int, ep: _EP):
+    """``xf[src]`` (zero rows where src < 0) as [E, C, d] in the expert-split
+    placement, each rank gathering only its own experts' slots from the
+    rows gathered whole. DTensor's own plan for the gather replicates the
+    whole [E*C, d] buffer, and its gradient, on every rank (torch 2.11: 108
+    GB a device for deepseek-moe-16b train_4k, ROADMAP §3); GSPMD keeps
+    both split as the constraint asks. The gradient of the gathered rows is
+    a partial sum over the expert split, whole elsewhere."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    count_reshard("moe_local")
+    mesh = ep.mesh
+    whole = [Replicate()] * mesh.ndim
+    grad_plc = [Partial() if b.is_shard(0) else Replicate()
+                for b in ep.buf_plc]
+    rows = xf.redistribute(mesh, whole).to_local(grad_placements=grad_plc)
+    if is_dtensor(src):
+        src = src.redistribute(mesh, whole).to_local()
+    E = src.shape[0] // C
+    mine = src.reshape(E, C)[ep.e0:ep.e0 + ep.el]
+    loc = rows[mine.clamp(min=0)] * (mine >= 0)[..., None].to(rows.dtype)
+    d = rows.shape[1]
+    return DTensor.from_local(loc, mesh, ep.buf_plc, run_check=False,
+                              shape=(E, C, d), stride=(C * d, d, 1))
+
+
+def _combine_local(out_buf, slot_o, keep_o, a_w, C: int, ep: _EP):
+    """The combine of ``moe_apply`` over DTensors: each rank sums, for its
+    own rows, the weighted outputs of its own experts' slots (in ascending
+    expert id), and the partial sums are reduced over the expert split, so
+    that no rank holds the whole [E*C, d] output buffer."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = ep.mesh
+    whole = [Replicate()] * mesh.ndim
+    flat_plc = ep.buf_plc          # [E*C, d]: experts' slots on dim 0 alike
+    # the gradients of this rank's pieces: its rows' share of the experts'
+    # outputs (partial over the row split), and its experts' share of the
+    # rows' weights (partial over the expert split)
+    ob = out_buf.redistribute(mesh, flat_plc).to_local(grad_placements=[
+        Partial() if r.is_shard(0) else b
+        for b, r in zip(flat_plc, ep.row_plc)])
+    part_plc = [Partial() if b.is_shard(0) else r
+                for b, r in zip(flat_plc, ep.row_plc)]
+
+    def rows_of(t, grad=False):
+        if is_dtensor(t):
+            t = t.redistribute(mesh, ep.row_plc)
+            return t.to_local(grad_placements=part_plc if grad else None)
+        return t[ep.r0:ep.r0 + ep.rl]
+
+    def replicated_rows(t):
+        if is_dtensor(t):
+            t = t.redistribute(mesh, whole).to_local()
+        return t[ep.r0:ep.r0 + ep.rl]
+
+    slot_l, keep_l = replicated_rows(slot_o), replicated_rows(keep_o)
+    a_l = rows_of(a_w, grad=True)
+    n = ep.el * C
+    y = torch.zeros((ep.rl, ob.shape[1]), dtype=ob.dtype, device=ob.device)
+    for j in range(slot_l.shape[1]):
+        s = slot_l[:, j] - ep.e0 * C
+        inside = keep_l[:, j] & (s >= 0) & (s < n)
+        vals = ob[s.clamp(0, n - 1)]
+        vals = torch.where(inside[:, None], vals, torch.zeros_like(vals))
+        y = y + vals * a_l[:, j:j + 1]
+    T, d = a_w.shape[0], ob.shape[1]
+    y = DTensor.from_local(y, mesh, part_plc, run_check=False, shape=(T, d),
+                           stride=(d, 1))
+    return y.redistribute(mesh, ep.row_plc)
 
 
 def load_balance_loss(probs, ids, m: MoEConfig):

@@ -15,7 +15,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.train.sharding import constrain, matmul, vocab_gather
+from repro_torch.kernels.boundary import is_dtensor
+from repro_torch.train.sharding import (constrain, matmul, vocab_gather,
+                                        vocab_softmax_stats)
 
 
 def group_advantages(rewards, group_size: int, eps: float = 1e-4):
@@ -37,6 +39,9 @@ def _chunk_logprobs(h, vocab_w, t, logit_softcap):
     logits = matmul(h, vocab_w.to(h.dtype)).float()
     if logit_softcap:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    if is_dtensor(logits):              # vocab-parallel, shard by shard
+        lse, ent = vocab_softmax_stats(logits)
+        return vocab_gather(logits, t.long()) - lse, ent
     lse = torch.logsumexp(logits, dim=-1)
     tgt = vocab_gather(logits, t.long())
     p = torch.softmax(logits, dim=-1)

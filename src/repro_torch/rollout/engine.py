@@ -219,16 +219,18 @@ class RolloutStats:
         return self.occupied_row_steps / self.capacity_row_steps
 
 
-def _sync_stream(device: torch.device):
+def _sync_stream(device: torch.device):  # step: the step's wait
     """Wait for the calling thread's current stream only: the prefill
     workers' kernels run on streams of their own, and the decode thread
     neither waits for them nor books their time."""
     if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+        torch.cuda.current_stream(device).synchronize()  # noqa: RT202 (its job)
 
 
 def _decode_sample_core(cfg, params, adapters, row_ids, cur_tokens, cache,
                         keys, counters, temps, forced, forced_mask, advance):
+    # step: the decode step's body; tensors=params,adapters,row_ids,
+    # cur_tokens,cache,keys,counters,temps,forced,forced_mask,advance
     """The one decode-step body: decode, sample, apply forced tokens."""
     lora = batched_ctx(adapters, row_ids, cfg)
     logits, cache = decode_step(params, cur_tokens, cache, cfg, lora,
@@ -272,6 +274,9 @@ def _build_cont_step_fn(cfg: ModelConfig):
 
     def step(params, adapters, row_ids, cur_tokens, cache, keys, counters,
              temps, forced, forced_mask, advance):
+        # step: the continuous engine's step function; tensors=params,
+        # adapters,row_ids,cur_tokens,cache,keys,counters,temps,forced,
+        # forced_mask,advance
         nxt, lp, cache = _decode_sample_core(cfg, params, adapters, row_ids,
                                              cur_tokens, cache, keys,
                                              counters, temps, forced,
@@ -810,6 +815,7 @@ class RolloutEngine:
 
     def _generate(self, requests, adapter_trees, tool_executor, sim_latency,
                   deadline_s):
+        # step: the round-fused engine's prefill and decode loop
         t_start = time.monotonic()
         cfg = self.cfg
         dev = self.device
@@ -919,7 +925,8 @@ class RolloutEngine:
                 self._tensor(forced, torch.int32),
                 self._tensor(fmask, torch.int32),
                 self._tensor(advance, torch.int32))
-            nxt = nxt.cpu().numpy()
+            # the step's intended sync: the host reads the sampled tokens
+            nxt = nxt.cpu().numpy()  # noqa: RT202
             lp = lp.float().cpu().numpy()
             synchronize(dev)
             stats.decode_seconds += time.monotonic() - t0
@@ -1208,7 +1215,8 @@ class ContinuousRolloutEngine:
 
     # -- adapters --------------------------------------------------------
     @torch.no_grad()
-    def set_adapters(self, index: int, tree):
+    def set_adapters(self, index: int, tree):  # step: writes what the
+        # step reads, between steps; tensors=tree,_stacked
         """Install/replace the LoRA tree at adapter slot `index` of the
         fixed-capacity stacked buffer, in place. The prefix index drops the
         slot's entries: their K/V was computed under the old weights.
@@ -1231,7 +1239,8 @@ class ContinuousRolloutEngine:
             buf = self._stacked
         write_adapter_slot(buf, tree, index)
         if self.disagg_prefill:
-            _sync_stream(self.device)   # the workers' streams read it next
+            # the workers' streams read it next
+            _sync_stream(self.device)  # noqa: RT202
         self._stacked = buf
         if self._prefix_idx is not None:
             stale = self._prefix_idx.invalidate(index)
@@ -2637,7 +2646,7 @@ class ContinuousRolloutEngine:
 
     # -- scheduler interface ---------------------------------------------
     @torch.no_grad()
-    def step(self) -> bool:
+    def step(self) -> bool:  # step: one decode step; tensors=_cache,_stacked
         """One engine iteration: supervise the stages' workers, resolve the
         env stage's responses and the frozen tool calls, restore preempted
         or parked rows, install radix-sharable rows, fill the other freed
@@ -2739,7 +2748,8 @@ class ContinuousRolloutEngine:
                              self._tensor(advance, torch.int32))
             self._mask_sig = sig
         d_forced, d_fmask, d_advance = self._d_masks
-        _sync_stream(self.device)
+        # the step's clock starts on an idle stream
+        _sync_stream(self.device)  # noqa: RT202
         t0 = time.monotonic()
         nxt, lp, self._cache, self._d_counters = self._step_fn(  # noqa: RA204
             self.base_params, self._stacked, self._d_row_ids, self._d_cur,
@@ -2747,7 +2757,8 @@ class ContinuousRolloutEngine:
             d_forced, d_fmask, d_advance)
         self.forward_counts["decode"].add(1)
         self._d_cur = nxt
-        nxt = nxt.cpu().numpy()
+        # the step's intended sync: the host reads the sampled tokens
+        nxt = nxt.cpu().numpy()  # noqa: RT202
         lp = lp.float().cpu().numpy()
         self.stats.decode_seconds += time.monotonic() - t0
         self.stats.decode_steps += 1

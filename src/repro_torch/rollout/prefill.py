@@ -77,6 +77,7 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _sample_rows(logits, keys, counters, temps):
+    # step: the sampler; tensors=logits,keys,counters,temps
     """Per-row categorical: row i uses fold_in(keys[i], counters[i]).
 
     logits [B, V] float32; keys [B, 2] int64 (uint32 words); counters [B];
@@ -88,7 +89,7 @@ def _sample_rows(logits, keys, counters, temps):
                             scaled)
 
 
-def _log_softmax_at(logits, idx):
+def _log_softmax_at(logits, idx):  # step: tensors=logits,idx
     return torch.gather(torch.log_softmax(logits, dim=-1), 1,
                         idx[:, None].long())[:, 0]
 

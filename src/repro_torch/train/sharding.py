@@ -310,6 +310,130 @@ def matmul(x, w):
     return grad_in_layout(y)
 
 
+def micro_batches(v, A: int):
+    """The `A` micro-batches of a batch leaf `v` (rows on dim 0): rows
+    [i*n, (i+1)*n) for i < A, n = R / A. A DTensor's micro-batches come
+    split over the mesh dims that split its rows, n/k rows a rank, as
+    GSPMD reshards a micro-batch of a row-split batch; where n does not
+    split over those k ranks they come whole (counted as "micro_rows").
+    DTensor's own slice of a split dim makes the rows whole on every rank,
+    and the whole step's activations then with them (torch 2.11's plan for
+    deepseek-moe-16b train_4k: 108 GB a device, ROADMAP §3). The batch is
+    gathered once (token ids, lengths, rewards: small beside one
+    activation)."""
+    R = v.shape[0]
+    n = R // A
+    if not is_dtensor(v):
+        return [v[i * n:(i + 1) * n] for i in range(A)]
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = v.device_mesh
+    whole = v.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    coord = mesh.get_coordinate()
+    k, idx = 1, 0
+    for i, p in enumerate(v.placements):
+        if p.is_shard(0):
+            idx = idx * mesh.size(i) + coord[i]
+            k *= mesh.size(i)
+    plc = [p if p.is_shard(0) else Replicate() for p in v.placements]
+    if n % k:
+        count_reshard("micro_rows")
+        k, idx, plc = 1, 0, [Replicate()] * mesh.ndim
+    m = n // k
+    shape = (n,) + tuple(v.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(
+        whole[i * n + idx * m:i * n + (idx + 1) * m], mesh, plc,
+        run_check=False, shape=shape, stride=stride) for i in range(A)]
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``. A DTensor whose `dim` is not split runs it
+    on each rank's own shard, placements kept: the backward of cumsum calls
+    ``aten.flip``, which torch 2.11's DTensor has no sharding strategy for
+    (the ssm and hybrid train cells, ROADMAP §3)."""
+    if not is_dtensor(x) or any(p.is_shard(dim % x.ndim) or p.is_partial()
+                                for p in x.placements):
+        return torch.cumsum(x, dim)
+    from torch.distributed.tensor import DTensor
+    count_reshard("local_cumsum")
+    return DTensor.from_local(torch.cumsum(x.to_local(), dim), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def embed_rows(table, tokens):
+    """``table[tokens.long()]``. Over DTensor tokens, each rank looks its own
+    rows up in its own part of the table, as GSPMD partitions the gather:
+    the rows keep the tokens' placements, and the table's columns (d) stay
+    split where the rows are not; the table is gathered only over the mesh
+    dims that split the rows. torch 2.11's ``aten.index`` makes the rows
+    whole on every rank instead (every activation of deepseek-moe-16b's
+    train step then whole: 108 GB a device, ROADMAP §3), and refuses rows
+    split over two mesh dims ([Shard(0), Shard(0)]: the ssm and hybrid
+    families' wide batch). The table's gradient sums over the rows'
+    ranks."""
+    if not is_dtensor(tokens):
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    count_reshard("embed_rows")
+    mesh, nd = tokens.device_mesh, tokens.ndim
+    t_plc = tokens.placements
+    tb_plc = (tuple(table.placements) if is_dtensor(table)
+              else (Replicate(),) * mesh.ndim)
+    need, grad, out = [], [], []
+    for tp, bp in zip(t_plc, tb_plc):
+        keep = not tp.is_shard() and bp.is_shard(1)
+        need.append(Shard(1) if keep else Replicate())
+        grad.append(Partial() if tp.is_shard() else need[-1])
+        out.append(tp if tp.is_shard() else Shard(nd) if keep
+                   else Replicate())
+    if is_dtensor(table):
+        tbl = table.redistribute(mesh, need).to_local(grad_placements=grad)
+    else:
+        tbl = table
+    rows = tbl[tokens.to_local().long()]
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(rows, mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def vocab_softmax_stats(logits):
+    """(logsumexp(logits, -1), lse - sum(softmax(logits) * logits, -1)) of
+    a DTensor, shard by shard: each rank reduces its own slice of the last
+    dim (the vocabulary) to the row sums of ``e = exp(logits - m)`` and of
+    ``e * logits`` (m the rows' max over all ranks, a constant), and those
+    partial sums are reduced over the ranks that split the vocabulary; the
+    other placements stay the logits'. torch 2.11's plans for softmax and
+    its backward make the [rows, chunk, vocab] logits whole on every rank
+    (108 GB a device for deepseek-moe-16b train_4k, ROADMAP §3), where
+    GSPMD keeps them split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    logits = reduce_pending(logits, note="vocab_softmax")
+    count_reshard("vocab_softmax")
+    mesh, nd = logits.device_mesh, logits.ndim
+    split = [p.is_shard(nd - 1) for p in logits.placements]
+    rows = [Replicate() if sp else p
+            for sp, p in zip(split, logits.placements)]
+    shape = tuple(logits.shape[:-1])
+    stride = torch.empty(shape, device="meta").stride()
+
+    def over(loc, plc):
+        return DTensor.from_local(loc, mesh, plc, run_check=False,
+                                  shape=shape, stride=stride)
+
+    loc = logits.to_local()
+    m = over(loc.detach().amax(-1), [Partial("max") if sp else p for sp, p
+                                      in zip(split, rows)])
+    m = m.redistribute(mesh, rows).to_local()[..., None]
+    e = torch.exp(loc - m)
+    part = [Partial() if sp else p for sp, p in zip(split, rows)]
+    total = over(e.sum(-1), part).redistribute(mesh, rows)
+    weighted = over((e * loc).sum(-1), part).redistribute(mesh, rows)
+    lse = torch.log(total) + over(m[..., 0], rows)
+    return lse, lse - weighted / total
+
+
 def vocab_gather(logits, t):
     """``torch.gather(logits, -1, t[..., None])[..., 0]``. Over a DTensor
     split over its last dim (the vocabulary), each rank picks the targets

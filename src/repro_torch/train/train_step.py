@@ -28,7 +28,7 @@ from repro_torch.models.common import LoraCtx, resolve_device
 from repro_torch.rl.grpo import (group_advantages, grpo_loss,
                                  token_logprobs_chunked)
 from .optimizer import AdamWConfig, adamw_init, adamw_update
-from .sharding import constrain, fit_split
+from .sharding import constrain, micro_batches
 
 METRIC_KEYS = ("loss", "pg_loss", "kl", "entropy", "ratio_mean", "clip_frac",
                "aux", "is_weight_mean", "is_trunc_frac")
@@ -160,16 +160,14 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig):
         R = batch["tokens"].shape[0]
         if R % A:
             raise ValueError(f"{R} rows do not split into {A} micro-batches")
-        n = R // A
-        # rows split over more ranks than a micro-batch has rows are made
-        # whole first (DTensor cannot fold them back after a matmul)
-        batch = {k: fit_split(v, 0, n, note="micro_rows")
-                 for k, v in batch.items()}
+        # a DTensor batch's micro-batches stay split over the ranks that
+        # split its rows (sharding.micro_batches)
+        parts = {k: micro_batches(v, A) for k, v in batch.items()}
         g_acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                  for t in tree_leaves(trainable)]
         m_acc = {k: 0.0 for k in METRIC_KEYS}
         for i in range(A):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            mb = {k: v[i] for k, v in parts.items()}
             _, m, g = value_and_grad(loss_fn, trainable, base_params, mb)
             g_acc = [a + b.float() for a, b in zip(g_acc, tree_leaves(g))]
             m_acc = {k: m_acc[k] + m[k] for k in METRIC_KEYS}

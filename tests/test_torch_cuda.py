@@ -1680,3 +1680,81 @@ def test_roofline_peaks_of_this_card(card):
     assert peaks is roofline.peaks_for(name) is roofline.H100_SXM
     line = roofline.card_line()
     assert "H100" in line and line.strip().endswith("W"), line
+
+
+# -- the analysis package's sentinel, and the sharded port's two torch-2.11
+#    repairs (the card host's torch) ------------------------------------------
+
+def test_sentinel_steady_decode_syncs_on_card(card):
+    """RecompileSentinel over steady-state paged decode on the card (reduced
+    qwen3 in bf16, 4 slots, EOS out of reach): no new plan, library load or
+    step signature after warm-up, and the same synchronizing calls in every
+    step but for the block table's upload in the steps that changed it;
+    the step's own waits (its stream, the token and logprob reads) among
+    them."""
+    import numpy as np
+
+    from repro_torch.analysis import RecompileSentinel
+    cfg = dataclasses.replace(reduced(REGISTRY["qwen3-0.6b"]),
+                              vocab_size=tok.VOCAB_SIZE)
+    params = init_params(cfg, card, "cuda")
+    eng = ContinuousRolloutEngine(cfg, params, max_slots=4, max_adapters=2,
+                                  max_len=128, paged_kv=True,
+                                  prefix_cache=False, kv_page_size=8,
+                                  kv_pool_pages=64, device="cuda")
+    for i, a in enumerate(make_adapters(cfg, 2, seed=0, device="cuda",
+                                        b_scale=0.02)):
+        eng.set_adapters(i, a)
+    eos = tok.EOS
+    try:
+        tok.EOS = -1                   # every row runs to its budget
+        for r in make_requests(2, 2, max_new_tokens=96, seed=3):
+            eng.submit(r)
+        sent = RecompileSentinel()
+        assert "_step_fn" in sent.track_engine(eng)
+        while eng.stats.decode_steps < 4 or sum(
+                r is not None and r.status == "active" for r in eng._rows) < 4:
+            eng.step()
+        sent.mark()
+        steps = []
+        for _ in range(12):
+            tbl = eng._tbl_host.copy()
+            _, syncs = sent.step_syncs(eng.step)
+            steps.append((syncs, not np.array_equal(tbl, eng._tbl_host)))
+    finally:
+        tok.EOS = eos
+        eng.shutdown()
+    assert sent.new_compiles() == {}
+    base = [s for s, changed in steps if not changed]
+    assert base and all(s == base[0] for s in base)
+    assert sum(base[0].values()) >= 3
+    assert any("_sync_stream" in site for site in base[0])
+    for s, changed in steps:
+        if changed:
+            assert sum((s - base[0]).values()) == 1 and not base[0] - s
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-780m",
+                                  "deepseek-moe-16b"])
+def test_train_cells_of_the_repairs_on_this_torch(card, arch):
+    """The dry run's train_4k cell on the 16x16 mesh at published width, two
+    layers deep, on this host's torch: the ssm and hybrid cells run (torch
+    2.11 has no sharding strategy for cumsum's backward, aten.flip), and
+    deepseek-moe-16b's plan keeps its rows and vocabulary split (torch
+    2.11 made the loss's logits whole: 108.83 GB a device at 28 layers)."""
+    from repro_torch.configs import shapes_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    cfg = dataclasses.replace(REGISTRY[arch], num_layers=2)
+    shape = {s.name: s for s in shapes_for(cfg)}["train_4k"]
+    with fake_world(256):
+        rec = dryrun.cell_record(cfg, shape, make_production_mesh(
+            multi_pod=False, kind="train", device_type="cuda"))
+    assert rec["ok"]
+    assert rec["bytes_per_device"] < 80e9, rec["temp_by_op"]
+    assert rec["reshards"]["embed_rows"] > 0
+    if arch != "deepseek-moe-16b":
+        assert rec["reshards"]["local_cumsum"] > 0
+    else:
+        assert rec["reshards"]["moe_local"] > 0
+        assert rec["bytes_per_device"] < 8e9, rec["temp_by_op"]

@@ -46,7 +46,19 @@ SLICE_MODULES = [
     "repro_torch.kernels.boundary", "repro_torch.train.sharding",
     "repro_torch.launch.mesh", "repro_torch.launch.shardings",
     "repro_torch.launch.dryrun",
-]
+    "repro_torch.analysis", "repro_torch.analysis.__main__",
+    "repro_torch.analysis.core", "repro_torch.analysis.launch_rules",
+    "repro_torch.analysis.locks", "repro_torch.analysis.phases",
+    "repro_torch.analysis.robustness", "repro_torch.analysis.runtime_validator",
+    "repro_torch.analysis.tracing",
+    "repro_torch.core.policies", "repro_torch.core.simulator",
+    "repro_torch.launch.quickstart", "repro_torch.launch.serve_multi_lora",
+    "repro_torch.launch.failover_demo", "repro_torch.launch.rl_learning_demo",
+] + [f"repro_torch.configs.{a}" for a in (
+    "chameleon_34b", "dbrx_132b", "deepseek_moe_16b", "gemma2_27b",
+    "granite_3_2b", "mamba2_780m", "nemotron_4_340b", "qwen1_5_110b",
+    "qwen3_0_6b", "qwen3_14b", "qwen3_32b", "seamless_m4t_large_v2",
+    "zamba2_1_2b")]
 
 
 def _module_name(path: Path) -> str:

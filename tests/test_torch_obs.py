@@ -392,6 +392,36 @@ def test_trace_parity_threaded_vs_sim(weights):
             == tr.flow_kinds_of(trace))
 
 
+def test_trace_parity_threaded_vs_port_sim(weights):
+    """The same structure check against the port's own simulator
+    (``repro_torch.core.simulator``): the threaded engine's canonical state
+    sequence and flow kinds equal the simulator's, and the simulator's
+    components partition its virtual end-to-end time."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.manager import TaskSpec
+    from repro_torch.core.simulator import (HardwareModel, Simulator,
+                                            WorkloadModel)
+    tr, _, _ = _traced_engine_run(weights)
+    trace = min(tr.components())
+    thr_seq = _canon(tr.state_sequence(trace))
+    sim = Simulator(get_config("qwen3-0.6b"), HardwareModel(), trace=True)
+    wl = WorkloadModel(prompt_len=64, gen_len=128, rows=4,
+                       n_tool_calls=thr_seq.count("parked"),
+                       env_latency_mean=3.0)
+    done = []
+    sim.submit_rollout(TaskSpec("hop", "search"), wl, 0,
+                       on_done=lambda: done.append(1))
+    sim.run()
+    assert done
+    sim_trace = min(sim.tracer.components())
+    assert _canon(sim.tracer.state_sequence(sim_trace)) == thr_seq
+    assert (sim.tracer.flow_kinds_of(sim_trace)
+            == tr.flow_kinds_of(trace))
+    info = sim.tracer.components()[sim_trace]
+    assert sum(info["components"].values()) == pytest.approx(
+        info["t1"] - info["t0"])
+
+
 def test_threaded_chrome_export_loads_in_report(weights):
     tr, _, _ = _traced_engine_run(weights)
     doc = tr.export_chrome()

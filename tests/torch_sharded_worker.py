@@ -58,6 +58,66 @@ def _port_steps(payload, mesh):
     return out
 
 
+def _moe_layer(mesh, seed=0):
+    """One MoE layer of reduced deepseek-moe-16b (fp32; 4 experts, top 2,
+    a shared expert) on [4, 8, d] inputs, plain and on DTensors placed as
+    the specs place them (rows over "data", experts over "model"): the
+    outputs, the input gradients and the expert weights' gradients, whole,
+    as numpy, and the reshards the sharded run counted."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.models import moe
+    from repro_torch.train import sharding
+
+    cfg = reduced(REGISTRY["deepseek-moe-16b"], dtype="float32")
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.moe_init(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((4, 8, cfg.d_model), generator=gen)
+    g = torch.randn((4, 8, cfg.d_model), generator=gen)
+
+    def run(x, p):
+        x = x.detach().requires_grad_(True)
+        w_in = p.w_in.detach().requires_grad_(True)
+        w_out = p.w_out.detach().requires_grad_(True)
+        y, aux = moe.moe_apply(x, p._replace(w_in=w_in, w_out=w_out), cfg)
+        ((y * g).sum() + aux).backward()
+        return [_whole(t).detach().numpy() for t in (y, x.grad, w_in.grad,
+                                                     w_out.grad)]
+
+    want = run(x, p)
+    with sharding.mesh_context(mesh):
+        def put(t, *plc):
+            return distribute_tensor(t, mesh, list(plc))
+        g = put(g, Shard(0), Replicate())
+        dp = p._replace(router=put(p.router, Shard(0), Replicate()),
+                        w_in=put(p.w_in, Shard(1), Shard(0)),
+                        w_out=put(p.w_out, Shard(2), Shard(0)),
+                        shared=type(p.shared)(*[put(t, Replicate(), Replicate())
+                                                for t in p.shared]))
+        have = run(put(x, Shard(0), Replicate()), dp)
+        reshards = sharding.reshard_log()
+    return {"want": want, "have": have, "reshards": dict(reshards),
+            "drops": int(np.sum(want[0] == 0))}
+
+
+def run_moe_rank(rank, world, store_path, results):
+    """One rank of the MoE layer's 2×2 check (``_moe_layer``)."""
+    try:
+        torch.set_num_threads(1)
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world))
+        try:
+            results.put((rank, _moe_layer(make_mesh((2, 2), ("data", "model"),
+                                                    "cpu"))))
+        finally:
+            dist.destroy_process_group()
+    except Exception:                  # reported to the parent, which fails
+        results.put((rank, traceback.format_exc()))
+
+
 def run_rank(rank, world, store_path, payload, results):
     """One rank: its process group over a file store, the mesh, the steps."""
     try:
