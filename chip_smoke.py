@@ -229,6 +229,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     library load or step signature, and the same synchronizing calls in
     every step (set_sync_debug_mode), plus the block table's upload in the
     steps whose table changed; the number and where each comes from.
+18. the port's last gaps against the JAX package. (a) The sampler in both
+    threefry layouts (rollout/prng.py's threefry_partitionable): 16 rows of
+    random logits at qwen3-0.6b's V=151936, the random bits and uniforms
+    drawn on the card bit-equal to the CPU's, _sample_rows' tokens equal,
+    the layouts' tokens different. (b) launch.multi_tenant_train at
+    qwen3-0.6b with the paged pool's flags (pages of 32, 128 pages, no
+    prefix cache, no restores, no snapshot budget; 2 tenants, 1 step) as a
+    fifth subprocess beside phase 17 (a)'s four: exit 0, the pool it asked
+    for printed, every tenant at v1, no prefix hit, paged_gqa_decode, sgmv
+    and both token_logprob directions launched and gqa_decode not. (c)
+    forward_seq(inputs_embeds=params["embed"][tokens]) at qwen3-0.6b's full
+    width in bf16 under 4 tenants' adapters: bit-equal to forward_seq(tokens),
+    sgmv 168 launches. Prints each part's seconds beside the card's line.
 It prints the kernels' JSON line and the card's line before the last, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -3957,24 +3970,25 @@ P17_TIMEOUT = 300       # seconds an entry point may take
 P17_WARM, P17_STEPS = 4, 8   # (b): decode steps of warm-up, then watched
 
 
-def entry_points_phase(card):
-    """Phase 17 (a): every entry point of P17_ENTRY as a subprocess on the
-    card, all started together; each must exit 0 and print its kernels'
-    launches with every kernel of its path above 0. Returns the record
-    (each one's seconds, launches and what it reports)."""
+def entry_points_phase(card, entries):
+    """Phase 17 (a) and 18 (b): every entry point of `entries` (P17_ENTRY
+    and P18_ENTRY) as a subprocess on the card, all started together; each
+    must exit 0 and print its kernels' launches with every kernel of its path
+    above 0. Returns the record (each one's seconds, launches and what it
+    reports; P18_ENTRY's also its output lines)."""
     import os
     import subprocess
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
     t0 = time.monotonic()
-    for name, args, _ in P17_ENTRY:
+    for name, args, _ in entries:
         procs[name] = (subprocess.Popen(
             [sys.executable, "-m", f"repro_torch.launch.{name}", *args],
             cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), time.monotonic())
     out = {}
     try:
-        for name, args, kernels in P17_ENTRY:
+        for name, args, kernels in entries:
             p, started = procs[name]
             try:
                 text, _ = p.communicate(timeout=max(1.0, P17_TIMEOUT - (
@@ -4003,8 +4017,11 @@ def entry_points_phase(card):
             if name == "rl_learning_demo":
                 rec.update(json.loads(next(x for x in lines
                                            if x.startswith("result "))[7:]))
+            if name == "multi_tenant_train":
+                rec["lines"] = lines
             out[name] = rec
-            log(f"[17a {name}] {' '.join(args) or '(defaults)'}: exit 0 in "
+            log(f"[{'18b' if name == 'multi_tenant_train' else '17a'} {name}] "
+                f"{' '.join(args) or '(defaults)'}: exit 0 in "
                 f"{secs:.1f} s, launches {got[0]}"
                 + (f"; SFT loss {rec['sft_loss']:.3f}, reward first5 "
                    f"{rec['first5']:.3f} -> last5 {rec['last5']:.3f}"
@@ -4101,6 +4118,130 @@ def sentinel_phase(torch, M, counters, card):
         f"step: {dict(base)}; plus the block table's upload in "
         f"{rec['table_upload_steps']} steps: {dict(uploads)}; on {card}")
     eng.shutdown()
+    return rec
+
+
+# phase 18: the port's last gaps against the JAX package. (a) the sampler in
+# both threefry layouts; (b) the runtime CLI's paged-pool flags, as a fifth
+# subprocess beside P17_ENTRY: 16 slots x 256 tokens = P18_POOL pages of
+# P18_PAGE; (c) forward_seq(inputs_embeds=)
+P18_ROWS, P18_VOCAB = 16, 151936          # (a): qwen3-0.6b's vocabulary
+P18_PAGE, P18_POOL = 32, 128
+P18_ENTRY = (("multi_tenant_train",
+              ["--preset", ARCH, "--paged-kv", "--kv-page-size", str(P18_PAGE),
+               "--kv-pool-pages", str(P18_POOL), "--no-prefix-cache",
+               "--no-resume-restore", "--snapshot-budget-bytes", "0",
+               "--tasks", "2", "--steps", "1"],
+              ("paged_gqa_decode", "sgmv", "token_logprob_fwd",
+               "token_logprob_bwd")),)
+P18_POOL_LINE = (f"pool: page_size={P18_PAGE} pages={P18_POOL} prefix_cache=off "
+                 f"resume_restore=off snapshot_budget_bytes=unlimited")
+P18_SEQ = (4, 128)                         # (c): rows x tokens
+
+
+def sampler_layouts_phase(torch, card):
+    """Phase 18 (a): P18_ROWS rows of random fp32 logits at V = P18_VOCAB, a
+    key and a counter a row, in each threefry layout: the random bits and
+    uniforms drawn on the card bit-equal to the CPU's, ``_sample_rows``' tokens
+    equal, and the two layouts' tokens different. Times a sampling call on
+    the card in each layout. Returns the record."""
+    import numpy as np
+    from repro_torch.rollout import prng
+    from repro_torch.rollout.prefill import _sample_rows
+
+    g = torch.Generator().manual_seed(18)
+    logits = torch.randn(P18_ROWS, P18_VOCAB, generator=g) * 3
+    keys = torch.from_numpy(np.stack([prng.fold_in_host(prng.prng_key(1800), i)
+                                      for i in range(P18_ROWS)]).astype(np.int64))
+    counters = torch.randint(0, 512, (P18_ROWS,), generator=g, dtype=torch.int32)
+    temps = torch.full((P18_ROWS,), 0.9)
+    on_card = [t.cuda() for t in (logits, keys, counters, temps)]
+    rec, tokens = {}, {}
+    for flag in (True, False):
+        with prng.threefry_partitionable(flag):
+            # uniforms lie in [tiny, 1): equal values are equal bits
+            same = {name: bool(torch.equal(fn(keys, P18_VOCAB),
+                                           fn(on_card[1], P18_VOCAB).cpu()))
+                    for name, fn in (("bits", prng.random_bits),
+                                     ("uniform", prng.uniform))}
+            want = _sample_rows(logits, keys, counters, temps)
+            got = _sample_rows(*on_card).cpu()
+            ms = bench_ms(_sample_rows, [on_card], iters=20)
+        layout = "partitionable" if flag else "legacy"
+        if not (all(same.values()) and torch.equal(want, got)):
+            raise AssertionError(f"phase 18a ({layout}): card vs CPU bits "
+                                 f"{same}, tokens {got.tolist()} vs {want.tolist()}")
+        tokens[flag] = got
+        rec[layout] = dict(same_bits=same["bits"], same_uniform=same["uniform"],
+                           tokens_equal=True, sample_ms=ms)
+    rec["layouts_differ"] = int((tokens[True] != tokens[False]).sum())
+    if not rec["layouts_differ"]:
+        raise AssertionError("phase 18a: both layouts sampled the same tokens")
+    if prng.THREEFRY_PARTITIONABLE is not True:
+        raise AssertionError("phase 18a: the layout was not restored")
+    log(f"[18a sampler] {P18_ROWS} rows x V={P18_VOCAB}, both threefry layouts: "
+        f"bits and uniforms on the card bit-equal to the CPU's, tokens equal; "
+        f"{rec['layouts_differ']} of {P18_ROWS} tokens differ between the layouts; "
+        f"_sample_rows {rec['partitionable']['sample_ms']:.3f} ms (partitionable), "
+        f"{rec['legacy']['sample_ms']:.3f} ms (legacy) a call on {card}")
+    return rec
+
+
+def pool_flags_check(rec, card):
+    """Phase 18 (b): the record of P18_ENTRY's run (entry_points_phase): the
+    pool it asked for printed, every tenant at v1, no prefix hit, and the
+    contiguous-cache kernel not launched. Returns the record."""
+    lines = rec.pop("lines")
+    versions = [int(m.group(1)) for m in (re.match(r"\s+\S+\s+v(\d+):", x)
+                                          for x in lines) if m]
+    paged = next((x for x in lines if x.startswith("paged KV:")), "")
+    hits = re.search(r"prefix_hits=(\d+) ", paged)
+    if P18_POOL_LINE not in lines or versions != [1, 1] or not hits \
+            or int(hits.group(1)) != 0 or rec["launches"]["gqa_decode"] != 0:
+        raise AssertionError(f"phase 18b: pool {P18_POOL_LINE in lines}, "
+                             f"versions {versions}, '{paged}', launches "
+                             f"{rec['launches']}")
+    rec.update(pool=P18_POOL_LINE, versions=versions, paged_kv=paged, card=card)
+    log(f"[18b pool flags] {P18_POOL_LINE}; tenants at v{versions}; "
+        f"prefix_hits=0; launches {rec['launches']} on {card}")
+    return rec
+
+
+def inputs_embeds_phase(torch, M, counters, card):
+    """Phase 18 (c): forward_seq at qwen3-0.6b's full width in bf16, P18_SEQ
+    tokens under 4 tenants' adapters (sgmv), once from the ids and once from
+    ``inputs_embeds=params["embed"][tokens]``: the same bits. Returns the
+    record, with the second call's launches."""
+    from repro_torch.launch.serve import make_adapters, serve_config
+    from repro_torch.lora.adapters import batched_ctx, stack_adapters
+
+    cfg = serve_config(ARCH, reduce=False)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    adapters = make_adapters(cfg, TENANTS, seed=0, device="cuda", b_scale=B_SCALE)
+    g = torch.Generator(device="cuda").manual_seed(1800)
+    B, S = P18_SEQ
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=g)
+    lora = batched_ctx(stack_adapters(adapters),
+                       torch.arange(B, device="cuda", dtype=torch.int32) % TENANTS,
+                       cfg)
+    with torch.no_grad():
+        h_ids = M.forward_seq(params, tokens, cfg, lora)[0]
+        count_all(counters, reset=True)
+        h_emb = M.forward_seq(params, None, cfg, lora,
+                              inputs_embeds=params["embed"][tokens])[0]
+        launches = count_all(counters)
+    torch.cuda.synchronize()
+    if not torch.equal(h_ids, h_emb) or not torch.isfinite(h_emb).all() \
+            or launches["sgmv"] != sgmv_per_forward(cfg):
+        raise AssertionError(f"phase 18c: equal {torch.equal(h_ids, h_emb)}, "
+                             f"max abs diff {(h_ids - h_emb).abs().max().item()}, "
+                             f"launches {launches}")
+    rec = dict(shape=[B, S, cfg.d_model], dtype=str(h_emb.dtype), same_bits=True,
+               launches=launches, card=card)
+    log(f"[18c inputs_embeds] {ARCH} full width bf16, {B} x {S} tokens under "
+        f"{TENANTS} adapters: forward_seq(inputs_embeds=embed[tokens]) bit-equal "
+        f"to forward_seq(tokens); launches {launches} on {card}")
+    del params, adapters
     return rec
 
 
@@ -4352,7 +4493,9 @@ def main(argv):
     phase_end_s["16"] = time.monotonic() - t_all
 
     # -- phase 17: the entry points, then steady-state decode's sentinel -----
-    entries = entry_points_phase(card)
+    t18 = time.monotonic()
+    entries = entry_points_phase(card, P17_ENTRY + P18_ENTRY)
+    pool_run = entries.pop("multi_tenant_train")
     p17_launch = {k: sum(e["launches"].get(k, 0) for n, e in entries.items()
                          if isinstance(e, dict) and "launches" in e)
                   for k in counters}
@@ -4361,6 +4504,25 @@ def main(argv):
         p17_launch[k] += sentinel["launches"][k]
 
     phase_end_s["17"] = time.monotonic() - t_all
+
+    # -- phase 18: the sampler's layouts, the pool flags, inputs_embeds -------
+    t18a = time.monotonic()
+    gaps = {"sampler": sampler_layouts_phase(torch, card)}
+    t18c = time.monotonic()
+    gaps["pool_flags"] = pool_flags_check(pool_run, card)
+    gaps["inputs_embeds"] = inputs_embeds_phase(torch, M, counters, card)
+    p18_launch = {k: gaps["pool_flags"]["launches"].get(k, 0)
+                  + gaps["inputs_embeds"]["launches"][k] for k in counters}
+    gaps["seconds"] = dict(a=t18c - t18a, b=gaps["pool_flags"]["seconds"],
+                           c=time.monotonic() - t18c,
+                           b_with_17a=entries["wall_s"], since_17a=
+                           time.monotonic() - t18)
+    log(f"[18] seconds: (a) {gaps['seconds']['a']:.1f}, (b) "
+        f"{gaps['seconds']['b']:.1f} beside phase 17 (a)'s four ("
+        f"{gaps['seconds']['b_with_17a']:.1f} for all five), (c) "
+        f"{gaps['seconds']['c']:.1f} on {card}")
+
+    phase_end_s["18"] = time.monotonic() - t_all
     log("[time] seconds from the start at the end of each phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_end_s.items()))
 
@@ -4380,6 +4542,7 @@ def main(argv):
     print(json.dumps({"encdec": encdec}), flush=True)
     print(json.dumps({"sharding": sharding}), flush=True)
     print(json.dumps({"entry_points": entries, "sentinel": sentinel}), flush=True)
+    print(json.dumps({"gaps": gaps}), flush=True)
     fwd_main = next(c for c in tlp_fwd_cases if c["main"])
     gqa_main = next(c for c in gqa_cases if c["main"])
     paged_main = next(c for c in paged_cases if c["main"])
@@ -4390,7 +4553,8 @@ def main(argv):
                      "src/repro/kernels/gqa_decode.py:71", gqa_cases,
                      n_gqa + rt_launch["gqa_decode"] + p12_launch["gqa_decode"]
                      + p14_launch["gqa_decode"] + p15_launch["gqa_decode"]
-                     + p16_launch["gqa_decode"] + p17_launch["gqa_decode"],
+                     + p16_launch["gqa_decode"] + p17_launch["gqa_decode"]
+                     + p18_launch["gqa_decode"],
                      dict(launches_by_phase={"serve (4)": n_gqa, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["gqa_decode"]
                          for r in runtime},
@@ -4398,7 +4562,8 @@ def main(argv):
                          "families (14)": p14_launch["gqa_decode"],
                          "encdec (15)": p15_launch["gqa_decode"],
                          "host mesh (16)": p16_launch["gqa_decode"],
-                         "entry points (17)": p17_launch["gqa_decode"]},
+                         "entry points (17)": p17_launch["gqa_decode"],
+                         "pool flags and inputs_embeds (18)": p18_launch["gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=gqa_main["cuda_launches_per_call"],
                           plan=gqa_main["plan"])),
@@ -4407,7 +4572,8 @@ def main(argv):
                      n_sgmv + cont["launches"]["sgmv"] + rt_launch["sgmv"]
                      + p11_launch["sgmv"] + p12_launch["sgmv"]
                      + p13_launch["sgmv"] + p14_launch["sgmv"] + p15_launch["sgmv"]
-                     + p16_launch["sgmv"] + p17_launch["sgmv"],
+                     + p16_launch["sgmv"] + p17_launch["sgmv"]
+                     + p18_launch["sgmv"],
                      dict(launches_by_phase={
                          "serve (4)": n_sgmv,
                          "continuous serve (8)": cont["launches"]["sgmv"],
@@ -4421,7 +4587,8 @@ def main(argv):
                          "families (14)": p14_launch["sgmv"],
                          "encdec (15)": p15_launch["sgmv"],
                          "host mesh (16)": p16_launch["sgmv"],
-                         "entry points and sentinel (17)": p17_launch["sgmv"]},
+                         "entry points and sentinel (17)": p17_launch["sgmv"],
+                         "pool flags and inputs_embeds (18)": p18_launch["sgmv"]},
                           launches_per_decode_step=6 * cfg.num_layers,
                           cuda_launches_per_call=sgmv_main["cuda_launches_per_call"],
                           plan=sgmv_main["plan"], epilogue="add (sgmv_add_)",
@@ -4434,7 +4601,8 @@ def main(argv):
                      + p13_launch["token_logprob_fwd"]
                      + p14_launch["token_logprob_fwd"]
                      + p15_launch["token_logprob_fwd"] + p16_launch["token_logprob_fwd"]
-                     + p17_launch["token_logprob_fwd"],
+                     + p17_launch["token_logprob_fwd"]
+                     + p18_launch["token_logprob_fwd"],
                      dict(launches_by_phase={"train (6)": n_fwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_fwd"]
                          for r in runtime}, **{
@@ -4443,7 +4611,8 @@ def main(argv):
                          "families (14)": p14_launch["token_logprob_fwd"],
                          "encdec (15)": p15_launch["token_logprob_fwd"],
                          "host mesh (16)": p16_launch["token_logprob_fwd"],
-                         "entry points (17)": p17_launch["token_logprob_fwd"]},
+                         "entry points (17)": p17_launch["token_logprob_fwd"],
+                         "pool flags and inputs_embeds (18)": p18_launch["token_logprob_fwd"]},
                           launches_per_train_step="2 in phase 6 (KL on), 1 in phase 10",
                           cuda_launches_per_call=fwd_main["cuda_launches_per_call"],
                           tflops=fwd_main["tflops"], plan=fwd_main["plan"])),
@@ -4453,7 +4622,8 @@ def main(argv):
                      + p13_launch["token_logprob_bwd"]
                      + p14_launch["token_logprob_bwd"]
                      + p15_launch["token_logprob_bwd"] + p16_launch["token_logprob_bwd"]
-                     + p17_launch["token_logprob_bwd"],
+                     + p17_launch["token_logprob_bwd"]
+                     + p18_launch["token_logprob_bwd"],
                      dict(launches_by_phase={"train (6)": n_bwd, **{
                          f"runtime {r} (10)": runtime[r]["launches"]["token_logprob_bwd"]
                          for r in runtime}, **{
@@ -4462,7 +4632,8 @@ def main(argv):
                          "families (14)": p14_launch["token_logprob_bwd"],
                          "encdec (15)": p15_launch["token_logprob_bwd"],
                          "host mesh (16)": p16_launch["token_logprob_bwd"],
-                         "entry points (17)": p17_launch["token_logprob_bwd"]},
+                         "entry points (17)": p17_launch["token_logprob_bwd"],
+                         "pool flags and inputs_embeds (18)": p18_launch["token_logprob_bwd"]},
                           launches_per_train_step=1,
                           cuda_launches_per_call=bwd_main["cuda_launches_per_call"],
                           tflops=bwd_main["tflops"], plan=bwd_main["plan"],
@@ -4475,7 +4646,8 @@ def main(argv):
                      + p12_launch["paged_gqa_decode"]
                      + p13_launch["paged_gqa_decode"]
                      + p14_launch["paged_gqa_decode"]
-                     + p17_launch["paged_gqa_decode"],
+                     + p17_launch["paged_gqa_decode"]
+                     + p18_launch["paged_gqa_decode"],
                      dict(launches_by_phase={
                          "continuous serve (8)": cont["launches"]["paged_gqa_decode"],
                          **{f"runtime {r} (10)": runtime[r]["launches"]["paged_gqa_decode"]
@@ -4486,7 +4658,8 @@ def main(argv):
                          **{f"faults {r} (13)": faults[r]["launches"]["paged_gqa_decode"]
                             for r in ("T", "R")},
                          "families (14)": p14_launch["paged_gqa_decode"],
-                         "sentinel (17)": p17_launch["paged_gqa_decode"]},
+                         "sentinel (17)": p17_launch["paged_gqa_decode"],
+                         "pool flags and inputs_embeds (18)": p18_launch["paged_gqa_decode"]},
                           launches_per_decode_step=cfg.num_layers,
                           cuda_launches_per_call=paged_main["cuda_launches_per_call"],
                           plan=paged_main["plan"])),

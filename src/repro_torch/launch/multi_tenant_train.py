@@ -7,6 +7,9 @@ real GRPO updates (the port's counterpart of ``examples/multi_tenant_train.py``)
     PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
         --mix agentic --disagg-prefill --env-stage --paged-kv
     PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
+        --paged-kv --kv-page-size 32 --kv-pool-pages 128 --no-prefix-cache \\
+        --no-resume-restore --snapshot-budget-bytes 0 --tasks 2 --steps 1
+    PYTHONPATH=src python -m repro_torch.launch.multi_tenant_train \\
         --mix agentic --disagg-prefill --env-stage --paged-kv \\
         --checkpoint-dir ck --trace-out trace.json \\
         --chaos-prefill-kill 1 --chaos-env-kill 1 --chaos-max-faults 1
@@ -22,10 +25,14 @@ worker threads (each on a CUDA stream of its own on the card);
 ``--env-stage`` parks tool-calling rows in an env stage of worker threads
 instead of freezing them in their slots. Prints per-task reward curves and
 the paper's system metrics (utilisation, idle share, TTFS, TPTS).
-``--checkpoint-dir`` snapshots the manager every 5 commits; the
-``--chaos-*`` flags inject faults (worker kills, tool errors, dropped
-snapshots, torn checkpoints) from one seeded script; ``--trace-out`` writes
-a Perfetto-loadable trace and prints the critical-path latency report.
+``--paged-kv`` serves from the paged KV pool; ``--kv-page-size``,
+``--kv-pool-pages``, ``--no-prefix-cache``, ``--no-resume-restore`` and
+``--snapshot-budget-bytes`` shape it, and the entry point prints the pool
+the engine built. ``--checkpoint-dir`` snapshots the manager every 5
+commits; the ``--chaos-*`` flags inject faults (worker kills, tool errors,
+dropped snapshots, torn checkpoints) from one seeded script; ``--trace-out``
+writes a Perfetto-loadable trace and prints the critical-path latency
+report.
 
 ``--preset qwen3-0.6b`` (the default) runs the published configuration at
 full width and depth in bf16 with random weights from seed 0 and adapters
@@ -49,6 +56,7 @@ from repro_torch.core.manager import TaskSpec
 from repro_torch.core.metrics import summarize
 from repro_torch.core.runtime import MARLaaSRuntime, RuntimeConfig
 from repro_torch.data import tokenizer as tok
+from repro_torch.kernels import launch_counts
 from repro_torch.launch.serve import make_adapters
 from repro_torch.models import init_params, tree_leaves
 from repro_torch.models.common import resolve_device
@@ -92,9 +100,36 @@ def main(argv=None) -> MARLaaSRuntime:
     ap.add_argument("--timeout", type=float, default=3600.0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--paged-kv", action="store_true",
-                    help="paged KV-cache block pool (16-token pages) instead "
-                         "of a dense [slots, max_len] cache, with the "
-                         "copy-on-write prefix cache")
+                    help="paged KV-cache block pool: shared fixed-size "
+                         "pages + block tables instead of a dense "
+                         "[slots, max_len] cache; park/preempt resume "
+                         "restores saved pages instead of replaying")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="tokens per KV page (max_len must divide)")
+    ap.add_argument("--kv-pool-pages", type=int, default=0,
+                    help="page-pool size (0 = dense-equivalent auto)")
+    ap.add_argument("--no-resume-restore", action="store_true",
+                    help="paged mode: disable snapshot/restore resume "
+                         "(always token-replay — the parity baseline)")
+    ap.add_argument("--snapshot-budget-bytes", type=int, default=0,
+                    help="host arena for parked KV snapshots (0 = "
+                         "unlimited; overflow falls back to replay)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="paged mode: disable the copy-on-write prefix "
+                         "cache and allocate every row's pages "
+                         "privately. When enabled (the default with "
+                         "--paged-kv), sharing happens at three levels: "
+                         "(1) GRPO-group sharing — same-prompt group "
+                         "siblings map their block tables onto one "
+                         "prefilled page set and fork pages copy-on-write "
+                         "on first divergent decode write; (2) device-"
+                         "resident snapshots — park/preempt of a row "
+                         "whose pages are in-pool retains them on device "
+                         "and resume is a block-table splice (host "
+                         "snapshots demoted to a spill tier); (3) radix "
+                         "prefix reuse — new requests and tool-turn "
+                         "resumes match their longest cached page-aligned "
+                         "prefix and prefill only the suffix")
     ap.add_argument("--async-train", action="store_true",
                     help="event-driven off-policy trainer: train "
                          "micro-batches of complete GRPO groups as they "
@@ -179,7 +214,11 @@ def main(argv=None) -> MARLaaSRuntime:
     rt = MARLaaSRuntime(cfg, params, RuntimeConfig(
         policy=args.policy, max_len=max_len, max_slots=slots,
         max_adapter_slots=max(args.tasks, 1), seed=0, device=str(dev),
-        paged_kv=args.paged_kv,
+        paged_kv=args.paged_kv, kv_page_size=args.kv_page_size,
+        kv_pool_pages=args.kv_pool_pages,
+        resume_restore=not args.no_resume_restore,
+        snapshot_budget_bytes=args.snapshot_budget_bytes,
+        prefix_cache=not args.no_prefix_cache,
         async_train=args.async_train, max_staleness=args.max_staleness,
         min_train_rows=args.min_train_rows,
         disagg_prefill=args.disagg_prefill,
@@ -191,6 +230,13 @@ def main(argv=None) -> MARLaaSRuntime:
         checkpoint_every=5 if args.checkpoint_dir else 0,
         chaos=chaos if chaos.enabled else None,
         trace=bool(args.trace_out)))
+    if args.paged_kv:
+        eng = rt.cengine
+        budget = eng._snap_store.budget_bytes
+        print(f"pool: page_size={eng.kv_page_size} pages={eng.kv_pool_pages} "
+              f"prefix_cache={'on' if eng.prefix_cache else 'off'} "
+              f"resume_restore={'on' if eng.resume_restore else 'off'} "
+              f"snapshot_budget_bytes={budget or 'unlimited'}")
     adapters = (make_adapters(cfg, args.tasks, seed=0, device=dev,
                               b_scale=0.02)
                 if args.preset != "tiny" else [None] * args.tasks)
@@ -244,6 +290,7 @@ def main(argv=None) -> MARLaaSRuntime:
               f"(open at ui.perfetto.dev; "
               f"{rt.tracer.dropped_events} events dropped)")
         print(format_report(analyze(load_episodes(trace))))
+    print("launches " + json.dumps(launch_counts()))
     return rt
 
 

@@ -93,6 +93,14 @@ def init_lora(cfg: ModelConfig, generator: torch.Generator,
     return tree
 
 
+def lora_param_count(cfg: ModelConfig) -> int:
+    """Parameters in one tenant's adapters, from ``init_lora``'s shapes on
+    the meta device (nothing is drawn or allocated)."""
+    tree = init_lora(cfg, None, "meta")
+    return sum(leaf.numel() for sub in tree.values()
+               for target in sub.values() for leaf in target.values())
+
+
 def single_ctx(tree, cfg: ModelConfig) -> LoraCtx:
     """One task's adapters for the whole forward (training mode)."""
     return LoraCtx("single", tree, scaling=cfg.lora.scaling)

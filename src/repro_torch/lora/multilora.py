@@ -21,6 +21,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import torch
+
 from repro_torch.kernels.boundary import is_dtensor, on_replicas, plain
 from repro_torch.kernels.sgmv import sgmv, sgmv_table
 
@@ -52,6 +54,17 @@ def multi_lora_delta_ref(x, a, b, row_task_ids, scaling: float):
         contrib = h * mask
         out = contrib if out is None else out + contrib
     return (out * scaling).to(x.dtype)
+
+
+def sort_rows_by_task(row_task_ids, num_tasks: int):
+    """Stable sort order of the rows by task, and int32 offsets [T + 1]:
+    the rows of task t are ``order[offsets[t]:offsets[t + 1]]``."""
+    order = torch.sort(row_task_ids, stable=True).indices
+    counts = torch.bincount(row_task_ids, minlength=num_tasks)[:num_tasks]
+    offsets = torch.zeros(num_tasks + 1, dtype=torch.int32,
+                          device=row_task_ids.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return order, offsets
 
 
 class AdapterResidency:

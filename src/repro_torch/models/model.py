@@ -508,13 +508,16 @@ def _attn_layer_seq(x, lp, cfg, lora, window, positions, rope, q_chunk,
 
 def forward_seq(params: Params, tokens, cfg: ModelConfig,
                 lora: Optional[LoraCtx] = None, cache: Optional[Params] = None,
-                *, enc_embeds=None, q_chunk: int = 512, seq_lens=None
+                *, enc_embeds=None, q_chunk: int = 512, inputs_embeds=None,
+                seq_lens=None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Full-sequence forward. Returns (hidden [B,S,d], cache, aux_loss):
     aux is the MoE layers' load-balance loss summed over layers (a tensor
     autograd sees), 0 for the other families. encdec takes the frontend's
     `enc_embeds` [B, S_enc, d], which the encoder turns into the memory
-    every decoder layer's cross-attention reads.
+    every decoder layer's cross-attention reads. `inputs_embeds` [B, S, d]
+    takes the place of the embedding lookup (then `tokens` may be None), on
+    every family.
 
     With a cache, each attention layer's K/V is written into it at [0, S)
     of every row, pads included, and each mamba layer's ssm/conv state
@@ -535,8 +538,11 @@ def forward_seq(params: Params, tokens, cfg: ModelConfig,
     ``cfg.scan_layers`` (the port's loop stands for both the scan and the
     unrolled loop of that flag); the encoder keeps per-layer checkpoints."""
     _check_family(cfg)
-    B, S = tokens.shape[:2]
-    x = embed_rows(params["embed"], tokens)                 # [B,S,d]
+    if inputs_embeds is None:
+        x = embed_rows(params["embed"], tokens)             # [B,S,d]
+    else:
+        x = inputs_embeds
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.head_dim else None)
