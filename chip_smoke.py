@@ -179,9 +179,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     64, a 512-token cache, bf16 and fp32), sgmv at 1024->1024, 1024->8192
     and 8192->1024 in decode and prefill, token_logprob forward and
     backward at V=256206 (R 624 and 4096) on the untied head and on a view
-    of a head whose rows are padded to a multiple of 8, with the staging
-    path each took, as the launchers report it (the padded head's backward
-    must load W by 16-byte copies in every chunk but the last). (b) A served round: 16 gsm8k prompts on 4 of the
+    of a head whose rows are padded to a multiple of 8, with the route
+    each W took, as w_feed picks it and the launchers report it (the padded
+    head's forward and every backward chunk must take W by TMA). (b) A
+    served round: 16 gsm8k prompts on 4 of the
     stacked adapters, 128 seeded N(0, 1) frames a row for the stub audio
     frontend, build_prefill_step (the cross-attention memory into the
     cache) and 32 build_decode_step steps sampled by the port's sampler;
@@ -194,8 +195,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     frames; token_logprob 1 forward and 1 backward launch): every adapter
     leaf moves, its time and analytic share of peak; then the same step on
     a contiguous copy of the head and again on the padded one, timed
-    alone: the same bits, and W by 16-byte copies in every backward chunk
-    but the last on the padded head only. (e) The same step at
+    alone: the same bits, and W by TMA in every backward chunk on the
+    padded head and in none on the contiguous one. (e) The same step at
     remat_block 4 (6 blocks of 4): loss and gradient against (d) within
     phase 7's bf16 tolerances, and both peaks of memory.
 16. sharding (launch.mesh, launch.shardings, train.sharding). (a) The dry
@@ -852,11 +853,13 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
     the kernel and the merge), and the backward's the scratch one call
     allocated (peak allocator bytes less dh); the bf16 backward's scratch
     must stay within tlp.SCRATCH_LIMIT and its launches must match its plan
-    (two products per vocab chunk and a reduce). Each record carries how
-    the launchers loaded W (tlp.FWD_W_VECTOR, tlp.BWD_W_VECTOR: the vocab
-    chunks loaded by 16-byte copies); a head padded to a multiple of 8 a
-    row must take them in every backward chunk but the last. The bf16 records also
-    carry their plans (forward: vocab slices and blocks; backward: vocab
+    (two products per vocab chunk and a reduce). Each record carries W's
+    route as tlp.w_feed picks it ("feed": TMA, the kernel's cp.async copies
+    and their width, or 2-byte loads) and how the launchers loaded W
+    (tlp.FWD_W_VECTOR, tlp.BWD_W_VECTOR: the vocab chunks loaded by TMA or
+    16-byte copies), which must agree; a head padded to a multiple of 8 a
+    row must take TMA in the forward and in every backward chunk. The bf16
+    records also carry their plans (forward: vocab slices and blocks; backward: vocab
     chunk, K-splits, planned scratch) and, where timed, the TFLOP/s.
     `cases` (R, d, V, dtype, softcap, layout, timed) replaces the case list
     (phase 14's widths and vocabularies); none of them is then the main
@@ -927,8 +930,18 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
         shape = dict(R=R, d=d, V=Vc, dtype=str(dt).split(".")[1], softcap=cap,
                      layout=layout, main=main_cases and R == R_main and timed)
         # how the launchers loaded W, as they report it: a vocab chunk's tiles
-        # by 16-byte copies ("vector") or element by element ("scalar")
+        # by TMA or 16-byte copies ("vector"), or narrower ("scalar"); and
+        # the bf16 route w_feed picked
         chunks = (n_bwd - 1) // 2 if dt == torch.bfloat16 else 1
+        if dt == torch.bfloat16:
+            feed = tlp.w_feed(w.data_ptr(), tuple(w.shape), w.stride())
+            shape["feed"] = feed._asdict()
+            wide = feed.width == 16       # TMA, or 16-byte copies
+            if v_fwd != wide or v_bwd != chunks * wide:
+                raise AssertionError(f"token_logprob R={R} V={Vc}: w_feed picked "
+                                     f"{feed}, the launchers report 16-byte loads in "
+                                     f"the forward {v_fwd}, in {v_bwd} of {chunks} "
+                                     f"backward chunks")
         shape["staging"] = dict(
             forward="vector" if v_fwd else "scalar",
             backward=("vector" if v_bwd == chunks else "scalar" if not v_bwd
@@ -949,13 +962,16 @@ def check_token_logprob(torch, tlp, ref, g, R_main, cases=None):
                 raise AssertionError(f"token_logprob {name}: backward scratch "
                                      f"{scratch} B (limit {tlp.SCRATCH_LIMIT}), "
                                      f"{n_bwd} CUDA launches for plan {bc['plan']}")
-            # what the padded head is for: 16-byte loads of W in every chunk
-            # of the backward but a ragged last one
-            if layout == "padded" and v_bwd < chunks - 1:
-                raise AssertionError(f"token_logprob {name}: the backward loaded W "
-                                     f"by 16-byte copies in {v_bwd} of {chunks} "
-                                     f"chunks")
+            # what the padded head is for: W by TMA in the forward and in
+            # every chunk of the backward, the ragged last one included
+            if layout == "padded" and (shape["feed"]["route"] != "tma" or v_fwd != 1
+                                       or v_bwd != chunks):
+                raise AssertionError(f"token_logprob {name}: W by {shape['feed']}, "
+                                     f"wide in the forward {v_fwd}, in {v_bwd} of "
+                                     f"{chunks} backward chunks")
         name += " staging fwd {forward} bwd {backward}".format(**shape["staging"])
+        if "feed" in shape:
+            name += " feed {route}/{width}/{major}".format(**shape["feed"])
         line = f"  token_logprob {name}: fwd err {f_err:.2e} (tol {tol}) dh err " \
                f"{b_err:.2e} (tol {dh_tol} x {dh_scale:.2e}), two calls of each " \
                f"bit-identical; CUDA launches a call fwd {n_fwd} bwd {n_bwd}, bwd " \
@@ -3319,7 +3335,8 @@ def encdec_kernels(torch, gqa, paged, sgmv, tlp, ref, g, R_main, S_p):
     and the served prefill (R=16 x the prompt bucket), token_logprob forward
     and backward at V=256206 on the untied head and on a [:, :V] view of a
     head whose rows are padded to 256208 (R_main and PROD_ROWS rows), each
-    with the staging path its W took, as the launchers report it."""
+    with the route its W took, as w_feed picks it and the launchers
+    report it."""
     bf16 = torch.bfloat16
     kern = check_family_decode(torch, gqa, paged, ref, g, shapes=((P15_ARCH, 16, 64),),
                                kernels=("gqa_decode",), tag="15")
@@ -3592,9 +3609,9 @@ def encdec_head_layouts(torch, cfg, params, counters, card, shape, batch, lora,
     multiple of 8) in place of init_params' [:, :V] view of rows padded to
     a multiple of 8, then once more on the padded head, each timed alone.
     The values are equal, so loss, metrics and the first moment must keep
-    their bits; token_logprob's backward must load W by 16-byte copies in
-    every vocab chunk but the last on the padded head, and in none on the
-    contiguous one (tlp.BWD_W_VECTOR)."""
+    their bits; token_logprob's backward must load W by TMA in every vocab
+    chunk on the padded head, and in none on the contiguous one (its
+    cp.async copies; tlp.BWD_W_VECTOR)."""
     from repro_torch.kernels import token_logprob as tlp
     from repro_torch.launch import specs
     from repro_torch.models import tree_leaves
@@ -3619,12 +3636,12 @@ def encdec_head_layouts(torch, cfg, params, counters, card, shape, batch, lora,
         out[name] = dict(train_ms=1e3 * secs, lm_head_stride=list(w.stride()),
                          bwd_chunks=chunks, bwd_w_vector_chunks=vec,
                          same_bits_as_padded=same, launches=count_all(counters))
-        if not same or vec != (chunks - 1 if name == "padded" else 0):
+        if not same or vec != (chunks if name == "padded" else 0):
             raise AssertionError(f"phase 15d head layout {name}: {out[name]}")
     del heads
     c, p = out["contiguous"], out["padded"]
     log(f"[15d head] the same step on a contiguous head (stride {c['lm_head_stride']}, "
-        f"token_logprob bwd W by 16-byte copies in {c['bwd_w_vector_chunks']} of "
+        f"token_logprob bwd W by TMA in {c['bwd_w_vector_chunks']} of "
         f"{c['bwd_chunks']} chunks): {c['train_ms']:.1f} ms; on the padded head "
         f"(stride {p['lm_head_stride']}, {p['bwd_w_vector_chunks']} of "
         f"{p['bwd_chunks']}): {p['train_ms']:.1f} ms, after "
@@ -4303,6 +4320,11 @@ def main(argv):
         if name in ("token_logprob", "sgmv"):
             log("    " + ", ".join(f"{k[0]} {k[1]} registers {k[2]} B spilled"
                                    for k in kernels))
+            # ptxas's warnings and advisories (a setmaxnreg it ignored, wgmma
+            # it serialised)
+            for line in text.splitlines():
+                if "warning" in line.lower() or "Performance Loss" in line:
+                    log(f"    ptxas: {line.strip()[:300]}")
         if name in ("gqa_decode", "paged_decode"):
             # the main path's variants (hd 128, rep 2) and phase 14's (rep 1
             # at hd 128, deepseek-moe's MHA, and at hd 64, zamba2's)

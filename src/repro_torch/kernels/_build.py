@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures of the exported launchers: name -> argtypes. Every launcher
 # returns the cudaError_t of its launch as an int and adds the number of
 # kernels it launched to a host int (`launched`); token_logprob's also add
-# the vocab chunks whose W tiles they loaded by 16-byte copies to another
-# (`w_vector`).
+# the vocab chunks whose W tiles they loaded by TMA or 16-byte copies to
+# another (`w_vector`).
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gqa_decode": {
@@ -52,17 +52,19 @@ SIGNATURES = {
     },
     "token_logprob": {
         # h, w, tgt, part, lp, ent, lse, R, d, V, ws_k, ws_v, vsplit,
-        # slice_tiles, softcap, dtype, stream, launched, w_vector
+        # slice_tiles, softcap, dtype, w_tma, stream, launched, w_vector
         "token_logprob_fwd_launch": [_P] * 7 + [_I, _I, _I, _L, _L, _I, _I,
-                                                _F, _I, _P, _P, _P],
+                                                _F, _I, _I, _P, _P, _P],
         # h, w, tgt, lse, ent, g_lp, g_ent, dpart, dh, R, d, V, ws_k, ws_v,
         # vsplit, slice_tiles, softcap, stream, launched, w_vector
         "token_logprob_bwd_f32_launch": [_P] * 9 + [_I, _I, _I, _L, _L, _I,
                                                     _I, _F, _P, _P, _P],
         # h, w, tgt, lse, ent, g_lp, g_ent, dz, part, dh, R, d, V, ws_k,
-        # ws_v, vc, splits, piece, softcap, stream, launched, w_vector
+        # ws_v, vc, splits, piece, p1_tiles, softcap, w_tma, stream,
+        # launched, w_vector
         "token_logprob_bwd_bf16_launch": [_P] * 10 + [_I, _I, _I, _L, _L, _I,
-                                                      _I, _I, _F, _P, _P, _P],
+                                                      _I, _I, _I, _F, _I, _P,
+                                                      _P, _P],
     },
 }
 

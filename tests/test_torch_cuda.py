@@ -1445,11 +1445,10 @@ def test_sgmv_at_seamless_projections(card, d, dout, R):
 @pytest.mark.parametrize("layout", ["untied", "padded"])
 def test_token_logprob_at_seamless_vocabulary(card, layout):
     """The bf16 forward and backward at seamless's untied head, d 1024 and
-    V 256206 (not a multiple of 8: W's tiles load 2 bytes at a time), 300
+    V 256206 (not a multiple of 8: W's tiles come by 4-byte copies), 300
     rows, against the plain versions, and on a [:, :V] view of a head whose
-    rows are padded to 256208 (the backward's chunks but the last load 16
-    bytes at a time): lp, entropy and lse within 1e-3, dh within 1e-2 of
-    its scale, two calls of each with the same bits."""
+    rows are padded to 256208 (by TMA): lp, entropy and lse within 1e-3, dh
+    within 1e-2 of its scale, two calls of each with the same bits."""
     R, d, V = 300, 1024, 256206
     h, w, t = _bf16_inputs(card, R, d, V, "untied")
     if layout == "padded":
@@ -1474,14 +1473,14 @@ def test_token_logprob_at_seamless_vocabulary(card, layout):
 
 @pytest.mark.parametrize("layout,V,fwd,bwd_scalar", [
     ("tied", 5003, 1, 0), ("untied", 5003, 0, "all"), ("untied", 5008, 1, 0),
-    ("padded", 256206, 0, 1)])
+    ("padded", 256206, 1, 0)])
 def test_token_logprob_reports_how_it_loads_w(card, layout, V, fwd, bwd_scalar):
-    """The launchers' report of W's staging (FWD_W_VECTOR, BWD_W_VECTOR):
-    16-byte copies where the contiguous stride is 1 and the other stride
-    and the extent along it are multiples of 8 (the tied transpose at any
-    V; an untied head whose V is a multiple of 8), element loads otherwise
-    (an untied head at V 5003); a [:, :V] view of rows padded to 8 takes
-    them in every backward chunk but the ragged last one."""
+    """The launchers' report of W's route (FWD_W_VECTOR, BWD_W_VECTOR): TMA
+    where the contiguous stride is 1 and the other a multiple of 8 elements
+    (the tied transpose at any V; an untied head whose row is a multiple of
+    8), the kernel's narrower copies otherwise (an untied head at V 5003); a
+    [:, :V] view of rows padded to 8 takes TMA in the forward and in every
+    backward chunk, the ragged last one included."""
     R, d = 300, 1024
     h, w, t = _bf16_inputs(card, R, d, V, "untied" if layout == "padded" else layout)
     if layout == "padded":
@@ -1497,6 +1496,89 @@ def test_token_logprob_reports_how_it_loads_w(card, layout, V, fwd, bwd_scalar):
     assert chunks == -(-V // tlp.backward_plan(R, d, V).vc)
     scalar = chunks if bwd_scalar == "all" else bwd_scalar
     assert tlp.BWD_W_VECTOR.n - b0 == chunks - scalar
+
+
+def _strided_w(card, d, V, major, pad):
+    """W [d, V] in bf16 as a view of a wider table: major 'k', the
+    transpose of a [V, d + pad] table's first d columns (k contiguous, rows
+    d + pad apart); 'v', the first V columns of a [d, V + pad] head."""
+    if major == "k":
+        table = torch.randn(V, d + pad, generator=card, device="cuda") * 0.02
+        return table.bfloat16()[:, :d].T
+    head = torch.randn(d, V + pad, generator=card, device="cuda") * 0.02
+    return head.bfloat16()[:, :V]
+
+
+@pytest.mark.parametrize("major,pad,route,width", [
+    ("k", 0, "tma", 16), ("k", 4, "cp.async", 8), ("k", 2, "cp.async", 4),
+    ("k", 1, "loads", 2), ("v", 5, "tma", 16), ("v", 1, "cp.async", 8),
+    ("v", 3, "cp.async", 4), ("v", 0, "loads", 2)])
+def test_token_logprob_every_w_route_and_major(card, major, pad, route, width):
+    """Each route of W's tiles (TMA; the kernel's copies at 8 and 4 bytes;
+    2-byte loads) for either contiguous dimension of W, through both
+    products (the logits, where the tied table's tiles are k-major and the
+    untied head's n-major, and dz @ W^T, the other way round): a softcap,
+    targets on the first and last vocab columns, ragged R and V; the
+    forward and backward against the plain versions, two calls of each
+    bit-identical, and the launchers report 16-byte loads of W exactly
+    where w_feed picked them (TMA)."""
+    R, d, V = 129, 1024, 5003
+    w = _strided_w(card, d, V, major, pad)
+    feed = tlp.w_feed(w.data_ptr(), tuple(w.shape), w.stride())
+    assert (feed.route, feed.width, feed.major) == (route, width, major)
+    h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
+    t = torch.tensor(([0, V - 1] * R)[:R], dtype=torch.int32, device="cuda")
+    f0, b0, n0 = tlp.FWD_W_VECTOR.n, tlp.BWD_W_VECTOR.n, tlp.BWD_CUDA_LAUNCHES.n
+    _, ent, lse = _assert_bf16_forward(h, w, t, 30.0)
+    assert tlp.FWD_W_VECTOR.n - f0 == 2 * (width == 16)
+    g_lp = torch.randn(R, generator=card, device="cuda") / R
+    g_ent = torch.randn(R, generator=card, device="cuda") / R
+    dh = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, 30.0)
+    chunks = (tlp.BWD_CUDA_LAUNCHES.n - n0 - 1) // 2
+    assert tlp.BWD_W_VECTOR.n - b0 == chunks * (width == 16)
+    again = tlp.token_logprob_bwd(h, w, t, lse, ent, g_lp, g_ent, 30.0)
+    _assert_bf16_dh(dh, again, ref.token_logprob_bwd_ref(h, w, t, lse, ent, g_lp,
+                                                          g_ent, 30.0))
+
+
+@pytest.mark.parametrize("R", [1, 63, 65, 127, 129, 624])
+def test_token_logprob_ragged_rows_at_the_warpgroup_edges(card, R):
+    """Rows ending inside a consumer warpgroup's 64 (63, 65), at and past a
+    128-row tile (127, 129), one row, and qwen3's 624, on the tied table:
+    forward and backward against the plain versions, two calls of each
+    bit-identical."""
+    _assert_bf16_dh(*_bf16_forward_backward(card, R, 1024, 5003, "tied", 0.0))
+
+
+@pytest.mark.parametrize("layout", ["tied", "untied"])
+@pytest.mark.parametrize("d", [1536, 100])
+def test_token_logprob_at_other_widths(card, d, layout):
+    """d = 1536 (24 K-steps of 64; mamba2-780m's width) and d = 100 (h's
+    rows 200 bytes: h comes by the kernel's 8-byte copies, not TMA, and the
+    last K-step is ragged), R = 65, both layouts."""
+    _assert_bf16_dh(*_bf16_forward_backward(card, 65, d, 5003, layout, 30.0))
+
+
+def test_token_logprob_padded_ragged_head_takes_tma_everywhere(card):
+    """A [:, :5003] view of a head whose rows are padded to 5008 (as
+    init_params pads an untied head): the forward and every backward chunk
+    take W by TMA (the zero fill past V covers the ragged last tile), and
+    both match the plain versions."""
+    R, d, V = 300, 1024, 5003
+    w = _strided_w(card, d, V, "v", 5)
+    assert w.stride() == (5008, 1)
+    h = torch.randn(R, d, generator=card, device="cuda").bfloat16()
+    t = torch.randint(0, V, (R,), generator=card, device="cuda", dtype=torch.int32)
+    f0 = tlp.FWD_W_VECTOR.n
+    _, ent, lse = _assert_bf16_forward(h, w, t, 0.0)
+    assert tlp.FWD_W_VECTOR.n - f0 == 2
+    g = torch.full((R,), 1.0 / R, device="cuda")
+    b0, n0 = tlp.BWD_W_VECTOR.n, tlp.BWD_CUDA_LAUNCHES.n
+    dh = tlp.token_logprob_bwd(h, w, t, lse, ent, g, g)
+    chunks = (tlp.BWD_CUDA_LAUNCHES.n - n0 - 1) // 2
+    assert chunks >= 1 and tlp.BWD_W_VECTOR.n - b0 == chunks
+    again = tlp.token_logprob_bwd(h, w, t, lse, ent, g, g)
+    _assert_bf16_dh(dh, again, ref.token_logprob_bwd_ref(h, w, t, lse, ent, g, g))
 
 
 def test_encdec_step_builders_on_card_match_cpu(card):

@@ -175,14 +175,18 @@ def test_vocab_split_covers_the_vocabulary():
 
 @pytest.mark.parametrize("R,d,V", [(R, 1024, 151936) for R in (1, 624, 4096)]
                          + [(R, 2048, 49155) for R in (1, 624, 4096)]
-                         + [(R, 1024, 129) for R in (1, 624, 4096)])
+                         + [(R, 1024, 129) for R in (1, 624, 4096)]
+                         + [(624, 2048, 102400), (4096, 1024, 256206)])
 def test_backward_plan_covers_the_work_once(R, d, V):
-    """qwen3 (d=1024, V=151936), granite-3-2b (d=2048, V=49155) and a tiny
-    vocabulary: every vocab column in exactly one chunk, every K column of
-    a chunk's padded width in exactly one piece, no more blocks than one
-    wave of the card's slots, and the scratch under the limit."""
+    """qwen3 (d=1024, V=151936), granite-3-2b (d=2048, V=49155), a tiny
+    vocabulary, deepseek-moe's head (one chunk, one piece: the scratch
+    nearest the limit) and seamless's: every vocab column in exactly one
+    chunk, every K column of a chunk's padded width in exactly one piece,
+    no more blocks than one wave of the card's slots (ptl._MM_SLOTS, one
+    block an SM), and the scratch under the limit even as the CUDA caching
+    allocator rounds each of its two buffers up to 2 MiB."""
     plan = ptl.backward_plan(R, d, V)
-    assert plan.vc % 128 == 0 and plan.piece % 32 == 0
+    assert plan.vc % ptl._TILE == 0 and plan.piece % ptl._TK == 0
     cover = np.zeros(V, np.int64)
     for v0 in range(0, V, plan.vc):
         cover[v0:v0 + plan.vc] += 1
@@ -193,9 +197,11 @@ def test_backward_plan_covers_the_work_once(R, d, V):
         assert (k_cover == 1).all()
     assert (cover == 1).all()
     tiles = -(-R // 128) * -(-d // 128)
-    assert tiles * plan.splits <= max(264, tiles)
+    assert tiles * plan.splits <= max(ptl._MM_SLOTS, tiles)
     assert plan.scratch_bytes == R * plan.vc * 2 + plan.splits * R * d * 4
-    assert plan.scratch_bytes <= ptl.SCRATCH_LIMIT
+    blocks = [R * plan.vc * 2, plan.splits * R * d * 4]
+    assert sum(-(-b // (2 << 20)) * (2 << 20) for b in blocks) \
+        <= ptl.SCRATCH_LIMIT
 
 
 def _two_product_dh(h, w, t, lse, ent, g_lp, g_ent, softcap, plan):
@@ -272,7 +278,7 @@ def test_forward_plan_covers_the_vocabulary(R, d, V):
     """At the backward plan's shapes: every 128-column vocab tile in exactly
     one slice, no empty slice, at least a few tiles a slice where V has
     them, and the blocks (row tiles x slices) in whole waves of the card's
-    264 slots or fewer than one."""
+    block slots (ptl._MM_SLOTS) or fewer than one."""
     plan = ptl.forward_plan(R, V)
     n_tiles = -(-V // 128)
     cover = np.zeros(n_tiles, np.int64)
@@ -284,7 +290,8 @@ def test_forward_plan_covers_the_vocabulary(R, d, V):
     assert (cover == 1).all()
     assert plan.slice_tiles >= min(4, n_tiles)
     blocks = -(-R // 128) * plan.vsplit
-    assert blocks <= 264 or blocks % 264 == 0, (blocks, plan)
+    assert blocks <= ptl._MM_SLOTS or blocks % ptl._MM_SLOTS == 0, (blocks,
+                                                                    plan)
 
 
 _NEG = -1e30
@@ -368,3 +375,55 @@ def test_unmasked_zero_fill_corrupts_the_lse():
     _, bad_ent, bad_lse = _tiled_forward(ph, pw, pt, 0.0, plan, mask=False)
     assert float((bad_lse - lse).abs().min()) > 1e-3
     assert float((bad_ent - ent).abs().max()) > 1e-3
+
+
+# The bf16 kernels bring W's tiles to shared memory by TMA where its address
+# and strides allow it, else by the kernels' own copies into the same
+# swizzled layout; the wrapper picks the route (w_feed) from the pointer,
+# shape and strides alone, and the C launchers refuse a TMA route they cannot
+# take. torch.empty: the two 256206-wide heads are never touched.
+
+def _head(kind):
+    bf16 = torch.bfloat16
+    if kind == "tied":               # the [V, d] embedding read as W = table.T
+        return torch.empty(151936, 1024, dtype=bf16).T
+    if kind == "padded":             # init_params' [:, :V] view of rows of 256208
+        return torch.empty(1024, 256208, dtype=bf16)[:, :256206]
+    if kind == "contiguous":         # the same head copied: rows of 512412 bytes
+        return torch.empty(1024, 256206, dtype=bf16)
+    if kind == "odd":                # an untied head at V = 5003: 2-byte rows
+        return torch.empty(1024, 5003, dtype=bf16)
+    if kind == "offset4":            # a view 4 bytes into 16-byte rows
+        return torch.empty(1024, 5008, dtype=bf16)[:, 2:5005]
+    if kind == "view_k":             # strided views of larger tables, as in the
+        return torch.empty(3 * 5003, 2 * 1024, dtype=bf16)[::3, ::2].T  # card
+    if kind == "view_v":             # tests: neither stride is 1
+        return torch.empty(2 * 1024, 3 * 5003, dtype=bf16)[::2, ::3]
+    if kind == "overlap":            # 16-byte rows that overlap the next one
+        return torch.empty(1023 * 8 + 5003, dtype=bf16).as_strided(
+            (1024, 5003), (8, 1))
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("tied", ("tma", 16, "k")), ("padded", ("tma", 16, "v")),
+    ("contiguous", ("cp.async", 4, "v")), ("odd", ("loads", 2, "v")),
+    ("offset4", ("cp.async", 4, "v")), ("view_k", ("loads", 2, "k")),
+    ("view_v", ("loads", 2, "v")), ("overlap", ("cp.async", 16, "v"))])
+def test_w_feed_routes_w_by_address_and_strides(kind, want):
+    """TMA for the tied transpose and the row-padded untied head (16-byte
+    aligned rows no shorter than the contiguous extent); the kernel's
+    cp.async copies, 4 bytes wide, for the contiguous head at V = 256206
+    (rows 4 bytes aligned) and a view whose base is 4 bytes into an aligned
+    row, 16 bytes wide for aligned rows that overlap the next one (no
+    tensor TMA can describe); 2-byte loads for an odd row stride and for
+    views with no unit stride. The route follows the pointer too: the same
+    strides from an aligned base take TMA."""
+    w = _head(kind)
+    assert w.data_ptr() % 16 == (4 if kind == "offset4" else 0)
+    feed = ptl.w_feed(w.data_ptr(), tuple(w.shape), w.stride())
+    assert tuple(feed) == want
+    if kind == "offset4":
+        assert ptl.w_feed(w.data_ptr() - 4, tuple(w.shape), w.stride()).route \
+            == "tma"
+
